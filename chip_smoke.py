@@ -18,7 +18,21 @@ Phases, each printed as it runs; any failure exits non-zero:
      full width of smollm-360m (32 layers, random weights from seed 0)
      through the serving loop with predictive admission, and every kernel
      launch is counted; then one request is teacher-forced through the
-     kernel path and through the plain versions on the card.
+     kernel path and through the plain versions on the card;
+  6. the SSD-scan kernel against its plain version: the serving call of
+     mamba2-2.7b (b=1, s=512, 80 heads, p=64, n=128, chunk 256, with an
+     incoming state), a ragged 96-token tail chunk, and the mixer shape of
+     mamba2-2.7b.reduced();
+  7. the batched-over-layers paged decode kernel through its op entry at
+     smollm-360m's full width (32 layers of phase 3's case), against 32
+     per-layer launches and the plain version;
+  8. end to end at mamba2-2.7b's full width (64 layers, random weights
+     from seed 0): nine requests through one StateCheckpointWorker (the
+     launcher's first 8 plus one that shares the first's 1024-token
+     prefix, so a checkpoint restore runs), each then decoded greedily
+     with decode_step; SSD-scan launches counted; the restored request's
+     first token against a cold prefill; one request teacher-forced
+     through the kernel path and the plain path on the card.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -38,6 +52,10 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_S = 3.35e12       # H100 SXM device memory rate
 BF16_FLOP_S = 989e12        # H100 SXM dense bf16 tensor-core peak
 TOL = 2e-2                  # kernel vs plain, bf16 (tests/test_kernels.py)
+# SSD scan, kernel vs plain: both compute in fp32 and differ only in the
+# order of their sums, so the reference's fp32 scan tolerance (5e-3,
+# tests/test_kernels.py:155), taken relative to the output's scale
+SSD_TOL = 5e-3
 
 
 def log(msg: str) -> None:
@@ -61,7 +79,9 @@ class Timer:
 
     The GPU is first parked on a spin long enough for the host to queue
     every timed call, so the events measure device time and not the
-    Python wrapper's host time between them."""
+    Python wrapper's host time between them. The spin is sized from the
+    host time of queueing one call (a plain version issues tens of
+    launches), with a floor of ~25 ms."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -72,7 +92,12 @@ class Timer:
         for _ in range(warmup):
             fn()
         torch.cuda.synchronize()
-        torch.cuda._sleep(50_000_000)       # ~25 ms at H100 clocks
+        t0 = time.monotonic()
+        fn()
+        queue_s = time.monotonic() - t0
+        torch.cuda.synchronize()
+        # ~2e9 spin cycles a second at H100 clocks; 1.5x the queueing time
+        torch.cuda._sleep(int(max(50_000_000, 3e9 * queue_s * iters)))
         pairs = []
         for _ in range(iters):
             self.flush.zero_()
@@ -103,7 +128,16 @@ def paged_case(torch, *, B, H, KV, D, page, max_pages, P, lens, qh2kv, seed):
     vp = torch.randn(P, page, KV, D, generator=g, device=dev).bfloat16()
     kp[0] = 1e4                       # poison the null page
     vp[0] = -1e4
-    table = torch.zeros(B, max_pages, dtype=torch.int32)
+    return (q, kp, vp) + paged_table(torch, lens=lens, page=page,
+                                     max_pages=max_pages, P=P, qh2kv=qh2kv,
+                                     seed=seed)
+
+
+def paged_table(torch, *, lens, page, max_pages, P, qh2kv, seed):
+    """Block table of distinct random pages (never the null page 0) for
+    ragged lengths; (table, lengths, head map or None) on the card."""
+    dev = "cuda"
+    table = torch.zeros(len(lens), max_pages, dtype=torch.int32)
     perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(seed))
     nxt = 0
     for b, n in enumerate(lens):
@@ -114,7 +148,7 @@ def paged_case(torch, *, B, H, KV, D, page, max_pages, P, lens, qh2kv, seed):
     lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
     m = None if qh2kv is None else torch.tensor(qh2kv, dtype=torch.int32,
                                                 device=dev)
-    return q, kp, vp, table, lens_t, m
+    return table, lens_t, m
 
 
 def check_paged(torch, timer, name, case, main: bool):
@@ -248,7 +282,7 @@ def teacher_forced(torch, params, cfg, prompt, stream, chunk=256, page=64):
     return torch.stack(rows)
 
 
-def end_to_end(torch):
+def e2e_smollm(torch):
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_prefill.kernel import flash_prefill
     from repro_torch.kernels.paged_attention.kernel import paged_attention
@@ -317,6 +351,269 @@ def end_to_end(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: SSD scan
+# ---------------------------------------------------------------------------
+
+def ssd_case(torch, *, b, s, h, p, n, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    x = torch.randn(b, s, h, p, generator=g, device=dev).bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=g, device=dev))
+    A = -torch.exp(0.5 * torch.randn(h, generator=g, device=dev))
+    B = torch.randn(b, s, n, generator=g, device=dev).bfloat16()
+    C = torch.randn(b, s, n, generator=g, device=dev).bfloat16()
+    h0 = torch.randn(b, h, p, n, generator=g, device=dev)
+    return x, dt, A, B, C, h0
+
+
+def check_ssd(torch, timer, name, *, b, s, h, p, n, chunk, seed, main):
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    x, dt, A, B, C, h0 = ssd_case(torch, b=b, s=s, h=h, p=p, n=n, seed=seed)
+    y, hT = ssd_scan(x, dt, A, B, C, h0, chunk=chunk)
+    torch.cuda.synchronize()
+    y_r, h_r = ssd_chunked(x, dt, A, B, C, chunk, h0=h0)
+    errs = []
+    for what, o, r in (("y", y, y_r), ("hT", hT, h_r)):
+        err = (o - r).abs().max().item()
+        tol = SSD_TOL * max(1.0, r.abs().max().item())
+        finite = bool(torch.isfinite(o).all())
+        log(f"ssd[{name}]: b={b} s={s} h={h} p={p} n={n} chunk={chunk} "
+            f"{what} max_abs_err={err:.3e} (tol {tol:.3e} = {SSD_TOL} x "
+            f"max(1, max|ref|)) finite={finite}")
+        if not (err <= tol and finite):
+            raise AssertionError(f"SSD scan kernel disagrees ({name}, {what})")
+        errs.append(err)
+    if not main:
+        return None
+    ms = timer.ms(lambda: ssd_scan(x, dt, A, B, C, h0, chunk=chunk))
+    plain_ms = timer.ms(lambda: ssd_chunked(x, dt, A, B, C, chunk, h0=h0))
+    # bytes: every input read once, y and hT written once (fp32)
+    n_bytes = x.numel() * 2 + dt.numel() * 4 + A.numel() * 4 \
+        + (B.numel() + C.numel()) * 2 + h0.numel() * 4 \
+        + y.numel() * 4 + hT.numel() * 4
+    # operations the function needs: C·Bᵀ once per chunk (B, C are shared
+    # by every head; causal half), and per head the masked product with
+    # x·dt (causal half), the incoming-state term and the state update
+    c = s // chunk
+    tri = chunk * (chunk + 1) / 2
+    n_flops = b * c * (2.0 * tri * n + h * (2.0 * tri * p
+                                            + 2 * 2.0 * chunk * n * p))
+    b_ms, b_by = bound(n_bytes, n_flops)
+    log(f"ssd[{name}]: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"none (no single PyTorch call computes the scan), bound "
+        f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
+        f"{n_flops / 1e9:.3f} GFLOP)")
+    return dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+# ---------------------------------------------------------------------------
+# phase 7: paged decode, all layers in one launch
+# ---------------------------------------------------------------------------
+
+def check_paged_layers(torch, timer, *, L, B, H, KV, D, page, max_pages, P,
+                       lens, qh2kv, seed):
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention, paged_attention_layers)
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention_layers)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_layers_ref)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    qs = torch.randn(L, B, H, D, generator=g, device=dev).bfloat16()
+    kp = torch.randn(L, P, page, KV, D, generator=g, device=dev).bfloat16()
+    vp = torch.randn(L, P, page, KV, D, generator=g, device=dev).bfloat16()
+    kp[:, 0] = 1e4                       # poison every layer's null page
+    vp[:, 0] = -1e4
+    table, lens_t, m = paged_table(torch, lens=lens, page=page,
+                                   max_pages=max_pages, P=P, qh2kv=qh2kv,
+                                   seed=seed)
+    # this phase's path: the op entry, counted from zero
+    paged_attention_layers.launches = 0
+    out = paged_decode_attention_layers(qs, kp, vp, table, lens_t, qh2kv=m)
+    torch.cuda.synchronize()
+    launches = paged_attention_layers.launches
+    per_layer = torch.stack([paged_attention(qs[l], kp[l], vp[l], table,
+                                             lens_t, m) for l in range(L)])
+    ref = paged_attention_layers_ref(qs, kp, vp, table, lens_t, qh2kv=m)
+    torch.cuda.synchronize()
+    exact = torch.equal(out, per_layer)
+    err = (out.float() - ref.float()).abs().max().item()
+    finite = bool(torch.isfinite(out.float()).all())
+    log(f"paged_layers: L={L} B={B} H={H} KV={KV} D={D} lens={lens} "
+        f"launches={launches}; == {L} per-layer launches: {exact}; vs plain "
+        f"max_abs_err={err:.3e} (tol {TOL}) finite={finite}")
+    if launches != 1 or not exact or not (err <= TOL and finite):
+        raise AssertionError("paged layers kernel disagrees")
+    ms = timer.ms(lambda: paged_attention_layers(qs, kp, vp, table, lens_t, m))
+    per_ms = timer.ms(lambda: [paged_attention(qs[l], kp[l], vp[l], table,
+                                               lens_t, m) for l in range(L)])
+    plain_ms = timer.ms(lambda: paged_attention_layers_ref(
+        qs, kp, vp, table, lens_t, qh2kv=m), iters=5, warmup=1)
+    # library yardstick: SDPA with the layers folded into the batch, on
+    # pre-gathered, head-expanded KV (the gather is excluded)
+    S = table.shape[1] * page
+    ml, tl = m.long(), table.long()
+    kx = kp[:, tl].reshape(L * B, S, KV, D)[:, :, ml].transpose(1, 2)
+    vx = vp[:, tl].reshape(L * B, S, KV, D)[:, :, ml].transpose(1, 2)
+    kx, vx = kx.contiguous(), vx.contiguous()
+    mask = torch.arange(S, device=dev)[None, :] < lens_t[:, None].long()
+    mask = mask.repeat(L, 1)[:, None, None, :]
+    qx = qs.reshape(L * B, H, 1, D)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = timer.ms(lambda: sdpa(qx, kx, vx, attn_mask=mask))
+    del kx, vx
+    toks = int(lens_t.sum())
+    n_bytes = L * ((qs[0].numel() + out[0].numel()) * 2
+                   + toks * KV * D * 2 * 2) \
+        + (table.numel() + lens_t.numel() + m.numel()) * 4
+    n_flops = 4.0 * D * H * toks * L
+    b_ms, b_by = bound(n_bytes, n_flops)
+    log(f"paged_layers: one launch {ms:.4f} ms, {L} per-layer launches "
+        f"{per_ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA, layers "
+        f"folded into the batch, gather excluded) {lib_ms:.4f} ms, bound "
+        f"{b_ms:.5f} ms ({b_by}: {n_bytes / 1e6:.2f} MB, "
+        f"{n_flops / 1e9:.3f} GFLOP)")
+    return launches, dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: end to end, mamba2-2.7b
+# ---------------------------------------------------------------------------
+
+def mamba_teacher_forced(torch, params, cfg, prompt, stream, block=512):
+    """Logits of every position a served stream was sampled from: the
+    prompt prefilled in the worker's 512-token blocks, then one
+    ``decode_step`` per stream token."""
+    from repro_torch.models.transformer import decode_step, prefill
+    t = torch.as_tensor(prompt[None, :].astype("int64"), device="cuda")
+    lg, caches = prefill(params, t[:, :block], cfg)
+    for lo in range(block, len(prompt), block):
+        lg, caches = decode_step(params, t[:, lo:lo + block], caches, cfg)
+        lg = lg[:, -1]
+    rows = [lg[0]]
+    for tok in stream[:-1]:
+        tk = torch.tensor([[tok]], dtype=torch.int64, device="cuda")
+        lg, caches = decode_step(params, tk, caches, cfg)
+        rows.append(lg[0, -1])
+    return torch.stack(rows)
+
+
+def e2e_mamba(torch):
+    import numpy as np
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.cache import ssm_state_bytes
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+    from repro_torch.launch.serve import make_payloads
+    from repro_torch.models.layers import plain_attention
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                prefill)
+    from repro_torch.serving.engine import StateCheckpointWorker
+    cfg = get_config("mamba2-2.7b")
+    s = cfg.ssm
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in [params["embed"], params["final_ln"]]
+                + list(params["mamba"].values()))
+    log(f"mamba2-2.7b full width: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {s.n_heads(cfg.d_model)} SSM heads of {s.head_dim}, "
+        f"d_state {s.d_state}, d_inner {s.d_inner(cfg.d_model)}, chunk "
+        f"{s.chunk}, vocab {cfg.vocab_size}; {n_par / 1e9:.3f} B params "
+        f"built on the card in {time.monotonic() - t0:.1f} s; one checkpoint "
+        f"{ssm_state_bytes(cfg) / 1e6:.1f} MB")
+
+    payloads = make_payloads(12, cfg.vocab_size, max_new=16, seed=0)[:8]
+    first = payloads[0][1]
+    if len(first) < 1024:
+        raise AssertionError("the first request is shorter than 1024 tokens")
+    suffix = np.random.default_rng(0).integers(0, cfg.vocab_size, 64)
+    shared = np.concatenate([first[:1024], suffix]).astype(first.dtype)
+    # 15 distinct checkpoints among the 8 requests evict the first
+    # request's from an 8-checkpoint store before the last request, so the
+    # sharing request is submitted right after the first
+    reqs = [(payloads[0][0], payloads[0][1])] + [(100, shared)] \
+        + [(rid, toks) for rid, toks, _, _ in payloads[1:]]
+    max_new = 16
+
+    worker = StateCheckpointWorker(params, cfg, capacity_checkpoints=8)
+    ssd_scan.launches = 0
+    outputs, ttft, tpot, restored = {}, {}, [], {}
+    for rid, toks in reqs:
+        before = worker.counters["restored_tokens"]
+        t_submit = time.monotonic()
+        tok, caches = worker(toks)          # argmax syncs the device
+        ttft[rid] = time.monotonic() - t_submit
+        restored[rid] = worker.counters["restored_tokens"] - before
+        stream = [tok]
+        while len(stream) < max_new:
+            t1 = time.monotonic()
+            lg, caches = decode_step(
+                params, torch.tensor([[stream[-1]]], device="cuda"), caches,
+                cfg)
+            stream.append(int(torch.argmax(lg[0, -1])))
+            tpot.append(time.monotonic() - t1)
+        outputs[rid] = stream
+    torch.cuda.synchronize()
+    launches = ssd_scan.launches
+    st = worker.stats()
+    log("e2e mamba: TTFT per request (ms): " + ", ".join(
+        f"{rid}:{len(t)}tok/{ttft[rid] * 1e3:.1f}" for rid, t in reqs))
+    log(f"e2e mamba: decode {np.mean(tpot) * 1e3:.2f} ms/token mean, "
+        f"{np.percentile(tpot, 50) * 1e3:.2f} p50, "
+        f"{np.percentile(tpot, 99) * 1e3:.2f} p99 over {len(tpot)} steps; "
+        f"restored_tokens {st['restored_tokens']} computed_tokens "
+        f"{st['computed_tokens']}, {st['checkpoints']} checkpoints held, "
+        f"{worker.meta.evictions} evicted; restored per request "
+        f"{restored}")
+    log(f"e2e mamba launches: ssd_scan {launches} (= {cfg.n_layers} x "
+        f"{worker.scan_calls} worker calls that reach the scan)")
+    if launches != cfg.n_layers * worker.scan_calls or not launches:
+        raise AssertionError("ssd_scan launches do not match layers x calls")
+    if st["restored_tokens"] < 1024 or restored[100] < 1024:
+        raise AssertionError("no checkpoint restore of >= 1024 tokens ran")
+    for rid, out in outputs.items():
+        if len(out) != max_new or not all(0 <= t < cfg.vocab_size
+                                          for t in out):
+            raise AssertionError(f"request {rid}: bad stream {out}")
+
+    # the restored request's first token against a cold prefill
+    t = torch.as_tensor(shared[None].astype("int64"), device="cuda")
+    cold, _ = prefill(params, t, cfg)
+    top2 = torch.topk(cold[0], 2).values
+    log(f"restore vs cold: first token {outputs[100][0]} (restored "
+        f"{restored[100]} tokens) vs cold prefill {int(cold[0].argmax())}; "
+        f"cold top-2 gap {(top2[0] - top2[1]).item():.4f}")
+    if outputs[100][0] != int(cold[0].argmax()):
+        raise AssertionError("restored first token differs from cold prefill")
+
+    rid, prompt = reqs[0]
+    stream = outputs[rid]
+    lk = mamba_teacher_forced(torch, params, cfg, prompt, stream)
+    with plain_attention():
+        lp = mamba_teacher_forced(torch, params, cfg, prompt, stream)
+    torch.cuda.synchronize()
+    err = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    tol = 4 * 2.0 ** (math.floor(math.log2(scale)) - 7)
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    finite = bool(torch.isfinite(lk).all())
+    log(f"teacher forcing (request {rid}, prompt {len(prompt)}, "
+        f"{len(stream)} positions, logits {tuple(lk.shape)}): kernel vs plain "
+        f"max_abs_err {err:.4f} (max |logit| {scale:.3f}; tol {tol:.4f} = 4 "
+        f"bf16 ulps), greedy agreement {agree:.4f}, kernel argmax == served "
+        f"stream: {lk.argmax(-1).cpu().tolist() == stream}")
+    if not finite or err > tol or lk.shape != (max_new, cfg.padded_vocab):
+        raise AssertionError("SSM kernel path and plain path disagree")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -371,7 +668,23 @@ def main() -> int:
         pre = r or pre
 
     phase("5 end to end, smollm-360m full width")
-    launches = end_to_end(torch)
+    launches = e2e_smollm(torch)
+
+    phase("6 SSD-scan kernel vs plain (card)")
+    ssd = check_ssd(torch, timer, "mamba2-2.7b", b=1, s=512, h=80, p=64,
+                    n=128, chunk=256, seed=6, main=True)
+    check_ssd(torch, timer, "tail-96", b=1, s=96, h=80, p=64, n=128,
+              chunk=96, seed=7, main=False)
+    check_ssd(torch, timer, "reduced", b=1, s=256, h=32, p=16, n=16,
+              chunk=32, seed=8, main=False)
+
+    phase("7 paged decode, all layers in one launch, vs per layer and plain")
+    layers_launches, layers = check_paged_layers(
+        torch, timer, L=32, B=8, H=16, KV=5, D=64, page=64, max_pages=32,
+        P=289, lens=lens, qh2kv=smollm_map, seed=0)
+
+    phase("8 end to end, mamba2-2.7b full width")
+    ssd_launches = e2e_mamba(torch)
 
     kernels = [
         dict(name="paged_attention", route="cuda",
@@ -382,6 +695,14 @@ def main() -> int:
              source="src/repro_torch/csrc/flash_prefill.cu",
              replaces="src/repro/kernels/flash_prefill/kernel.py:83",
              launches=launches["flash_prefill"], **pre),
+        dict(name="paged_attention_layers", route="cuda",
+             source="src/repro_torch/csrc/paged_attention.cu",
+             replaces="src/repro/kernels/paged_attention/kernel.py:157",
+             launches=layers_launches, **layers),
+        dict(name="ssd_scan", route="cuda",
+             source="src/repro_torch/csrc/ssd_scan.cu",
+             replaces="src/repro/kernels/ssd_scan/kernel.py:79",
+             launches=ssd_launches, **ssd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

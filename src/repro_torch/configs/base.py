@@ -1,5 +1,6 @@
 """Model configuration for the PyTorch port (own copy of the reference's
-``repro/configs/base.py``, cut to what the serving main path reads).
+``repro/configs/base.py``, cut to what the ported dense and SSM serving
+paths read).
 
 Derived quantities, as in the reference:
   * ``padded_heads`` — query heads padded up to a multiple of 16
@@ -41,9 +42,30 @@ class CacheTierSpec:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 mixer shape (one B/C group, the only one the reference's
+    configs use and the SSD kernel takes)."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256  # SSD chunk length
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+    def conv_channels(self, d_model: int) -> int:
+        """Channels of the causal conv: x, B and C."""
+        return self.d_inner(d_model) + 2 * self.d_state
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
-    kind: str  # dense (the only family this package serves so far)
+    kind: str  # dense | ssm (the families this package serves so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -51,6 +73,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 128
+    ssm: Optional[SSMConfig] = None
     qk_norm: bool = False
     attn_bias: bool = False
     sliding_window: int = 0  # 0 = full attention
@@ -67,10 +90,20 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return _pad_to(self.vocab_size, 256)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.kind == "ssm"
+
+    @property
+    def attention_layers(self) -> int:
+        """Number of layers that carry a KV cache."""
+        return 0 if self.kind == "ssm" else self.n_layers
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant, identical to the reference's ``reduced()``
-        for dense configs: 2 layers, d_model ≤ 256, 4 query heads (padded
-        to 16), head_dim 32, vocab 512."""
+        for dense and SSM configs: 2 layers, d_model ≤ 256, 4 query heads
+        (padded to 16), head_dim 32, vocab 512; an SSM mixer shrinks to
+        d_state 16, head_dim 16, chunk 32."""
         d = min(self.d_model, 256)
         kw: dict = dict(
             name=self.name + "-reduced",
@@ -82,6 +115,9 @@ class ModelConfig:
             d_ff=max(128, d * 2),
             vocab_size=512,
         )
+        if self.ssm is not None:
+            kw["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=16, chunk=32)
         if self.sliding_window:
             kw["sliding_window"] = 64
         return dataclasses.replace(self, **kw)
@@ -110,6 +146,6 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     import importlib
-    for mod in ("smollm_360m", "qwen2_5_3b"):
+    for mod in ("smollm_360m", "qwen2_5_3b", "mamba2_2_7b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
     _LOADED = True

@@ -1,7 +1,8 @@
 """Host KVCache pool metadata (Figure 3) with LRU eviction — the port's
 own copy of what the serving path uses of the reference's
-``core/cache.py`` (the other Table 1 policies, pinning and the SSM
-``StateCache`` come with the tiers and families that use them).
+``core/cache.py``: ``CachePool`` for KV blocks and ``StateCache`` for
+SSM state checkpoints (the other Table 1 policies and pinning come with
+the tiers that use them).
 
 A *block* is 512 tokens of KVCache identified by a prefix-chained hash id
 (the trace's ``hash_ids``). ``CachePool`` tracks block residency and
@@ -120,3 +121,42 @@ class CachePool:
         self.blocks.pop(key, None)
         self.policy.on_evict(key)
         self.evictions += 1
+
+
+class StateCache(CachePool):
+    """SSM prefix cache: one *state checkpoint* per block boundary instead
+    of a KV slab. A hit on chain position k restores the recurrent state
+    after 512·(k+1) tokens and skips that much prefill. Only the
+    *deepest* hit matters (states subsume their prefixes), and a transfer
+    is constant-size (``ssm_state_bytes``)."""
+
+    def deepest_hit(self, hash_ids: list[int]) -> int:
+        """Deepest resident checkpoint on this chain (0 = none).
+        Unlike KV blocks, a checkpoint at depth k alone suffices."""
+        best = 0
+        for i, h in enumerate(hash_ids):
+            if h in self.blocks:
+                best = i + 1
+        return best
+
+    def lookup(self, hash_ids: list[int], touch: bool = True) -> int:
+        best = self.deepest_hit(hash_ids)
+        if touch and best:
+            h = hash_ids[best - 1]
+            meta = self.blocks[h]
+            meta.hits += 1
+            self.policy.on_hit(h, meta)
+            self.hits += best
+            self.misses += len(hash_ids) - best
+        elif touch:
+            self.misses += len(hash_ids)
+        return best
+
+
+def ssm_state_bytes(cfg) -> int:
+    """Bytes of one SSM state checkpoint (fp32 state + bf16 conv tail)."""
+    if cfg.ssm is None:
+        return 0
+    s = cfg.ssm
+    return cfg.n_layers * (s.n_heads(cfg.d_model) * s.head_dim * s.d_state * 4
+                           + (s.d_conv - 1) * s.conv_channels(cfg.d_model) * 2)

@@ -4,6 +4,14 @@
 // (_paged_kernel), the Pallas TPU kernel of one continuous-batching decode
 // step, and covers what its dispatcher turned down (_kernel_ok): an
 // explicit query-head -> KV-head map (qh2kv) and a sliding window.
+// The second entry, paged_attention_layers_bf16, replaces
+// kernel.py::paged_attention_layers (_paged_kernel_layers): the same
+// attention for all L layers of a stacked (L, P, page, KV, D) store in one
+// launch, one block table and one set of lengths shared by every layer.
+// Both entries run the same kernels: the layer index rides the grid's x
+// axis (x = layer·H + head), so layer l of a layers call does exactly the
+// arithmetic of a per-layer call on layer l's slabs (a per-layer call is
+// the L = 1 case).
 //
 // Computes, for every slot b and query head h:
 //   o[b,h,:] = softmax_t( q[b,h,:]·k_t / sqrt(D) ) · v_t
@@ -16,17 +24,18 @@
 // per (head, token) against 4·D bytes of K/V per (kv head, token), far
 // below the ~295 flop/byte ridge. Least time = K/V bytes of the live
 // spans / 3.35 TB/s — a few microseconds on the serving path, so latency
-// (dependent loads, idle SMs, launches) is what a simple kernel loses to.
+// (dependent loads, idle SMs, launches) is what a simple kernel loses to;
+// the layers entry pays the launch latency once for L layers.
 //
 // Design: a split over tokens with a log-sum-exp combine, two passes per
-// call. Pass 1 runs one block per (query head, slot, 256-token split),
+// call. Pass 1 runs one block per (layer, query head, slot, 256-token split),
 // 4 warps; empty splits exit at once. Each warp takes 32-token tiles:
 // lane j loads token j's whole K row and V row with 16-byte vector loads
 // (all independent, so a tile's loads are in flight together), computes
 // its score, and parks its V row in shared memory; the warp then does an
 // online-softmax update and accumulates P·V from shared memory, each lane
 // owning D/32 output dims. The block writes its unnormalised (acc, max,
-// sum) partial. Pass 2 runs one block per (query head, slot) and combines
+// sum) partial. Pass 2 runs one block per (layer, query head, slot) and combines
 // the splits. Query heads sharing a KV head re-read it through L2 — the
 // map is irregular (KV head 0 serves 4 of 16 heads at smollm-360m's full
 // width), so no grouping is assumed. fp32 accumulation, bf16 out.
@@ -54,21 +63,27 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float* f) {
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_partial(const __nv_bfloat16* __restrict__ q,        // (B,H,D)
-                     const __nv_bfloat16* __restrict__ k_pages,  // (P,page,KV,D)
+paged_decode_partial(const __nv_bfloat16* __restrict__ q,        // (L,B,H,D)
+                     const __nv_bfloat16* __restrict__ k_pages,  // (L,P,page,KV,D)
                      const __nv_bfloat16* __restrict__ v_pages,
                      const int* __restrict__ block_table,        // (B,max_pages)
                      const int* __restrict__ seq_lens,           // (B,)
                      const int* __restrict__ qh2kv,              // (H,)
-                     float* __restrict__ part,  // (B,H,n_splits,D+2)
+                     float* __restrict__ part,  // (L,B,H,n_splits,D+2)
                      int H, int KV, int page, int max_pages, int window,
-                     float scale, int n_splits) {
+                     float scale, int n_splits, size_t kv_lstride) {
   constexpr int DPL = D / 32;  // output dims per lane
-  const int h = blockIdx.x;
+  const int layer = blockIdx.x / H;
+  const int h = blockIdx.x % H;
   const int b = blockIdx.y;
+  const int B = gridDim.y;
   const int sp = blockIdx.z;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  q += (size_t)layer * B * H * D;
+  k_pages += layer * kv_lstride;
+  v_pages += layer * kv_lstride;
+  part += (size_t)layer * B * H * n_splits * (D + 2);
 
   const int len = seq_lens[b];
   const int n_tok = min(len, max_pages * page);
@@ -196,11 +211,15 @@ paged_decode_partial(const __nv_bfloat16* __restrict__ q,        // (B,H,D)
 template <int D>
 __global__ void __launch_bounds__(D)
 paged_decode_combine(const float* __restrict__ part,
-                     __nv_bfloat16* __restrict__ out,  // (B,H,D)
+                     __nv_bfloat16* __restrict__ out,  // (L,B,H,D)
                      int H, int n_splits) {
-  const int h = blockIdx.x;
+  const int layer = blockIdx.x / H;
+  const int h = blockIdx.x % H;
   const int b = blockIdx.y;
+  const int B = gridDim.y;
   const int d = threadIdx.x;
+  part += (size_t)layer * B * H * n_splits * (D + 2);
+  out += (size_t)layer * B * H * D;
   const float* base = part + ((size_t)b * H + h) * n_splits * (D + 2);
   float M = -INFINITY;
   for (int s = 0; s < n_splits; ++s) M = fmaxf(M, base[s * (D + 2) + D]);
@@ -220,19 +239,20 @@ paged_decode_combine(const float* __restrict__ part,
 template <int D>
 cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
                    const void* block_table, const void* seq_lens,
-                   const void* qh2kv, void* part, void* out, int B, int H,
-                   int KV, int page, int max_pages, int window, float scale,
-                   int n_splits, cudaStream_t s) {
-  paged_decode_partial<D><<<dim3(H, B, n_splits), kThreads, 0, s>>>(
+                   const void* qh2kv, void* part, void* out, int L, int B,
+                   int H, int KV, int page, int max_pages, int window,
+                   float scale, int n_splits, size_t kv_lstride,
+                   cudaStream_t s) {
+  paged_decode_partial<D><<<dim3(L * H, B, n_splits), kThreads, 0, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k_pages),
       static_cast<const __nv_bfloat16*>(v_pages),
       static_cast<const int*>(block_table), static_cast<const int*>(seq_lens),
       static_cast<const int*>(qh2kv), static_cast<float*>(part), H, KV, page,
-      max_pages, window, scale, n_splits);
+      max_pages, window, scale, n_splits, kv_lstride);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  paged_decode_combine<D><<<dim3(H, B), D, 0, s>>>(
+  paged_decode_combine<D><<<dim3(L * H, B), D, 0, s>>>(
       static_cast<const float*>(part), static_cast<__nv_bfloat16*>(out), H,
       n_splits);
   return cudaGetLastError();
@@ -241,9 +261,43 @@ cudaError_t launch(const void* q, const void* k_pages, const void* v_pages,
 }  // namespace
 
 // Tokens per pass-1 split; the caller sizes the partial buffer
-// (B, H, n_splits, D + 2) fp32 with n_splits = ceil(max_pages*page / this).
+// (L, B, H, n_splits, D + 2) fp32 with n_splits = ceil(max_pages*page / this).
 extern "C" int paged_attention_split_tokens() { return kSplitTokens; }
 
+namespace {
+
+int dispatch(const void* q, const void* k_pages, const void* v_pages,
+             const void* block_table, const void* seq_lens, const void* qh2kv,
+             void* part, void* out, int L, int B, int H, int KV, int D,
+             int page, int max_pages, int n_pages, int window, float scale,
+             int n_splits, void* stream) {
+  if (L <= 0 || B <= 0 || H <= 0) return (int)cudaSuccess;
+  if ((long long)L * H > 0x7fffffffLL || B > 65535 || n_splits <= 0 ||
+      n_splits > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
+  const size_t kv_lstride = (size_t)n_pages * page * KV * D;
+  switch (D) {
+    case 32:
+      return (int)launch<32>(q, k_pages, v_pages, block_table, seq_lens,
+                             qh2kv, part, out, L, B, H, KV, page, max_pages,
+                             window, scale, n_splits, kv_lstride, s);
+    case 64:
+      return (int)launch<64>(q, k_pages, v_pages, block_table, seq_lens,
+                             qh2kv, part, out, L, B, H, KV, page, max_pages,
+                             window, scale, n_splits, kv_lstride, s);
+    case 128:
+      return (int)launch<128>(q, k_pages, v_pages, block_table, seq_lens,
+                              qh2kv, part, out, L, B, H, KV, page, max_pages,
+                              window, scale, n_splits, kv_lstride, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// One layer: q (B,H,D), pages (P,page,KV,D), out (B,H,D).
 extern "C" int paged_attention_bf16(const void* q, const void* k_pages,
                                     const void* v_pages,
                                     const void* block_table,
@@ -252,24 +306,20 @@ extern "C" int paged_attention_bf16(const void* q, const void* k_pages,
                                     int KV, int D, int page, int max_pages,
                                     int window, float scale, int n_splits,
                                     void* stream) {
-  if (B <= 0 || H <= 0) return (int)cudaSuccess;
-  if (B > 65535 || n_splits <= 0 || n_splits > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 32:
-      return (int)launch<32>(q, k_pages, v_pages, block_table, seq_lens,
-                             qh2kv, part, out, B, H, KV, page, max_pages,
-                             window, scale, n_splits, s);
-    case 64:
-      return (int)launch<64>(q, k_pages, v_pages, block_table, seq_lens,
-                             qh2kv, part, out, B, H, KV, page, max_pages,
-                             window, scale, n_splits, s);
-    case 128:
-      return (int)launch<128>(q, k_pages, v_pages, block_table, seq_lens,
-                              qh2kv, part, out, B, H, KV, page, max_pages,
-                              window, scale, n_splits, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(q, k_pages, v_pages, block_table, seq_lens, qh2kv, part,
+                  out, 1, B, H, KV, D, page, max_pages, 0, window, scale,
+                  n_splits, stream);
+}
+
+// All L layers in one launch: qs (L,B,H,D), pages (L,P,page,KV,D), out
+// (L,B,H,D); the block table, lengths and head map are shared.
+extern "C" int paged_attention_layers_bf16(
+    const void* qs, const void* k_pages, const void* v_pages,
+    const void* block_table, const void* seq_lens, const void* qh2kv,
+    void* part, void* out, int L, int B, int H, int KV, int D, int page,
+    int max_pages, int n_pages, int window, float scale, int n_splits,
+    void* stream) {
+  return dispatch(qs, k_pages, v_pages, block_table, seq_lens, qh2kv, part,
+                  out, L, B, H, KV, D, page, max_pages, n_pages, window,
+                  scale, n_splits, stream);
 }

@@ -30,14 +30,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
-#: ctypes signatures of the C entry points (pointers and the stream as
-#: c_void_p, so 64-bit addresses are never cut to an int)
+#: ctypes signatures of each source's C entry points (pointers and the
+#: stream as c_void_p, so 64-bit addresses are never cut to an int); every
+#: entry returns an int (a ``cudaError_t`` or a size)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "paged_attention": ("paged_attention_bf16",
-                        [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
-    "flash_prefill": ("flash_prefill_bf16",
-                      [_P] * 5 + [_I] * 8 + [_F, _P]),
+    "paged_attention": {
+        "paged_attention_bf16": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+        "paged_attention_layers_bf16": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+        "paged_attention_split_tokens": [],
+    },
+    "flash_prefill": {
+        "flash_prefill_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
+    },
+    "ssd_scan": {
+        "ssd_scan_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    },
 }
 
 
@@ -84,13 +92,10 @@ def _finish(name: str, job) -> None:
 
 def _load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(_lib_path(name)))
-    sym, argtypes = SIGNATURES[name]
-    fn = getattr(lib, sym)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    if name == "paged_attention":
-        lib.paged_attention_split_tokens.argtypes = []
-        lib.paged_attention_split_tokens.restype = ctypes.c_int
+    for sym, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 

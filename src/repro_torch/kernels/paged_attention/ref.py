@@ -1,5 +1,5 @@
-"""Plain PyTorch version of paged decode attention (the port of the
-reference's ``paged_attention_ref``).
+"""Plain PyTorch versions of paged decode attention (the port of the
+reference's ``paged_attention_ref`` and ``paged_attention_layers_ref``).
 
 Numerics mirror the dense decode path (``models.layers._attend``): fp32
 logits, -1e30 masking, fp32 softmax, probabilities cast to the value
@@ -57,3 +57,14 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def paged_attention_layers_ref(qs, k_pages, v_pages, block_table, seq_lens,
+                               *, qh2kv=None, window: int = 0) -> torch.Tensor:
+    """Batched-over-layers version: qs (L, B, H, D) against the stacked
+    (L, P, page, KV, D) page store; one block table and one seq_lens
+    shared by every layer. Returns (L, B, H, D)."""
+    return torch.stack([
+        paged_attention_ref(q, kp, vp, block_table, seq_lens, qh2kv=qh2kv,
+                            window=window)
+        for q, kp, vp in zip(qs, k_pages, v_pages)])

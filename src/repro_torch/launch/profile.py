@@ -1,17 +1,22 @@
 """Where a serving step's time goes on the GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile
+    PYTHONPATH=src python -m repro_torch.launch.profile [--arch mamba2-2.7b]
 
-Prefills the launcher's workload (8 requests of the generated trace,
-prompts capped at 1536 tokens) into a full decode batch at full width
-(random weights, seed 0), then, under ``torch.profiler``, runs five decode
-steps and five 256-token prefill chunks at offset 1280. For each it prints
-the host wall time (synchronised), the device busy time (the sum of the
-kernels' device time), the device's idle share, the kernel count, and
-the kernels that took the most device time. GPU only.
+smollm-360m (the default): prefills the launcher's workload (8 requests
+of the generated trace, prompts capped at 1536 tokens) into a full decode
+batch at full width (random weights, seed 0), then, under
+``torch.profiler``, runs five decode steps and five 256-token prefill
+chunks at offset 1280. mamba2-2.7b: prefills the workload's first prompt
+to 1024 tokens at full width, then profiles five 512-token extends from
+that state (what ``StateCheckpointWorker`` runs per block) and five
+one-token decode steps. For each call it prints the host wall time
+(synchronised), the device busy time (the sum of the kernels' device
+time), the device's idle share, the kernel count, and the kernels that
+took the most device time. GPU only.
 """
 from __future__ import annotations
 
+import argparse
 import sys
 import time
 
@@ -22,7 +27,8 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import resolve_device
 from repro_torch.configs.base import get_config
 from repro_torch.launch.serve import MAX_LEN, make_payloads
-from repro_torch.models.transformer import decode_step, init_caches, init_params
+from repro_torch.models.transformer import (decode_step, init_caches,
+                                            init_params, prefill)
 from repro_torch.serving.engine import DecodeWorker, HostKVPool, PrefillWorker
 from repro_torch.serving.paged_cache import DevicePagePool
 from repro_torch.serving.request import ServingRequest
@@ -71,9 +77,34 @@ def _report(name: str, fn, n: int, top: int) -> dict:
     return dict(wall_us=wall_us, busy_us=busy_us, launches=launches)
 
 
-def main() -> int:
+def _profile_ssm(cfg, device) -> None:
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    prompt = make_payloads(12, cfg.vocab_size, max_new=16, seed=0)[0][1]
+    toks = torch.as_tensor(np.asarray(prompt[:1536], np.int64)[None],
+                           device=device)
+    _, caches = prefill(params, toks[:, :1024], cfg)
+    print(f"{cfg.name}: state after 1024 prompt tokens; "
+          f"{torch.cuda.get_device_name(0)}")
+    _report("extend (512 tokens from the state)",
+            lambda: decode_step(params, toks[:, 1024:1536], caches, cfg),
+            STEPS, TOP)
+    _, caches = decode_step(params, toks[:, 1024:1536], caches, cfg)
+    _report("decode step (one token from the state)",
+            lambda: decode_step(params, toks[:, 1535:1536], caches, cfg),
+            STEPS, TOP)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="smollm-360m",
+                    choices=("smollm-360m", "mamba2-2.7b"))
+    args = ap.parse_args(argv)
     device = resolve_device("cuda")
-    cfg = get_config("smollm-360m")
+    cfg = get_config(args.arch)
+    if cfg.kind == "ssm":
+        _profile_ssm(cfg, device)
+        return 0
     params = init_params(cfg, torch.Generator().manual_seed(0), device)
     pool = HostKVPool()
     pp = DevicePagePool(cfg, n_pages=1 + 9 * (MAX_LEN // 64), page_tokens=64,

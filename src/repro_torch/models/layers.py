@@ -38,9 +38,10 @@ _FORCE_PLAIN = False
 
 @contextlib.contextmanager
 def plain_attention():
-    """Run attention through the plain PyTorch versions even on CUDA
-    tensors — for holding the kernel path against the plain one on the
-    card. Never entered on the serving path."""
+    """Run every kernel op through its plain PyTorch version even on
+    CUDA tensors — attention here and the SSD scan in ``models/mamba.py``
+    — for holding the kernel path against the plain one on the card.
+    Never entered on the serving path."""
     global _FORCE_PLAIN
     prev, _FORCE_PLAIN = _FORCE_PLAIN, True
     try:

@@ -1,6 +1,7 @@
-"""Dense transformer assembly in PyTorch — the counterpart of the
-reference's ``repro/models/transformer.py`` for uniform dense stacks
-(the MoE, SSM, hybrid and encoder families are not ported yet).
+"""Model assembly in PyTorch — the counterpart of the reference's
+``repro/models/transformer.py`` for uniform dense stacks and pure SSM
+(Mamba2) stacks (the MoE, hybrid and encoder families are not ported
+yet).
 
 Parameters are a plain dict of tensors stacked on a leading layer axis,
 with the reference's keys and shapes, so ``bridge.params_from_jax`` maps
@@ -9,14 +10,17 @@ layers is a Python loop here. Forward modes:
   * ``prefill``           — full sequence, last-position logits + KV;
   * ``decode_step``       — a few tokens against preallocated linear
                             caches (chunked-prefill extend at an int
-                            length, or per-slot decode at a (B,) length);
+                            length, or per-slot decode at a (B,) length); for
+                            an SSM stack a chunk continuation or a
+                            one-token step from the carried state;
   * ``decode_step_paged`` — one continuous-batching token per slot over
-                            the shared paged KV store.
-Caches and page slabs are updated in place.
+                            the shared paged KV store (attention only).
+KV caches and page slabs are updated in place; an SSM state is replaced
+by the new one a step returns, as in the reference.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -24,6 +28,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (DTYPE, attention_block, mlp_block,
                                        paged_attention_block, rms_norm)
+from repro_torch.models.mamba import MambaState, mamba_block
 
 
 class KVCache(NamedTuple):
@@ -33,10 +38,12 @@ class KVCache(NamedTuple):
 
 
 class Caches(NamedTuple):
-    kv: KVCache
+    kv: Optional[KVCache]          # None for a pure SSM stack
     #: tokens written so far: an int (uniform batch) or a (B,) int32
     #: tensor (continuous batching, every slot at its own depth)
     length: Union[int, torch.Tensor]
+    #: stacked (L, ...) Mamba2 state of an SSM stack, else None
+    ssm: Optional[MambaState] = None
 
 
 # ---------------------------------------------------------------------------
@@ -85,13 +92,35 @@ def _init_mlp(gen, cfg: ModelConfig, L: int) -> dict:
     )
 
 
+def _init_mamba(gen, cfg: ModelConfig, L: int) -> dict:
+    s_cfg = cfg.ssm
+    D = cfg.d_model
+    di = s_cfg.d_inner(D)
+    nh = s_cfg.n_heads(D)
+    conv_ch = s_cfg.conv_channels(D)
+    proj_out = di + conv_ch + nh      # z, then x·B·C, then dt
+    f32 = dict(dtype=torch.float32, device=gen.device)
+    return dict(
+        ln=torch.ones((L, D), dtype=DTYPE, device=gen.device),
+        in_proj=_norm(gen, (L, D, proj_out), (2.0 / (D + proj_out)) ** 0.5),
+        conv_w=_norm(gen, (L, s_cfg.d_conv, conv_ch), conv_ch ** -0.5),
+        dt_bias=torch.zeros((L, nh), **f32),
+        A_log=torch.zeros((L, nh), **f32),     # A = -exp(0) = -1
+        D=torch.ones((L, nh), **f32),
+        norm=torch.ones((L, di), dtype=DTYPE, device=gen.device),
+        out_proj=_norm(gen, (L, di, D), (2.0 / (di + D)) ** 0.5),
+    )
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
-    """Stacked parameter dict for a dense model: the reference's shapes
-    and scales (``_init_attn``/``_init_mlp``), drawn from ``generator``
-    (on its own device) and moved to ``device``."""
+    """Stacked parameter dict for a dense or SSM model: the reference's
+    shapes and scales (``_init_attn``/``_init_mlp``/``_init_mamba``),
+    drawn from ``generator`` (on its own device) and moved to
+    ``device``."""
     device = resolve_device(device)
-    assert cfg.kind == "dense", f"{cfg.kind} models are not ported yet"
+    if cfg.kind not in ("dense", "ssm"):
+        raise NotImplementedError(f"{cfg.kind} models are not ported yet")
     D, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     params: dict = {
         "embed": _norm(generator, (V, D), D ** -0.5),
@@ -99,8 +128,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = _norm(generator, (D, V), D ** -0.5)
-    params["attn"] = _init_attn(generator, cfg, L)
-    params["mlp"] = _init_mlp(generator, cfg, L)
+    if cfg.kind == "ssm":
+        params["mamba"] = _init_mamba(generator, cfg, L)
+    else:
+        params["attn"] = _init_attn(generator, cfg, L)
+        params["mlp"] = _init_mlp(generator, cfg, L)
     return _to(params, device)
 
 
@@ -120,7 +152,19 @@ def _layer(stack: dict, l: int) -> dict:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                 device="cuda") -> Caches:
+    """Preallocated decode caches: stacked KV for an attention stack, a
+    zero stacked Mamba2 state for an SSM stack."""
     device = resolve_device(device)
+    if cfg.kind == "ssm":
+        s = cfg.ssm
+        L = cfg.n_layers
+        ssm = MambaState(
+            ssm=torch.zeros((L, batch, s.n_heads(cfg.d_model), s.head_dim,
+                             s.d_state), dtype=torch.float32, device=device),
+            conv=torch.zeros((L, batch, s.d_conv - 1,
+                              s.conv_channels(cfg.d_model)), dtype=DTYPE,
+                             device=device))
+        return Caches(kv=None, length=0, ssm=ssm)
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
              cfg.head_dim)
     return Caches(kv=KVCache(k=torch.zeros(shape, dtype=DTYPE, device=device),
@@ -140,6 +184,21 @@ def _logits_at(params, h_last, cfg: ModelConfig) -> torch.Tensor:
     """h_last (B, k, D) → (B, k, V) fp32 logits."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return (h_last @ w).float()
+
+
+def _ssm_stack(params, x, cfg: ModelConfig, caches):
+    """One Mamba2 block per layer, from ``caches.ssm`` if given; returns
+    (x, the new stacked MambaState)."""
+    ssms, convs = [], []
+    for l in range(cfg.n_layers):
+        st = None if caches is None or caches.ssm is None else MambaState(
+            ssm=caches.ssm.ssm[l], conv=caches.ssm.conv[l])
+        y, new = mamba_block(x, _layer(params["mamba"], l), cfg, state=st,
+                             return_state=True)
+        x = x + y
+        ssms.append(new.ssm)
+        convs.append(new.conv)
+    return x, MambaState(ssm=torch.stack(ssms), conv=torch.stack(convs))
 
 
 def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
@@ -167,6 +226,12 @@ def prefill(params, tokens, cfg: ModelConfig, *, q_offset: int = 0,
     """Full-sequence prefill of tokens (B, S). Returns (last-position
     logits (B, V) fp32, Caches with exact-length KV)."""
     x = _embed(params, tokens, cfg)
+    if cfg.kind == "ssm":
+        h, ssm = _ssm_stack(params, x, cfg, None)
+        h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+        logits = _logits_at(params, h[:, -1:, :], cfg)[:, 0]
+        return logits, Caches(kv=None, length=q_offset + tokens.shape[1],
+                              ssm=ssm)
     h, kvs = _uniform_stack(params, x, cfg, mode="prefill", caches=None,
                             q_offset=q_offset,
                             window_override=window_override)
@@ -179,14 +244,20 @@ def prefill(params, tokens, cfg: ModelConfig, *, q_offset: int = 0,
 
 def decode_step(params, tokens, caches: Caches, cfg: ModelConfig, *,
                 window_override=None):
-    """tokens (B, S) against preallocated caches (written in place).
+    """tokens (B, S) against preallocated caches (KV written in place; an
+    SSM state continues from ``caches.ssm`` and is returned anew).
     Returns (logits (B, S, V) fp32, caches with the length advanced)."""
     x = _embed(params, tokens, cfg)
-    h, _ = _uniform_stack(params, x, cfg, mode="decode", caches=caches,
-                          q_offset=0, window_override=window_override)
+    ssm = caches.ssm
+    if cfg.kind == "ssm":
+        h, ssm = _ssm_stack(params, x, cfg, caches)
+    else:
+        h, _ = _uniform_stack(params, x, cfg, mode="decode", caches=caches,
+                              q_offset=0, window_override=window_override)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = _logits_at(params, h, cfg)
-    return logits, Caches(kv=caches.kv, length=caches.length + tokens.shape[1])
+    return logits, Caches(kv=caches.kv, length=caches.length + tokens.shape[1],
+                          ssm=ssm)
 
 
 def decode_step_paged(params, tokens, k_pages, v_pages, block_table,

@@ -8,11 +8,13 @@ that reuses pool blocks and runs chunked incremental prefill
 the pool, ``stage_run`` copying a prompt's KV into the shared
 ``DevicePagePool``, and a continuous-batching decode worker whose slots
 sit at independent depths (``DecodeWorker``, paged or dense substrate).
+For SSM models prefix caching takes its other form: recurrent-state
+checkpoints at block boundaries (``StateCheckpointWorker``); the KV
+workers refuse SSM models.
 
-Host KV bytes are CPU tensors; device work runs on the device the
-parameters live on. Not ported yet: the SSD tier and its overlapped
-load path, peers and the global directory, sharded decode, SSM state
-checkpoints.
+Host KV bytes and state checkpoints are CPU tensors; device work runs on
+the device the parameters live on. Not ported yet: the SSD tier and its
+overlapped load path, peers and the global directory, sharded decode.
 """
 from __future__ import annotations
 
@@ -27,10 +29,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import CacheTierSpec, ModelConfig
-from repro_torch.core.cache import CachePool
+from repro_torch.core.cache import CachePool, StateCache
 from repro_torch.core.trace import BLOCK_TOKENS
+from repro_torch.models.mamba import MambaState
 from repro_torch.models.transformer import (Caches, decode_step,
-                                            decode_step_paged, init_caches)
+                                            decode_step_paged, init_caches,
+                                            prefill)
 from repro_torch.serving.paged_cache import DevicePagePool
 from repro_torch.serving.request import ServingRequest
 
@@ -349,6 +353,12 @@ class PrefillWorker:
     def __init__(self, params, cfg: ModelConfig, pool: HostKVPool, *,
                  prefill_chunk: int = 1024,
                  page_pool: Optional[DevicePagePool] = None) -> None:
+        if cfg.attention_layers != cfg.n_layers:
+            raise ValueError(
+                f"PrefillWorker's KV path serves uniform attention stacks; "
+                f"{cfg.name} ({cfg.kind}) has {cfg.attention_layers} of "
+                f"{cfg.n_layers} attention layers — an SSM model prefills "
+                f"through StateCheckpointWorker")
         self.params = params
         self.cfg = cfg
         self.pool = pool
@@ -536,6 +546,14 @@ class DecodeWorker:
                  page_tokens: int = 64, width_buckets: int = 1) -> None:
         if substrate not in ("paged", "dense"):
             raise ValueError(f"unknown decode substrate {substrate!r}")
+        if cfg.kind == "ssm":
+            # the reference's dense join copies KV only and would leave a
+            # joined slot's SSM state at zero; refuse rather than decode
+            # from an empty state
+            raise ValueError(
+                f"DecodeWorker joins KV caches; {cfg.name} is an SSM model "
+                f"whose decode state is its recurrent state — decode with "
+                f"decode_step from StateCheckpointWorker's caches")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device
@@ -812,4 +830,86 @@ class DecodeWorker:
                     self.caches.length[i] = 0
             else:
                 out.append((s.req_id, tok, False))
+        return out
+
+
+class StateCheckpointWorker:
+    """Prefix caching for SSM models: the reference's
+    ``StateCheckpointWorker``, on the device the parameters live on.
+
+    Attention-free models have no append-only KVCache; Mooncake's prefix
+    reuse becomes *state checkpointing*: after every 512-token block
+    boundary the (constant-size) recurrent state is snapshotted to host
+    memory, keyed by the same prefix-chained hash as KV blocks. A later
+    request sharing a prefix restores the DEEPEST checkpoint on its chain
+    and prefills only the suffix — a transfer is O(state), whatever the
+    prefix length. ``scan_calls`` counts the model calls that reach the
+    SSD scan (all but a one-token extend, which takes the recurrence).
+    """
+
+    def __init__(self, params, cfg: ModelConfig, *,
+                 capacity_checkpoints: Optional[int] = None) -> None:
+        if cfg.kind != "ssm":
+            raise ValueError("state checkpointing is the SSM path; "
+                             f"{cfg.name} is {cfg.kind}")
+        self.params = params
+        self.cfg = cfg
+        self.device = params["embed"].device
+        self.meta = StateCache(capacity_checkpoints)
+        self.data: dict[int, MambaState] = {}   # hash -> host state copy
+        self.counters = dict(restored_tokens=0, computed_tokens=0)
+        self.scan_calls = 0
+
+    def _snapshot(self, hash_id: int, caches: Caches) -> None:
+        for e in self.meta.insert([hash_id]):
+            self.data.pop(e, None)
+        if hash_id in self.meta:
+            self.data[hash_id] = MambaState(
+                ssm=caches.ssm.ssm.to("cpu", copy=True),
+                conv=caches.ssm.conv.to("cpu", copy=True))
+
+    def __call__(self, tokens: np.ndarray):
+        """Prefill one request (B = 1) with state-checkpoint reuse.
+        Returns (first_token, final Caches)."""
+        cfg = self.cfg
+        S = len(tokens)
+        hash_ids = prefix_hash_ids(tokens)
+        depth = self.meta.lookup(hash_ids)          # deepest checkpoint
+        start = depth * BLOCK_TOKENS
+        if start >= S:                              # full hit: redo last blk
+            depth -= 1
+            start = depth * BLOCK_TOKENS
+        t = torch.as_tensor(np.asarray(tokens, np.int64)[None, :],
+                            device=self.device)
+        caches = None
+        if depth > 0:
+            st = self.data[hash_ids[depth - 1]]
+            caches = Caches(kv=None, length=start, ssm=MambaState(
+                ssm=st.ssm.to(self.device), conv=st.conv.to(self.device)))
+
+        # chunked continuation, snapshotting at every block boundary
+        logits = None
+        lo = start
+        while lo < S:
+            hi = min(lo + BLOCK_TOKENS, S)
+            if caches is None:
+                logits, caches = prefill(self.params, t[:, :hi], cfg)
+                logits = logits[:, None]
+                self.scan_calls += 1
+            else:
+                logits, caches = decode_step(self.params, t[:, lo:hi],
+                                             caches, cfg)
+                self.scan_calls += hi - lo > 1
+            if hi % BLOCK_TOKENS == 0:
+                self._snapshot(hash_ids[hi // BLOCK_TOKENS - 1], caches)
+            lo = hi
+        self.counters["restored_tokens"] += start
+        self.counters["computed_tokens"] += S - start
+        first = int(torch.argmax(logits[0, -1]))
+        return first, caches
+
+    def stats(self) -> dict:
+        """Unified snapshot (cross-component ``stats()`` protocol)."""
+        out = dict(self.counters)
+        out["checkpoints"] = len(self.data)
         return out

@@ -6,16 +6,25 @@ toolkit:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance 2e-2 in bf16 (the reference's kernel tests)."""
+Tolerances: 2e-2 in bf16 for attention (the reference's kernel tests);
+for the SSD scan, whose kernel and plain version both compute in fp32
+and differ only in summation order, 5e-3 (the reference's fp32 scan
+tolerance, ``tests/test_kernels.py:155``) of the output's scale."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_attention
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
-from repro_torch.kernels.paged_attention.kernel import paged_attention
-from repro_torch.kernels.paged_attention.ops import paged_decode_attention
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.kernel import (paged_attention,
+                                                        paged_attention_layers)
+from repro_torch.kernels.paged_attention.ops import (
+    paged_decode_attention, paged_decode_attention_layers)
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_layers_ref, paged_attention_ref)
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 TOL = 2e-2
 SMOLLM_MAP_FULL = [0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 0]
@@ -52,6 +61,16 @@ def _close(out, ref):
     assert torch.isfinite(out.float()).all() and err <= TOL, err
 
 
+def _paged_table(rng, lens, P, page, mp, dev):
+    table = torch.zeros(len(lens), mp, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        live = -(-n // page)
+        table[b, :live] = torch.from_numpy(rng.choice(np.arange(1, P), live,
+                                                      replace=False))
+    return (table.to(dev),
+            torch.tensor(lens, dtype=torch.int32, device=dev))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("qh2kv,KV,D", [(SMOLLM_MAP_FULL, 5, 64),
                                        (SMOLLM_MAP_REDUCED, 2, 32),
@@ -64,14 +83,8 @@ def test_paged_kernel_matches_plain(cuda, qh2kv, KV, D, window):
     kp, vp = _randn(rng, (P, page, KV, D), cuda), _randn(rng, (P, page, KV, D),
                                                         cuda)
     kp[0], vp[0] = 1e4, -1e4                   # poisoned null page
-    lens = [1, 64, 129, 300, 384]              # ragged, boundaries, full
-    table = torch.zeros(B, mp, dtype=torch.int32)
-    for b, n in enumerate(lens):
-        live = -(-n // page)
-        table[b, :live] = torch.from_numpy(rng.choice(np.arange(1, P), live,
-                                                      replace=False))
-    table = table.to(cuda)
-    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    # ragged, boundaries, full
+    table, lens = _paged_table(rng, [1, 64, 129, 300, 384], P, page, mp, cuda)
     m = None if qh2kv is None else torch.tensor(qh2kv, dtype=torch.int32,
                                                 device=cuda)
     before = paged_attention.launches
@@ -80,6 +93,98 @@ def test_paged_kernel_matches_plain(cuda, qh2kv, KV, D, window):
     assert paged_attention.launches == before + 1
     _close(out, paged_attention_ref(q, kp, vp, table, lens, qh2kv=m,
                                     window=window))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qh2kv,KV,D,window", [(SMOLLM_MAP_FULL, 5, 64, 0),
+                                              (None, 2, 128, 100)])
+def test_paged_layers_kernel_matches_per_layer_and_plain(cuda, qh2kv, KV, D,
+                                                         window):
+    """One layers launch equals L per-layer launches exactly (the same
+    kernel code runs each layer) and the plain version within 2e-2."""
+    rng = np.random.default_rng(4)
+    L, B, H, P, page, mp = 3, 5, 16, 40, 64, 6
+    qs = _randn(rng, (L, B, H, D), cuda)
+    kp = _randn(rng, (L, P, page, KV, D), cuda)
+    vp = _randn(rng, (L, P, page, KV, D), cuda)
+    kp[:, 0], vp[:, 0] = 1e4, -1e4
+    table, lens = _paged_table(rng, [1, 64, 129, 300, 384], P, page, mp, cuda)
+    m = None if qh2kv is None else torch.tensor(qh2kv, dtype=torch.int32,
+                                                device=cuda)
+    before = paged_attention_layers.launches
+    out = paged_decode_attention_layers(qs, kp, vp, table, lens, qh2kv=m,
+                                        window=window)
+    assert paged_attention_layers.launches == before + 1
+    per_layer = torch.stack([
+        paged_decode_attention(qs[l], kp[l], vp[l], table, lens, qh2kv=m,
+                               window=window) for l in range(L)])
+    torch.cuda.synchronize()
+    assert torch.equal(out, per_layer)
+    _close(out, paged_attention_layers_ref(qs, kp, vp, table, lens, qh2kv=m,
+                                           window=window))
+
+
+def _ssd_inputs(rng, b, s, h, p, n, with_h0, dev):
+    f = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape).astype(np.float32)).to(dev)
+    x, B, C = f(b, s, h, p).bfloat16(), f(b, s, n).bfloat16(), \
+        f(b, s, n).bfloat16()
+    dt = torch.nn.functional.softplus(f(b, s, h))
+    A = -torch.exp(0.5 * f(h))
+    h0 = f(b, h, p, n) if with_h0 else None
+    return x, dt, A, B, C, h0
+
+
+def _ssd_close(out, ref):
+    torch.cuda.synchronize()
+    for o, r in zip(out, ref):
+        tol = 5e-3 * max(1.0, r.abs().max().item())
+        err = (o - r).abs().max().item()
+        assert torch.isfinite(o).all() and err <= tol, (err, tol)
+
+
+SSD_CUDA_CASES = [  # b, s, h, p, n, chunk, with_h0
+    (1, 512, 4, 64, 128, 256, True),     # the serving call's per-head shape
+    (2, 96, 3, 16, 16, 96, True),        # a ragged chunk (not a power of 2)
+    (1, 130, 2, 64, 128, 65, False),     # ragged tiles, two chunks
+    (2, 64, 5, 16, 128, 32, False),
+    (1, 256, 32, 16, 16, 32, True),      # mamba2-2.7b.reduced()'s mixer
+    (1, 40, 2, 24, 64, 40, True),        # p not a multiple of 16
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SSD_CUDA_CASES)
+def test_ssd_kernel_matches_plain(cuda, case):
+    b, s, h, p, n, chunk, with_h0 = case
+    x, dt, A, B, C, h0 = _ssd_inputs(np.random.default_rng(s + n), b, s, h, p,
+                                     n, with_h0, cuda)
+    before = ssd_scan.launches
+    out = ssd_scan_op(x, dt, A, B, C, h0, chunk=chunk)
+    assert ssd_scan.launches == before + 1
+    _ssd_close(out, ssd_chunked(x, dt, A, B, C, chunk, h0=h0))
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_zero_dt_padding_keeps_the_state(cuda):
+    """Positions padded with dt = 0 (as ``mamba_block`` pads a ragged
+    sequence) leave the state exactly where the real positions left it."""
+    x, dt, A, B, C, h0 = _ssd_inputs(np.random.default_rng(9), 1, 64, 4, 64,
+                                     128, True, cuda)
+    dt[:, 40:] = 0
+    _, h_pad = ssd_scan(x, dt, A, B, C, h0, chunk=64)
+    _, h_cut = ssd_scan(x[:, :40].contiguous(), dt[:, :40].contiguous(), A,
+                        B[:, :40].contiguous(), C[:, :40].contiguous(), h0,
+                        chunk=40)
+    _ssd_close((h_pad,), (h_cut,))
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_a_ragged_sequence(cuda):
+    x, dt, A, B, C, _ = _ssd_inputs(np.random.default_rng(0), 1, 100, 2, 16,
+                                    16, False, cuda)
+    with pytest.raises(ValueError, match="multiple of chunk"):
+        ssd_scan(x, dt, A, B, C, chunk=64)
 
 
 @pytest.mark.cuda
@@ -130,6 +235,40 @@ def test_model_kernel_path_matches_plain_path(cuda):
     kern = run()
     with plain_attention():
         plain = run()
+    torch.cuda.synchronize()
+    assert (kern - plain).abs().max().item() <= TOL * max(
+        1.0, plain.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_mamba_kernel_path_matches_plain_path(cuda):
+    """mamba2-2.7b.reduced(): prefill, a ragged extend and decode steps
+    through the SSD kernel vs the same forward forced plain, on the card."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan as kernel
+    from repro_torch.models.layers import plain_attention
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                prefill)
+    cfg = get_config("mamba2-2.7b").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 200),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+
+    def run():
+        lg0, c = prefill(params, toks[:, :128], cfg)
+        lg1, c = decode_step(params, toks[:, 128:197], c, cfg)
+        rows = [lg0, lg1[:, -1]]
+        for i in range(197, 200):
+            lg, c = decode_step(params, toks[:, i:i + 1], c, cfg)
+            rows.append(lg[:, -1])
+        return torch.cat(rows)
+
+    before = kernel.launches
+    kern = run()
+    assert kernel.launches == before + 2 * cfg.n_layers
+    with plain_attention():
+        plain = run()
+    assert kernel.launches == before + 2 * cfg.n_layers
     torch.cuda.synchronize()
     assert (kern - plain).abs().max().item() <= TOL * max(
         1.0, plain.abs().max().item())

@@ -14,17 +14,24 @@ import torch
 from repro.kernels.flash_prefill.kernel import flash_prefill as jax_flash
 from repro.kernels.flash_prefill.ref import flash_prefill_ref as jax_flash_ref
 from repro.kernels.paged_attention.kernel import paged_attention as jax_paged
+from repro.kernels.paged_attention.kernel import \
+    paged_attention_layers as jax_paged_layers
 from repro.kernels.paged_attention.ref import paged_attention_ref as jax_paged_ref
+from repro.kernels.paged_attention.ref import \
+    paged_attention_layers_ref as jax_layers_ref
 from repro.models.layers import causal_attention as jax_causal
 from repro_torch.bridge import tensor_from_numpy, tensor_to_numpy
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill.kernel import flash_prefill
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_attention
 from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
-from repro_torch.kernels.paged_attention.kernel import paged_attention
-from repro_torch.kernels.paged_attention.ops import (grouped_map,
-                                                     paged_decode_attention)
-from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+from repro_torch.kernels.paged_attention.kernel import (paged_attention,
+                                                        paged_attention_layers)
+from repro_torch.kernels.paged_attention.ops import (
+    grouped_map, paged_decode_attention, paged_decode_attention_layers)
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_layers_ref, paged_attention_ref)
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan
 
 # small shapes: one intra-op thread keeps parallel test workers from
 # oversubscribing the CPU
@@ -125,6 +132,46 @@ def test_paged_pallas_interpret_grouped_case():
     _close(port, out, BF16_TOL)
 
 
+def _layers_inputs(L, B, H, KV, D, P, page, mp, lens, seed):
+    rng = np.random.default_rng(seed)
+    qs = _arr(rng, (L, B, H, D), "bf16")
+    kp = _arr(rng, (L, P, page, KV, D), "bf16")
+    vp = _arr(rng, (L, P, page, KV, D), "bf16")
+    table = rng.integers(1, P, (B, mp)).astype(np.int32)
+    return qs, kp, vp, table, np.asarray(lens, np.int32)
+
+
+def test_paged_layers_plain_matches_reference_and_pallas():
+    """The reference's batched-over-layers case
+    (tests/test_paged_decode.py:80-99): the port's plain version against
+    the jnp oracle and the Pallas kernel in interpret mode."""
+    inputs = _layers_inputs(3, 2, 8, 2, 64, 16, 64, 2, [70, 128], seed=0)
+    port = paged_attention_layers_ref(*(tensor_from_numpy(a, "cpu")
+                                        for a in inputs))
+    _close(port, jax_layers_ref(*map(jnp.asarray, inputs)), BF16_TOL)
+    _close(port, jax_paged_layers(*map(jnp.asarray, inputs), interpret=True),
+           BF16_TOL)
+
+
+@pytest.mark.parametrize("qh2kv,KV,window", [(SMOLLM_MAP_FULL, 5, 0),
+                                             (SMOLLM_MAP_REDUCED, 2, 48)])
+def test_paged_layers_plain_head_maps_and_window(qh2kv, KV, window):
+    inputs = _layers_inputs(2, 3, 16, KV, 32, 24, 16, 5, [1, 47, 80],
+                            seed=KV)
+    ref = jax_layers_ref(*map(jnp.asarray, inputs),
+                         qh2kv=jnp.asarray(qh2kv, jnp.int32), window=window)
+    port = paged_decode_attention_layers(
+        *(tensor_from_numpy(a, "cpu") for a in inputs),
+        qh2kv=torch.tensor(qh2kv, dtype=torch.int32), window=window)
+    _close(port, ref, BF16_TOL)
+    # each layer of the layers op is the per-layer op on that layer
+    qs, kp, vp, table, lens = (tensor_from_numpy(a, "cpu") for a in inputs)
+    m = torch.tensor(qh2kv, dtype=torch.int32)
+    for l in range(qs.shape[0]):
+        assert torch.equal(port[l], paged_decode_attention(
+            qs[l], kp[l], vp[l], table, lens, qh2kv=m, window=window))
+
+
 # ---------------------------------------------------------------- flash ----
 FLASH_CASES = [  # the reference's cases: B, Sq, Sk, H, KV, D, offset, window
     (2, 128, 256, 4, 2, 64, 128, 0),
@@ -211,11 +258,29 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert (paged_attention.launches, flash_prefill.launches) == before
 
 
+def test_new_kernel_wrappers_refuse_cpu_tensors():
+    """The layers entry and the SSD scan launch on CUDA tensors or raise."""
+    qs, kp, vp, table, lens = (tensor_from_numpy(a, "cpu") for a in
+                               _layers_inputs(2, 2, 8, 2, 32, 8, 16, 2,
+                                              [5, 20], seed=1))
+    rng = np.random.default_rng(2)
+    x = tensor_from_numpy(_arr(rng, (1, 32, 2, 16), "bf16"), "cpu")
+    dt = torch.ones(1, 32, 2)
+    A = -torch.ones(2)
+    B = C = tensor_from_numpy(_arr(rng, (1, 32, 16), "bf16"), "cpu")
+    before = paged_attention_layers.launches, ssd_scan.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        paged_attention_layers(qs, kp, vp, table, lens, grouped_map(8, 2,
+                                                                    "cpu"))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_scan(x, dt, A, B, C, chunk=32)
+    assert (paged_attention_layers.launches, ssd_scan.launches) == before
+
+
 def test_build_names_libraries_by_source_and_needs_nvcc(monkeypatch, tmp_path):
     name = _build._lib_path("paged_attention").name
     assert name.startswith("paged_attention-") and name.endswith(".so")
-    assert _build._lib_path("paged_attention") \
-        != _build._lib_path("flash_prefill")
+    assert len({_build._lib_path(n) for n in _build.SIGNATURES}) == 3
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
