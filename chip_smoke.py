@@ -11,9 +11,11 @@ Phases, each printed as it runs; any failure exits non-zero:
      card at the serving path's shapes (smollm-360m: B=8 slots, 16 padded
      query heads over 5 KV heads, D=64, 64-token pages, 32-page tables,
      ragged lengths, a poisoned null page) plus one grouped case;
-  4. the chunked-prefill kernel against its plain version (256-token
-     chunks at offsets 0/256/1280 against a 1536-token cache, and a
-     ragged 131-token tail chunk);
+  4. the chunked-prefill kernel against its plain version and its plain
+     split-over-keys decomposition (256-token chunks at offsets
+     0/256/1280 against a 1536-token cache, a ragged 131-token tail chunk,
+     and five forced key splits at offset 0, where splits hold no key for
+     some rows);
   5. end to end: the launcher's body serves the generated workload at the
      full width of smollm-360m (32 layers, random weights from seed 0)
      through the serving loop with predictive admission, and every kernel
@@ -21,7 +23,8 @@ Phases, each printed as it runs; any failure exits non-zero:
      kernel path and through the plain versions on the card;
   6. the SSD-scan kernel against its plain version: the serving call of
      mamba2-2.7b (b=1, s=512, 80 heads, p=64, n=128, chunk 256, with an
-     incoming state), a ragged 96-token tail chunk, and the mixer shape of
+     incoming state; there each of the four passes' outputs against its
+     plain pass too), a ragged 96-token tail chunk, and the mixer shape of
      mamba2-2.7b.reduced();
   7. the batched-over-layers paged decode kernel through its op entry at
      smollm-360m's full width (32 layers of phase 3's case), against 32
@@ -202,9 +205,10 @@ def check_paged(torch, timer, name, case, main: bool):
 # ---------------------------------------------------------------------------
 
 def check_prefill(torch, timer, name, *, Sq, Sk, q_offset, H, KV, D, qh2kv,
-                  seed, main: bool):
+                  seed, main: bool, n_splits=None):
     from repro_torch.kernels.flash_prefill.kernel import flash_prefill
-    from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+    from repro_torch.kernels.flash_prefill.ref import (flash_prefill_ref,
+                                                       flash_prefill_split_ref)
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(1, Sq, H, D, generator=g, device="cuda").bfloat16()
     k = torch.randn(1, Sk, KV, D, generator=g, device="cuda").bfloat16()
@@ -212,15 +216,23 @@ def check_prefill(torch, timer, name, *, Sq, Sk, q_offset, H, KV, D, qh2kv,
     k[:, q_offset + Sq:] = 1e4        # keys past the chunk: never read
     v[:, q_offset + Sq:] = -1e4
     m = torch.tensor(qh2kv, dtype=torch.int32, device="cuda")
-    out = flash_prefill(q, k, v, m, q_offset=q_offset)
+    out = flash_prefill(q, k, v, m, q_offset=q_offset, n_splits=n_splits)
     torch.cuda.synchronize()
+    splits = flash_prefill.last_splits
     ref = flash_prefill_ref(q, k, v, q_offset=q_offset, qh2kv=m)
     err = (out.float() - ref.float()).abs().max().item()
     finite = bool(torch.isfinite(out.float()).all())
+    # the plain split-over-keys decomposition with the kernel's split count
+    split_ref = flash_prefill_split_ref(q, k, v, q_offset=q_offset, qh2kv=m,
+                                        n_splits=splits)
+    err_split = (out.float() - split_ref.float()).abs().max().item()
     log(f"prefill[{name}]: Sq={Sq} Sk={Sk} q_offset={q_offset} H={H} KV={KV} "
-        f"D={D} max_abs_err={err:.3e} (tol {TOL}) finite={finite}")
-    if not (err <= TOL and finite):
+        f"D={D} n_splits={splits} max_abs_err={err:.3e} (vs the plain split "
+        f"decomposition {err_split:.3e}; tol {TOL}) finite={finite}")
+    if not (err <= TOL and err_split <= TOL and finite):
         raise AssertionError(f"prefill kernel disagrees ({name})")
+    if n_splits is not None and splits != n_splits:
+        raise AssertionError(f"prefill ran {splits} splits, not {n_splits}")
     if not main:
         return None
     ms = timer.ms(lambda: flash_prefill(q, k, v, m, q_offset=q_offset))
@@ -370,13 +382,26 @@ def ssd_case(torch, *, b, s, h, p, n, seed):
 
 def check_ssd(torch, timer, name, *, b, s, h, p, n, chunk, seed, main):
     from repro_torch.kernels.ssd_scan.kernel import ssd_scan
-    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    from repro_torch.kernels.ssd_scan.ref import (chunk_cb, chunk_state,
+                                                  ssd_chunked, state_pass)
     x, dt, A, B, C, h0 = ssd_case(torch, b=b, s=s, h=h, p=p, n=n, seed=seed)
-    y, hT = ssd_scan(x, dt, A, B, C, h0, chunk=chunk)
+    y, hT, got = ssd_scan(x, dt, A, B, C, h0, chunk=chunk, passes=True)
     torch.cuda.synchronize()
     y_r, h_r = ssd_chunked(x, dt, A, B, C, chunk, h0=h0)
+    pairs = [("y", y, y_r), ("hT", hT, h_r)]
+    if main:
+        # each pass's output against its plain pass on the same inputs, so
+        # that a fault shows in the pass that made it
+        cb = chunk_cb(B, C, chunk)
+        tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool,
+                                    device="cuda"))
+        cum, states = chunk_state(x, dt, A, B, chunk)
+        h_in, _ = state_pass(states, cum, h0)
+        pairs = [("cb (lower triangle)", got["cb"] * tri, cb * tri),
+                 ("cum", got["cum"], cum), ("states", got["states"], states),
+                 ("h_in", got["h_in"], h_in)] + pairs
     errs = []
-    for what, o, r in (("y", y, y_r), ("hT", hT, h_r)):
+    for what, o, r in pairs:
         err = (o - r).abs().max().item()
         tol = SSD_TOL * max(1.0, r.abs().max().item())
         finite = bool(torch.isfinite(o).all())
@@ -666,6 +691,11 @@ def main() -> int:
                           q_offset=off, H=16, KV=5, D=64, qh2kv=smollm_map,
                           seed=off + sq, main=(off == 1280 and sq == 256))
         pre = r or pre
+    # forced key splits at q_offset 0: the first query tile sees one key
+    # tile, so four of its five splits hold no key for any of its rows
+    check_prefill(torch, timer, "off0-sq256-5splits", Sq=256, Sk=1536,
+                  q_offset=0, H=16, KV=5, D=64, qh2kv=smollm_map, seed=7,
+                  main=False, n_splits=5)
 
     phase("5 end to end, smollm-360m full width")
     launches = e2e_smollm(torch)

@@ -41,10 +41,10 @@ SIGNATURES = {
         "paged_attention_split_tokens": [],
     },
     "flash_prefill": {
-        "flash_prefill_bf16": [_P] * 5 + [_I] * 8 + [_F, _P],
+        "flash_prefill_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],
     },
     "ssd_scan": {
-        "ssd_scan_bf16": [_P] * 8 + [_I] * 6 + [_P],
+        "ssd_scan_bf16": [_P] * 12 + [_I] * 12 + [_P],
     },
 }
 

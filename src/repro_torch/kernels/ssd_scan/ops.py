@@ -7,8 +7,16 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+from repro_torch.kernels.ssd_scan.kernel import row_layout_ok, ssd_scan
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+
+def _rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it is when the kernel can read it through its strides (the
+    views of the conv output that ``mamba_block`` passes), else a
+    contiguous copy."""
+    return t if row_layout_ok(t) and t.data_ptr() % 16 == 0 \
+        else t.contiguous()
 
 
 def ssd_scan_op(x, dt, A, B, C, h0: Optional[torch.Tensor] = None, *,
@@ -19,6 +27,6 @@ def ssd_scan_op(x, dt, A, B, C, h0: Optional[torch.Tensor] = None, *,
         return ssd_chunked(x, dt, A, B, C, chunk, h0=h0)
     if x.device.type != "cuda":
         raise ValueError(f"the SSD scan runs on cpu or cuda, not {x.device}")
-    return ssd_scan(x.contiguous(), dt.contiguous(), A.contiguous(),
-                    B.contiguous(), C.contiguous(),
-                    None if h0 is None else h0.contiguous(), chunk=chunk)
+    return ssd_scan(_rows(x), dt.contiguous(), A.contiguous(), _rows(B),
+                    _rows(C), None if h0 is None else h0.contiguous(),
+                    chunk=chunk)

@@ -2,12 +2,14 @@
 reference's ``ssd_chunked`` in ``models/mamba.py`` and of its per-token
 oracle ``ssd_naive_ref``).
 
-``ssd_chunked`` mirrors the reference step by step, in fp32 throughout:
-the intra-chunk "attention" ``((C·Bᵀ) ∘ L)(x·dt)`` with the
-1-semiseparable mask ``L = exp(segsum(dt·A))``, per-chunk states decayed
-to the chunk end, the recurrence over chunk states (a Python loop where
-the reference has ``lax.scan``), and each chunk's incoming state decayed
-to every position. Single B/C group.
+``ssd_chunked`` mirrors the reference step by step, in fp32 throughout,
+as the four passes the CUDA kernel runs: ``chunk_cb`` (C·Bᵀ once per
+chunk), ``chunk_state`` (the cumulative decay and each chunk's own state,
+decayed to the chunk end), ``state_pass`` (the recurrence over chunk
+states, a Python loop where the reference has ``lax.scan``) and
+``chunk_scan`` (the intra-chunk "attention" ``((C·Bᵀ) ∘ L)(x·dt)`` with
+the 1-semiseparable mask ``L = exp(segsum(dt·A))``, plus each chunk's
+incoming state decayed to every position). Single B/C group.
 """
 from __future__ import annotations
 
@@ -16,67 +18,91 @@ from typing import Optional
 import torch
 
 
-def _segsum(x: torch.Tensor) -> torch.Tensor:
-    """x: (..., L) -> (..., L, L) with out[i, j] = sum(x[j+1 .. i]), -inf
-    above the diagonal (strict lower-triangular cumulative sums, diagonal
-    0)."""
-    L = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
-    out = cs[..., :, None] - cs[..., None, :]
-    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+def _segsum(cum: torch.Tensor) -> torch.Tensor:
+    """cum: (..., L) inclusive cumulative sums -> (..., L, L) with
+    out[i, j] = cum_i − cum_j (the sum of the steps j+1 .. i), -inf above
+    the diagonal."""
+    L = cum.shape[-1]
+    out = cum[..., :, None] - cum[..., None, :]
+    mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=cum.device))
     return out.masked_fill(~mask, float("-inf"))
+
+
+def chunk_cb(B, C, chunk: int) -> torch.Tensor:
+    """Pass 1: C·Bᵀ once per (batch, chunk), shared by every head.
+    B, C (b, s, n) → (b, c, l, l) fp32, [i, j] = C_i · B_j."""
+    b, s, n = B.shape
+    c = s // chunk
+    Bc = B.reshape(b, c, chunk, n).to(torch.float32)
+    Cc = C.reshape(b, c, chunk, n).to(torch.float32)
+    return torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+
+
+def chunk_state(x, dt, A, B, chunk: int):
+    """Pass 2: per (batch, chunk, head) the cumulative decay
+    cum = cumsum(dt·A) within the chunk, (b, h, c, l), and the chunk's own
+    state S_c = Σ_j (x_j·dt_j e^{cum_last − cum_j})ᵀ B_j, (b, c, h, p, n)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    c = s // chunk
+    f32 = torch.float32
+    xc = (x.to(f32) * dt.to(f32)[..., None]).reshape(b, c, chunk, h, p)
+    dA = dt.to(f32) * A.to(f32)[None, None, :]                # (b,s,h)
+    cum = torch.cumsum(dA.reshape(b, c, chunk, h).movedim(-1, 1), dim=-1)
+    decay_states = torch.exp(cum[..., -1:] - cum)              # (b,h,c,l)
+    Bc = B.reshape(b, c, chunk, n).to(f32)
+    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bc, decay_states, xc)
+    return cum, states
+
+
+def state_pass(states, cum, h0: Optional[torch.Tensor] = None):
+    """Pass 3: the recurrence over chunk states in order,
+    h_in[c] = h; h = h·e^{cum_last,c} + S_c. Returns (h_in (b, c, h, p, n),
+    final state (b, h, p, n)), fp32."""
+    b, c, h, p, n = states.shape
+    chunk_decay = torch.exp(cum[..., -1])                      # (b,h,c)
+    h_prev = torch.zeros((b, h, p, n), dtype=torch.float32,
+                         device=states.device) \
+        if h0 is None else h0.to(torch.float32)
+    h_in = []
+    for ic in range(c):
+        h_in.append(h_prev)
+        h_prev = h_prev * chunk_decay[:, :, ic, None, None] + states[:, ic]
+    return torch.stack(h_in, dim=1), h_prev
+
+
+def chunk_scan(x, dt, C, cb, cum, h_in):
+    """Pass 4: y_i = Σ_{j≤i} (CB ∘ e^{cum_i − cum_j})_{ij} (x_j·dt_j)
+    + e^{cum_i} C_i · h_inᵀ per (batch, chunk, head) → (b, s, h, p) fp32."""
+    b, s, h, p = x.shape
+    c, chunk = cum.shape[2], cum.shape[3]
+    n = C.shape[-1]
+    f32 = torch.float32
+    xc = (x.to(f32) * dt.to(f32)[..., None]).reshape(b, c, chunk, h, p)
+    Cc = C.reshape(b, c, chunk, n).to(f32)
+    # intra-chunk (diagonal blocks): Y_diag = (C Bᵀ ∘ L) (x·dt) with the
+    # 1-semiseparable mask L = exp(segsum(dt·A))
+    Lmask = torch.exp(_segsum(cum))                            # (b,h,c,l,l)
+    Y_diag = torch.einsum("bhcls,bcshp->bclhp", cb[:, None] * Lmask, xc)
+    # inter-chunk: the incoming state decayed to each position
+    Y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", Cc, h_in, torch.exp(cum))
+    return (Y_diag + Y_off).reshape(b, s, h, p)
 
 
 def ssd_chunked(x, dt, A, B, C, chunk: int,
                 h0: Optional[torch.Tensor] = None):
-    """Chunked SSD scan.
+    """Chunked SSD scan, the composition of the four passes.
 
     x: (b, s, h, p); dt: (b, s, h) positive step sizes; A: (h,) negative
     decay rates; B, C: (b, s, n) single-group projections; h0: optional
     (b, h, p, n) fp32 incoming state; s % chunk == 0.
     Returns (y (b, s, h, p) fp32, final state (b, h, p, n) fp32)."""
-    b, s, h, p = x.shape
-    n = B.shape[-1]
-    if s % chunk:
-        raise ValueError(f"seq {s} not divisible by chunk {chunk}")
-    c = s // chunk
-    f32 = torch.float32
-
-    xdt = x.to(f32) * dt.to(f32)[..., None]                   # (b,s,h,p)
-    dA = dt.to(f32) * A.to(f32)[None, None, :]                # (b,s,h)
-
-    xc = xdt.reshape(b, c, chunk, h, p)
-    dAc = dA.reshape(b, c, chunk, h).movedim(-1, 1)            # (b,h,c,l)
-    Bc = B.reshape(b, c, chunk, n).to(f32)
-    Cc = C.reshape(b, c, chunk, n).to(f32)
-
-    cum = torch.cumsum(dAc, dim=-1)                            # (b,h,c,l)
-
-    # 1. intra-chunk (diagonal blocks): Y_diag = (C Bᵀ ∘ L) (x·dt)
-    Lmask = torch.exp(_segsum(dAc))                            # (b,h,c,l,l)
-    scores = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
-    Y_diag = torch.einsum("bhcls,bcshp->bclhp", scores[:, None] * Lmask, xc)
-
-    # 2. per-chunk states: right factor with decay to the chunk end
-    decay_states = torch.exp(cum[..., -1:] - cum)              # (b,h,c,l)
-    states = torch.einsum("bcln,bhcl,bclhp->bchpn", Bc, decay_states, xc)
-
-    # 3. inter-chunk recurrence over chunk states (emit the INCOMING state)
-    chunk_decay = torch.exp(cum[..., -1])                      # (b,h,c)
-    h_prev = torch.zeros((b, h, p, n), dtype=f32, device=x.device) \
-        if h0 is None else h0.to(f32)
-    h_in = []
-    for ic in range(c):
-        h_in.append(h_prev)
-        h_prev = h_prev * chunk_decay[:, :, ic, None, None] + states[:, ic]
-    h_in = torch.stack(h_in, dim=1)                            # (b,c,h,p,n)
-
-    # 4. inter-chunk outputs: state contribution decayed to each position
-    state_decay = torch.exp(cum)                               # (b,h,c,l)
-    Y_off = torch.einsum("bcln,bchpn,bhcl->bclhp", Cc, h_in, state_decay)
-
-    y = (Y_diag + Y_off).reshape(b, s, h, p)
-    return y, h_prev
+    if x.shape[1] % chunk:
+        raise ValueError(f"seq {x.shape[1]} not divisible by chunk {chunk}")
+    cb = chunk_cb(B, C, chunk)
+    cum, states = chunk_state(x, dt, A, B, chunk)
+    h_in, hT = state_pass(states, cum, h0)
+    return chunk_scan(x, dt, C, cb, cum, h_in), hT
 
 
 def ssd_naive_ref(x, dt, A, B, C, h0: Optional[torch.Tensor] = None):

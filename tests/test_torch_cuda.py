@@ -14,8 +14,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.flash_prefill.kernel import flash_prefill
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_attention
-from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+from repro_torch.kernels.flash_prefill.ref import (flash_prefill_ref,
+                                                   flash_prefill_split_ref)
 from repro_torch.kernels.paged_attention.kernel import (paged_attention,
                                                         paged_attention_layers)
 from repro_torch.kernels.paged_attention.ops import (
@@ -24,7 +26,9 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_layers_ref, paged_attention_ref)
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
-from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+from repro_torch.kernels.ssd_scan.ref import (chunk_cb, chunk_scan,
+                                              chunk_state, ssd_chunked,
+                                              state_pass)
 
 TOL = 2e-2
 SMOLLM_MAP_FULL = [0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 0]
@@ -272,3 +276,101 @@ def test_mamba_kernel_path_matches_plain_path(cuda):
     torch.cuda.synchronize()
     assert (kern - plain).abs().max().item() <= TOL * max(
         1.0, plain.abs().max().item())
+
+
+# B, Sq, Sk, H, KV, D, offset, window, forced key splits
+FLASH_SPLIT_CASES = [
+    (1, 256, 256, 4, 2, 64, 0, 0, 5),      # q_offset 0: splits empty for
+    (2, 256, 256, 4, 2, 64, 0, 0, 2),      # the early query tiles
+    (1, 1, 300, 4, 2, 64, 299, 0, 3),      # Sq = 1
+    (1, 131, 1411, 16, 5, 64, 1280, 0, 6),  # the ragged last serving chunk
+    (1, 64, 320, 4, 1, 32, 256, 0, 4),     # D = 32 (64-byte swizzle)
+    (1, 128, 384, 8, 2, 128, 256, 0, 3),   # D = 128 (two TMA boxes a row)
+    (1, 256, 1024, 4, 2, 64, 768, 200, 4),  # a window starting in a split
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_SPLIT_CASES)
+def test_prefill_kernel_split_over_keys(cuda, case):
+    """The split pass and its log-sum-exp combine against the plain
+    version and the plain split decomposition, with rows that see no key
+    of some split; keys past the chunk are poisoned and never read."""
+    B, Sq, Sk, H, KV, D, off, win, ns = case
+    rng = np.random.default_rng(Sq + Sk)
+    q = _randn(rng, (B, Sq, H, D), cuda)
+    k, v = _randn(rng, (B, Sk, KV, D), cuda), _randn(rng, (B, Sk, KV, D), cuda)
+    k[:, off + Sq:], v[:, off + Sq:] = 1e4, -1e4
+    m = torch.tensor(SMOLLM_MAP_FULL if (H, KV) == (16, 5) else
+                     [h // (H // KV) for h in range(H)], dtype=torch.int32,
+                     device=cuda)
+    before = flash_prefill.launches
+    out = flash_prefill(q, k, v, m, q_offset=off, window=win, n_splits=ns)
+    assert flash_prefill.launches == before + 1
+    assert flash_prefill.last_splits == ns
+    _close(out, flash_prefill_ref(q, k, v, q_offset=off, window=win, qh2kv=m))
+    _close(out, flash_prefill_split_ref(q, k, v, q_offset=off, window=win,
+                                        qh2kv=m, n_splits=ns))
+
+
+@pytest.mark.cuda
+def test_prefill_kernel_chooses_splits_from_the_card(cuda):
+    """At the serving chunk (64 blocks) the wrapper splits the keys so that
+    at least two blocks per SM are live, and still matches."""
+    from repro_torch.kernels.flash_prefill.kernel import choose_splits
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (1, 256, 16, 64), cuda)
+    k, v = _randn(rng, (1, 1536, 5, 64), cuda), _randn(rng, (1, 1536, 5, 64),
+                                                      cuda)
+    m = torch.tensor(SMOLLM_MAP_FULL, dtype=torch.int32, device=cuda)
+    out = flash_prefill(q, k, v, m, q_offset=1280)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert flash_prefill.last_splits == choose_splits(64, 24, sms) > 1
+    _close(out, flash_prefill_ref(q, k, v, q_offset=1280, qh2kv=m))
+
+
+def _conv_views(rng, b, s, h, p, n, dev):
+    """x, B and C as ``mamba_block`` hands them over: views into one
+    (b, s, h·p + 2n) buffer, not contiguous."""
+    buf = torch.from_numpy(rng.standard_normal(
+        (b, s, h * p + 2 * n)).astype(np.float32)).to(dev).bfloat16()
+    x = buf[..., :h * p].reshape(b, s, h, p)
+    return x, buf[..., h * p:h * p + n], buf[..., h * p + n:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 17, 65, 200, 256])
+def test_ssd_kernel_chunk_lengths_strided_views(cuda, chunk):
+    """Chunk lengths that are not multiples of a tile, b = 2, no h0, and
+    x, B, C read in place through their strides (no copies)."""
+    rng = np.random.default_rng(chunk)
+    b, h, p, n = 2, 3, 64, 128
+    s = chunk * (2 if chunk > 1 else 5)
+    x, B, C = _conv_views(rng, b, s, h, p, n, cuda)
+    assert not x.is_contiguous() and not B.is_contiguous()
+    _, dt, A, _, _, _ = _ssd_inputs(rng, b, s, h, p, n, False, cuda)
+    out = ssd_scan_op(x, dt, A, B, C, chunk=chunk)
+    _ssd_close(out, ssd_chunked(x, dt, A, B, C, chunk))
+    direct = ssd_scan(x, dt, A, B, C, chunk=chunk)   # the views as they are
+    _ssd_close(direct, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [(1, 512, 4, 64, 128, 256, True),
+                                  (2, 130, 3, 24, 16, 65, True)])
+def test_ssd_kernel_passes_match_the_plain_passes(cuda, case):
+    """Each of the four passes' outputs against its plain pass on the same
+    inputs: C·Bᵀ (lower triangle), cum and S_c, h_in, then y and hT."""
+    b, s, h, p, n, chunk, with_h0 = case
+    x, dt, A, B, C, h0 = _ssd_inputs(np.random.default_rng(s), b, s, h, p, n,
+                                     with_h0, cuda)
+    y, hT, got = ssd_scan(x, dt, A, B, C, h0, chunk=chunk, passes=True)
+    cb = chunk_cb(B, C, chunk)
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=cuda))
+    cum, states = chunk_state(x, dt, A, B, chunk)
+    h_in, h_T = state_pass(states, cum, h0)
+    torch.cuda.synchronize()
+    _ssd_close((got["cb"] * tri,), (cb * tri,))
+    _ssd_close((got["cum"], got["states"]), (cum, states))
+    _ssd_close((got["h_in"],), (h_in,))
+    _ssd_close((y, hT), (chunk_scan(x, dt, C, cb, cum, h_in), h_T))
