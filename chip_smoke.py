@@ -6,11 +6,16 @@
 Phases, each printed as it runs; any failure exits non-zero:
   1. the device (nvidia-smi name and power limit, torch and CUDA versions);
   2. the build of every hand-written kernel (one nvcc per source, all at
-     once) and what ptxas reports for each;
-  3. the paged decode kernel against its plain PyTorch version on the
-     card at the serving path's shapes (smollm-360m: B=8 slots, 16 padded
-     query heads over 5 KV heads, D=64, 64-token pages, 32-page tables,
-     ragged lengths, a poisoned null page) plus one grouped case;
+     once) and what ptxas reports for each kernel (registers, static
+     shared memory, spills), with the paged kernel's dynamic shared
+     memory per head_dim;
+  3. the paged decode kernel against its plain PyTorch version and its
+     plain split decomposition on the card at the serving path's shapes
+     (smollm-360m: B=8 slots, 16 padded query heads over 5 KV heads,
+     D=64, 64-token pages, 32-page tables, ragged lengths, a poisoned null
+     page), a grouped D=128 case, a forced 8-split case with 1-token
+     slots (clusters of mostly empty splits) and one KV head serving 16
+     query heads at D=128;
   4. the chunked-prefill kernel against its plain version and its plain
      split-over-keys decomposition (256-token chunks at offsets
      0/256/1280 against a 1536-token cache, a ragged 131-token tail chunk,
@@ -45,6 +50,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -114,6 +120,36 @@ class Timer:
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
 
 
+def ptxas_by_kernel(report: str) -> list:
+    """(kernel, "spills; registers and static shared memory") for each
+    entry function in an ``-Xptxas -v`` report, names demangled to
+    ``name<template int>``."""
+    rows, fn, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn, spill = short_name(m.group(1)), ""
+        elif fn and "spill" in line:
+            spill = line.strip()
+        elif fn and "Used" in line and "registers" in line:
+            rows.append((fn, f"{spill}; {line.split(':', 1)[1].strip()}"))
+            fn = None
+    return rows
+
+
+def short_name(mangled: str) -> str:
+    """``_ZN12_GLOBAL__N_119paged_decode_kernelILi64EEEv...`` ->
+    ``paged_decode_kernel<64>`` (the innermost name and a leading int
+    template argument)."""
+    rest = re.sub(r"^_ZN?", "", mangled)
+    name = mangled
+    while rest[:1].isdigit():
+        n = re.match(r"\d+", rest).group()
+        name, rest = rest[len(n):len(n) + int(n)], rest[len(n) + int(n):]
+    t = re.match(r"ILi(\d+)E", rest)
+    return f"{name}<{t.group(1)}>" if t else name
+
+
 def bound(n_bytes: float, n_flops: float) -> tuple[float, str]:
     tb, tf = n_bytes / HBM_BYTES_S, n_flops / BF16_FLOP_S
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
@@ -154,26 +190,49 @@ def paged_table(torch, *, lens, page, max_pages, P, qh2kv, seed):
     return table, lens_t, m
 
 
-def check_paged(torch, timer, name, case, main: bool):
+def check_paged(torch, timer, name, case, main: bool, n_splits=None):
     from repro_torch.kernels.paged_attention.kernel import paged_attention
     from repro_torch.kernels.paged_attention.ops import grouped_map
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_attention_splits_ref)
     q, kp, vp, table, lens, m = case
     B, H, D = q.shape
     KV = kp.shape[2]
     mk = m if m is not None else grouped_map(H, KV, q.device)
-    out = paged_attention(q, kp, vp, table, lens, mk)
+    out = paged_attention(q, kp, vp, table, lens, mk, n_splits=n_splits)
     torch.cuda.synchronize()
+    splits = paged_attention.last_splits
     ref = paged_attention_ref(q, kp, vp, table, lens, qh2kv=m)
     err = (out.float() - ref.float()).abs().max().item()
     finite = bool(torch.isfinite(out.float()).all())
+    # the plain split decomposition with the kernel's split count
+    split_ref = paged_attention_splits_ref(q, kp, vp, table, lens, qh2kv=m,
+                                           n_splits=splits)
+    err_split = (out.float() - split_ref.float()).abs().max().item()
     log(f"paged[{name}]: B={B} H={H} KV={KV} D={D} lens={lens.tolist()} "
-        f"max_abs_err={err:.3e} (tol {TOL}) finite={finite}")
-    if not (err <= TOL and finite):
+        f"n_splits={splits} max_abs_err={err:.3e} (vs the plain split "
+        f"decomposition {err_split:.3e}; tol {TOL}) finite={finite}")
+    if not (err <= TOL and err_split <= TOL and finite):
         raise AssertionError(f"paged decode kernel disagrees ({name})")
+    if n_splits is not None and splits != n_splits:
+        raise AssertionError(f"paged ran {splits} splits, not {n_splits}")
     if not main:
         return None
     ms = timer.ms(lambda: paged_attention(q, kp, vp, table, lens, mk))
+    sweep = {ns: timer.ms(lambda: paged_attention(q, kp, vp, table, lens, mk,
+                                                  n_splits=ns))
+             for ns in (1, 2, 4, 8)}
+    log(f"paged[{name}]: forced splits " + ", ".join(
+        f"{ns}: {t:.4f} ms" for ns, t in sweep.items())
+        + f" (the chooser took {splits})")
+    # the fixed cost: the same call with no live token in any slot, and
+    # one trivial kernel launch under the same timer
+    no_tok = torch.zeros_like(lens)
+    empty_ms = timer.ms(lambda: paged_attention(q, kp, vp, table, no_tok, mk))
+    one = torch.zeros(1, device=q.device)
+    launch_ms = timer.ms(lambda: one.fill_(1.0))
+    log(f"paged[{name}]: fixed cost: {empty_ms:.4f} ms with no live token, "
+        f"{launch_ms:.4f} ms for one trivial kernel launch")
     plain_ms = timer.ms(lambda: paged_attention_ref(q, kp, vp, table, lens,
                                                     qh2kv=m))
     # library yardstick: SDPA on pre-gathered, head-expanded KV (the
@@ -475,6 +534,12 @@ def check_paged_layers(torch, timer, *, L, B, H, KV, D, page, max_pages, P,
     if launches != 1 or not exact or not (err <= TOL and finite):
         raise AssertionError("paged layers kernel disagrees")
     ms = timer.ms(lambda: paged_attention_layers(qs, kp, vp, table, lens_t, m))
+    chosen = paged_attention_layers.last_splits
+    sweep = {ns: timer.ms(lambda: paged_attention_layers(
+        qs, kp, vp, table, lens_t, m, n_splits=ns)) for ns in (1, 2, 4, 8)}
+    log("paged_layers: forced splits " + ", ".join(
+        f"{ns}: {t:.4f} ms" for ns, t in sweep.items())
+        + f" (the chooser took {chosen})")
     per_ms = timer.ms(lambda: [paged_attention(qs[l], kp[l], vp[l], table,
                                                lens_t, m) for l in range(L)])
     plain_ms = timer.ms(lambda: paged_attention_layers_ref(
@@ -667,9 +732,11 @@ def main() -> int:
     log(f"built {b['built']} in {b['seconds']:.1f} s (nvcc, sm_90a, "
         f"one process per source)")
     for name in b["built"]:
-        for line in _build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas[{name}]: {line.strip()}")
+        for fn, info in ptxas_by_kernel(_build.ptxas_report(name)):
+            log(f"  ptxas[{name}] {fn}: {info}")
+    lib = _build.library("paged_attention")
+    log("  paged_decode_kernel dynamic shared memory: " + ", ".join(
+        f"D={d} {lib.paged_attention_smem_bytes(d)} B" for d in (32, 64, 128)))
 
     timer = Timer(torch)
     smollm_map = [0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 0]
@@ -681,6 +748,16 @@ def main() -> int:
     check_paged(torch, timer, "grouped-D128", paged_case(
         torch, B=8, H=16, KV=2, D=128, page=64, max_pages=32, P=289,
         lens=[5, 2048, 640, 1, 100, 1500, 63, 1024], qh2kv=None, seed=1),
+        main=False)
+    # eight splits with 1-token slots: seven of each such cluster's eight
+    # blocks hold no token and still take part in the merge
+    check_paged(torch, timer, "8-splits-1-token-slots", paged_case(
+        torch, B=8, H=16, KV=5, D=64, page=64, max_pages=32, P=289,
+        lens=[1, 2048, 1, 64, 65, 700, 1537, 1], qh2kv=smollm_map, seed=2),
+        main=False, n_splits=8)
+    check_paged(torch, timer, "KV1-16-heads-D128", paged_case(
+        torch, B=8, H=16, KV=1, D=128, page=64, max_pages=32, P=289,
+        lens=[2048, 1, 333, 1024, 64, 65, 1999, 700], qh2kv=None, seed=3),
         main=False)
 
     phase("4 chunked-prefill kernel vs plain (card)")

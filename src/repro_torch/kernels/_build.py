@@ -36,9 +36,9 @@ _libs: dict[str, ctypes.CDLL] = {}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "paged_attention": {
-        "paged_attention_bf16": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
-        "paged_attention_layers_bf16": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
-        "paged_attention_split_tokens": [],
+        "paged_attention_bf16": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+        "paged_attention_layers_bf16": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
+        "paged_attention_smem_bytes": [_I],
     },
     "flash_prefill": {
         "flash_prefill_bf16": [_P] * 7 + [_I] * 9 + [_F, _P],

@@ -4,14 +4,13 @@ wrapper's kernel calls (one per call: the split pass and, with more than
 one split, its combine pass, issued together by one C call)."""
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill.ref import TILE
-from repro_torch.kernels.paged_attention.kernel import _need
+from repro_torch.kernels.paged_attention.kernel import _need, device_sms
 
 BLOCKS_PER_SM = 2   # live blocks per SM the split over keys aims for
 
@@ -25,11 +24,6 @@ def choose_splits(n_blocks: int, n_key_tiles: int, sm_count: int) -> int:
     if n_blocks >= want or n_key_tiles <= 1:
         return 1
     return max(1, min(-(-want // n_blocks), n_key_tiles))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_prefill(q, k, v, qh2kv, *, q_offset: int = 0, window: int = 0,
@@ -66,7 +60,7 @@ def flash_prefill(q, k, v, qh2kv, *, q_offset: int = 0, window: int = 0,
     key_tiles = -(-max(1, min(Sk, q_offset + Sq)) // TILE)
     if n_splits is None:
         n_splits = choose_splits(n_blocks, key_tiles,
-                                 _sm_count(q.device.index))
+                                 device_sms(q.device.index))
     if not 1 <= n_splits <= 64:
         raise ValueError(f"n_splits {n_splits} not in [1, 64]")
     part_o = part_ml = None

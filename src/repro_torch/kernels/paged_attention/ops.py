@@ -4,6 +4,8 @@ version; a CUDA tensor launches the hand-written kernel (or the wrapper
 raises) — there is no fallback between the two."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels.paged_attention.kernel import (paged_attention,
@@ -12,11 +14,18 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_layers_ref, paged_attention_ref)
 
 
+@functools.lru_cache(maxsize=64)
+def _grouped_cached(H: int, KV: int, device: str) -> torch.Tensor:
+    return torch.tensor([h // (H // KV) for h in range(H)],
+                        dtype=torch.int32, device=device)
+
+
 def grouped_map(H: int, KV: int, device) -> torch.Tensor:
-    """Grouped-GQA query-head → KV-head map, h // (H // KV)."""
+    """Grouped-GQA query-head → KV-head map, h // (H // KV): int32 (H,),
+    built once per (H, KV, device) and shared by every later call (a
+    decode step asks for it in every layer)."""
     assert H % KV == 0, (H, KV)
-    return (torch.arange(H, dtype=torch.int32, device=device)
-            // (H // KV)).to(torch.int32)
+    return _grouped_cached(H, KV, str(torch.device(device)))
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,

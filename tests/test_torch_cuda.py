@@ -23,7 +23,8 @@ from repro_torch.kernels.paged_attention.kernel import (paged_attention,
 from repro_torch.kernels.paged_attention.ops import (
     paged_decode_attention, paged_decode_attention_layers)
 from repro_torch.kernels.paged_attention.ref import (
-    paged_attention_layers_ref, paged_attention_ref)
+    paged_attention_layers_ref, paged_attention_ref,
+    paged_attention_splits_ref)
 from repro_torch.kernels.ssd_scan.kernel import ssd_scan
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
 from repro_torch.kernels.ssd_scan.ref import (chunk_cb, chunk_scan,
@@ -126,6 +127,120 @@ def test_paged_layers_kernel_matches_per_layer_and_plain(cuda, qh2kv, KV, D,
     assert torch.equal(out, per_layer)
     _close(out, paged_attention_layers_ref(qs, kp, vp, table, lens, qh2kv=m,
                                            window=window))
+
+
+def _paged_grouped_case(seed, B, H, KV, D, page, mp, lens, qh2kv, dev):
+    """q, pages with a poisoned null page, a table of distinct live pages
+    and the head map (the grouped map where ``qh2kv`` is None)."""
+    rng = np.random.default_rng(seed)
+    P = sum(-(-n // page) for n in lens) + 2
+    q = _randn(rng, (B, H, D), dev)
+    kp, vp = _randn(rng, (P, page, KV, D), dev), _randn(rng, (P, page, KV, D),
+                                                        dev)
+    kp[0], vp[0] = 1e4, -1e4
+    table, lens_t = _paged_table(rng, lens, P, page, mp, dev)
+    m = torch.tensor(qh2kv if qh2kv is not None else
+                     [h // (H // KV) for h in range(H)], dtype=torch.int32,
+                     device=dev)
+    return q, kp, vp, table, lens_t, m
+
+
+def _paged_checked(case, window=0, n_splits=None):
+    """One kernel call, counted, against the plain version and the plain
+    split decomposition with the kernel's split count."""
+    q, kp, vp, table, lens, m = case
+    before = paged_attention.launches
+    out = paged_attention(q, kp, vp, table, lens, m, window=window,
+                          n_splits=n_splits)
+    assert paged_attention.launches == before + 1
+    ns = paged_attention.last_splits
+    assert n_splits is None or ns == n_splits
+    _close(out, paged_attention_ref(q, kp, vp, table, lens, qh2kv=m,
+                                    window=window))
+    _close(out, paged_attention_splits_ref(q, kp, vp, table, lens, qh2kv=m,
+                                           window=window, n_splits=ns))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits", [1, 2, 4, 8])
+def test_paged_kernel_forced_splits(cuda, n_splits):
+    """A 1-token slot beside a full-table slot: with 8 splits most blocks
+    of the first slot's clusters hold no token and still merge."""
+    case = _paged_grouped_case(n_splits, 5, 16, 5, 64, 64, 32,
+                               [1, 2048, 64, 65, 700], SMOLLM_MAP_FULL, cuda)
+    _paged_checked(case, n_splits=n_splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,D,page,qh2kv", [
+    (16, 1, 128, 64, None),                     # one KV head, 16 query heads
+    (32, 1, 64, 32, None),                      # two 16-row query tiles
+    (8, 3, 64, 16, [0, 0, 0, 0, 2, 2, 2, 2]),   # KV head 1 unused
+    (16, 2, 32, 16, SMOLLM_MAP_REDUCED),
+])
+def test_paged_kernel_head_groups_and_page_sizes(cuda, H, KV, D, page, qh2kv):
+    case = _paged_grouped_case(H + KV, 4, H, KV, D, page, 1024 // page,
+                               [1, 1024, 333, 64], qh2kv, cuda)
+    _paged_checked(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,n_splits", [(100, 4), (300, 8), (1000, 2)])
+def test_paged_kernel_window_inside_a_split(cuda, window, n_splits):
+    case = _paged_grouped_case(window, 4, 16, 5, 64, 64, 32,
+                               [2048, 1500, 90, 1], SMOLLM_MAP_FULL, cuda)
+    _paged_checked(case, window=window, n_splits=n_splits)
+
+
+@pytest.mark.cuda
+def test_paged_kernel_is_deterministic(cuda):
+    """The splits merge in a fixed order without atomics: two calls on the
+    same inputs are bit-equal, and so is a layers call with the same
+    forced split count on each layer."""
+    q, kp, vp, table, lens, m = _paged_grouped_case(
+        9, 8, 16, 5, 64, 64, 32, [1, 2048, 1536, 64, 65, 700, 1537, 333],
+        SMOLLM_MAP_FULL, cuda)
+    a = paged_attention(q, kp, vp, table, lens, m)
+    b = paged_attention(q, kp, vp, table, lens, m)
+    lay = paged_attention_layers(torch.stack([q, q]), torch.stack([kp, kp]),
+                                 torch.stack([vp, vp]), table, lens, m,
+                                 n_splits=paged_attention.last_splits)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(lay[0], a) and torch.equal(lay[1], a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits,qh2kv,H,KV", [(1, SMOLLM_MAP_FULL, 16, 5),
+                                                (4, SMOLLM_MAP_FULL, 16, 5),
+                                                (8, SMOLLM_MAP_FULL, 16, 5),
+                                                (3, None, 32, 1)])
+def test_paged_layers_equal_per_layer_with_forced_splits(cuda, n_splits,
+                                                         qh2kv, H, KV):
+    """A layers call with a forced split count gives every layer bit for
+    bit what a per-layer call with that count gives, also at 32 query
+    heads over one KV head (two 16-row query tiles, two merges a
+    cluster)."""
+    rng = np.random.default_rng(n_splits)
+    L, B, P, page, mp = 5, 4, 60, 32, 16
+    qs = _randn(rng, (L, B, H, 64), cuda)
+    kp = _randn(rng, (L, P, page, KV, 64), cuda)
+    vp = _randn(rng, (L, P, page, KV, 64), cuda)
+    kp[:, 0], vp[:, 0] = 1e4, -1e4
+    table, lens = _paged_table(rng, [1, 512, 200, 33], P, page, mp, cuda)
+    m = torch.tensor(qh2kv if qh2kv is not None else [0] * H,
+                     dtype=torch.int32, device=cuda)
+    out = paged_attention_layers(qs, kp, vp, table, lens, m, window=300,
+                                 n_splits=n_splits)
+    assert paged_attention_layers.last_splits == n_splits
+    per_layer = torch.stack([
+        paged_attention(qs[l], kp[l], vp[l], table, lens, m, window=300,
+                        n_splits=n_splits) for l in range(L)])
+    torch.cuda.synchronize()
+    assert torch.equal(out, per_layer)
+    _close(out, paged_attention_layers_ref(qs, kp, vp, table, lens, qh2kv=m,
+                                           window=300))
 
 
 def _ssd_inputs(rng, b, s, h, p, n, with_h0, dev):
