@@ -40,7 +40,21 @@ Phases, each printed as it runs; any failure exits non-zero:
      prefix, so a checkpoint restore runs), each then decoded greedily
      with decode_step; SSD-scan launches counted; the restored request's
      first token against a cold prefill; one request teacher-forced
-     through the kernel path and the plain path on the card.
+     through the kernel path and the plain path on the card;
+  9. the storage hierarchy at smollm-360m's full width (phase 5's
+     weights): the launcher with a DRAM tier of 4 blocks over a
+     file-backed SSD tier of 64 serves the workload cold into a fresh
+     store directory, then again on the same directory after the restart
+     (prefixes come off disk through the overlapped load-vs-recompute
+     path), each run's kernel launches counted from zero; one request's
+     prefix is loaded off a copy of the cold run's store by a fresh
+     PrefillWorker, the bytes set into the cache arena held bit for bit
+     against the stored bytes and against a cold flat-pool prefill of the
+     same prompt, and its teacher-forced logits against a cold prefill
+     (4 bf16 ulps), again after every slot of another copy
+     is corrupted (recompute replaces what is lost); last, a run on a
+     fresh directory fetches blocks off the first store as a peer's
+     through the global directory.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -323,9 +337,13 @@ def check_prefill(torch, timer, name, *, Sq, Sk, q_offset, H, KV, D, qh2kv,
 # phase 5: end to end
 # ---------------------------------------------------------------------------
 
-def teacher_forced(torch, params, cfg, prompt, stream, chunk=256, page=64):
+def teacher_forced(torch, params, cfg, prompt, stream, chunk=256, page=64,
+                   kv=None):
     """Logits of every position a served stream was sampled from: the
-    first token's (chunked prefill) and each decode step's (paged)."""
+    first token's (chunked prefill) and each decode step's (paged). With
+    ``kv`` — host (k, v) of the prompt from another path, such as a
+    tiered prefill — the prompt's KV but its last token's comes from
+    there, and the first token's logits from a one-token extend."""
     from repro_torch.models.transformer import (decode_step,
                                                 decode_step_paged,
                                                 init_caches)
@@ -335,8 +353,15 @@ def teacher_forced(torch, params, cfg, prompt, stream, chunk=256, page=64):
     S = len(prompt)
     t = torch.as_tensor(prompt[None, :].astype("int64"), device=dev)
     caches = init_caches(cfg, 1, S, device=dev)
-    for lo in range(0, S, chunk):
-        logits, caches = decode_step(params, t[:, lo:lo + chunk], caches, cfg)
+    if kv is None:
+        for lo in range(0, S, chunk):
+            logits, caches = decode_step(params, t[:, lo:lo + chunk], caches,
+                                         cfg)
+    else:
+        caches.kv.k[:, 0, :S - 1] = kv[0][:, :S - 1].to(dev)
+        caches.kv.v[:, 0, :S - 1] = kv[1][:, :S - 1].to(dev)
+        logits, caches = decode_step(params, t[:, S - 1:],
+                                     caches._replace(length=S - 1), cfg)
     rows = [logits[0, -1]]
     n_tok = S + len(stream)
     pp = DevicePagePool(cfg, n_pages=2 + -(-n_tok // page), page_tokens=page,
@@ -419,7 +444,12 @@ def e2e_smollm(torch):
         f"{served}")
     if not finite or err > tol:
         raise AssertionError("kernel path and plain path disagree")
-    return launches
+    return launches, params
+
+
+def bf16_ulps(n: int, scale: float) -> float:
+    """``n`` bf16 ulps (8 significand bits) of a value of size ``scale``."""
+    return n * 2.0 ** (math.floor(math.log2(scale)) - 7)
 
 
 # ---------------------------------------------------------------------------
@@ -704,6 +734,208 @@ def e2e_mamba(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the storage hierarchy, end to end
+# ---------------------------------------------------------------------------
+
+def corrupt_every_slot(d: str) -> int:
+    """Overwrite four payload bytes of every slot of the store in ``d``
+    (as ``tests/test_ssd_store.py`` corrupts a store); returns the slots."""
+    with open(os.path.join(d, "meta.json")) as f:
+        meta = json.load(f)
+    slot, hdr = meta["slot_size"], 16 + 4 * meta["shape"][0]
+    path = os.path.join(d, "kvblocks.dat")
+    n = os.path.getsize(path) // slot
+    with open(path, "r+b") as f:
+        for i in range(n):
+            f.seek(i * slot + hdr + 11)
+            f.write(b"\xde\xad\xbe\xef")
+    return n
+
+
+def tiered_serve(torch, cfg, name, **kw):
+    """One launcher run with its kernel launches counted from zero and
+    held to layers × paged calls and layers × prefill chunks."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.launch.serve import serve
+    paged_attention.launches = 0
+    flash_prefill.launches = 0
+    s = serve(cfg, "cuda", requests=12, max_batch=8, max_new=16,
+              pool_blocks=4, ssd_blocks=64, ssd_mode="overlap", seed=0,
+              log=log, **kw)
+    torch.cuda.synchronize()
+    pa, fp = paged_attention.launches, flash_prefill.launches
+    st = s.get("store", {})
+    log(f"{name}: {s['completed']}/{s['submitted']} requests, TTFT p50 "
+        f"{s['ttft_p50_s'] * 1e3:.2f} ms, TBT p50 {s['tbt_p50_s'] * 1e3:.2f} "
+        f"ms p99 {s['tbt_p99_s'] * 1e3:.2f} ms, decode "
+        f"{s['decode_tok_s']:.2f} tok/s over {s['seconds']:.3f} s; reused "
+        f"{s['reused_blocks']} blocks, {s['ssd_loaded_blocks']} loaded, "
+        f"{s['overlapped_requests']} overlapped prefills, "
+        f"{s['fallback_blocks']} fell back, {s['peer_blocks_fetched']} "
+        f"peer blocks ({s['peer_fetch_failures']} failures); store "
+        f"{st.get('bytes_written', 0)} B written, {st.get('bytes_read', 0)} "
+        f"B read, {st.get('read_failures', 0)} read failures, "
+        f"{st.get('blocks', 0)} blocks on disk, {st.get('n_flushes', 0)} "
+        f"write-back flushes taking {st.get('flush_s', 0.0) * 1e3:.1f} ms")
+    log(f"{name} launches: paged_attention {pa} (= {cfg.n_layers} x "
+        f"{s['paged_calls']} paged step calls), flash_prefill {fp} (= "
+        f"{cfg.n_layers} x {s['prefill_chunks']} prefill chunks)")
+    for i, plan in enumerate(s["overlap_plans"]):
+        log(f"  {name} overlap plan {i}: {json.dumps(plan)}")
+    if s["submitted"] != 8 or s["completed"] != s["submitted"]:
+        raise AssertionError(f"{name}: not every request completed")
+    if pa != cfg.n_layers * s["paged_calls"] \
+            or fp != cfg.n_layers * s["prefill_chunks"] or not (pa and fp):
+        raise AssertionError(f"{name}: launches do not match layers x steps")
+    for rid, _, mn, _ in s["payloads"]:
+        out = s["outputs"][rid]
+        if len(out) != mn or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"{name}: request {rid}: bad stream {out}")
+    return s
+
+
+def tiered_prefill(torch, params, cfg, d, prompt):
+    """A fresh overlapped PrefillWorker over a pool that recovers the
+    store in ``d``; returns (result, its overlap plan, the pool's stats,
+    the worker's counters)."""
+    from repro_torch.serving.engine import HostKVPool, PrefillWorker
+    pool = HostKVPool(capacity_blocks=4, ssd_capacity_blocks=64, ssd_dir=d)
+    try:
+        pw = PrefillWorker(params, cfg, pool, prefill_chunk=256,
+                           ssd_mode="overlap")
+        pres = pw(prompt)
+        torch.cuda.synchronize()
+        plan = pw.overlap_plans[-1] if pw.overlap_plans else None
+        return pres, plan, pool.stats(), dict(pw.counters)
+    finally:
+        pool.close()
+
+
+def e2e_tiers(torch, params):
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.cache import kv_block_bytes
+    from repro_torch.serving.engine import (HostKVPool, PrefillWorker,
+                                            prefix_hash_ids)
+    from repro_torch.serving.ssd_store import SSDBlockStore
+    cfg = get_config("smollm-360m")
+    block_bytes = kv_block_bytes(cfg)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="tiers-", dir=os.path.join(ROOT, "build"))
+    try:
+        d1, d2 = os.path.join(root, "d1"), os.path.join(root, "d2")
+        d1_cold = os.path.join(root, "d1-after-cold")
+        log(f"smollm-360m full width, DRAM tier 4 blocks over an SSD tier of "
+            f"64 (one block {block_bytes} B), stores in {root}")
+        cold = tiered_serve(torch, cfg, "cold run", params=params, ssd_dir=d1)
+        shutil.copytree(d1, d1_cold)    # the bytes the cold run stored
+        warm = tiered_serve(torch, cfg, "restart run", params=params,
+                            ssd_dir=d1)
+        if not (warm["ssd_loaded_blocks"] > 0
+                and warm["overlapped_requests"] > 0
+                and warm["store"]["read_failures"] == 0):
+            raise AssertionError("the restart run did not serve prefixes "
+                                 "off disk through the overlapped path")
+
+        # worker level: one request whose prefix sits on the cold run's disk
+        check = os.path.join(root, "check")
+        shutil.copytree(d1_cold, check)
+        probe = SSDBlockStore(check)
+        try:
+            keys = set(probe.keys())
+            rid, prompt = max(
+                ((r, p) for r, p, _, _ in cold["payloads"]),
+                key=lambda rp: sum(h in keys for h in prefix_hash_ids(rp[1])))
+            ids = prefix_hash_ids(prompt)
+            stored = {h: probe.read_block(h) for h in ids if h in keys}
+            read_s = probe.read_s_ema
+        finally:
+            probe.close()
+        log(f"worker check: request {rid}, prompt {len(prompt)}, "
+            f"{len(stored)} of its {len(ids)} blocks on the cold run's disk; "
+            f"measured blocking read {read_s * 1e3:.3f} ms a block "
+            f"({block_bytes / read_s / 1e9:.2f} GB/s)")
+        pres, plan, pst, pc = tiered_prefill(torch, params, cfg, check,
+                                             prompt)
+        log(f"worker check plan: {json.dumps(plan)}; {pres.ssd_blocks} "
+            f"blocks loaded, {pres.reused_blocks} reused")
+        if plan is None or pres.ssd_blocks == 0:
+            raise AssertionError("the worker check loaded nothing off disk")
+        for i in range(plan["split"], plan["split"] + plan["loaded_tail"]):
+            sl = slice(i * 512, (i + 1) * 512)
+            k, v = stored[ids[i]]
+            if not (torch.equal(pres.kv_k[:, sl].view(torch.int16),
+                                k.view(torch.int16))
+                    and torch.equal(pres.kv_v[:, sl].view(torch.int16),
+                                    v.view(torch.int16))):
+                raise AssertionError(f"block {i}: the bytes set into the "
+                                     f"arena differ from the stored bytes")
+        # ... and equal to what a cold prefill computes for those blocks
+        flat = HostKVPool()
+        try:
+            cres = PrefillWorker(params, cfg, flat, prefill_chunk=256)(prompt)
+            torch.cuda.synchronize()
+        finally:
+            flat.close()
+        for i in range(plan["split"], plan["split"] + plan["loaded_tail"]):
+            sl = slice(i * 512, (i + 1) * 512)
+            if not (torch.equal(pres.kv_k[:, sl].view(torch.int16),
+                                cres.kv_k[:, sl].view(torch.int16))
+                    and torch.equal(pres.kv_v[:, sl].view(torch.int16),
+                                    cres.kv_v[:, sl].view(torch.int16))):
+                raise AssertionError(f"block {i}: the bytes set into the "
+                                     f"arena differ from a cold prefill's")
+        log(f"worker check: blocks {plan['split']}..."
+            f"{plan['split'] + plan['loaded_tail'] - 1} set into the arena "
+            f"bit-equal to the cold run's stored bytes and to a cold "
+            f"flat-pool prefill of the same prompt")
+        stream = cold["outputs"][rid]
+        lc = teacher_forced(torch, params, cfg, prompt, stream)
+        lt = teacher_forced(torch, params, cfg, prompt, stream,
+                            kv=(pres.kv_k, pres.kv_v))
+
+        bad = os.path.join(root, "corrupt")
+        shutil.copytree(d1_cold, bad)
+        n_bad = corrupt_every_slot(bad)
+        bres, bplan, bst, bc = tiered_prefill(torch, params, cfg, bad, prompt)
+        lb = teacher_forced(torch, params, cfg, prompt, stream,
+                            kv=(bres.kv_k, bres.kv_v))
+        torch.cuda.synchronize()
+        log(f"corruption: {n_bad} slots corrupted; plan {json.dumps(bplan)}; "
+            f"{bst['store_read_failures']} read failures, "
+            f"{bc['fallback_blocks']} blocks fell back to recompute")
+        if not (bst["store_read_failures"] > 0 or bc["fallback_blocks"] > 0):
+            raise AssertionError("the corrupted store was not noticed")
+        scale = lc.abs().max().item()
+        tol = bf16_ulps(4, scale)
+        for name, lx in (("tiered", lt), ("after corruption", lb)):
+            err = (lx - lc).abs().max().item()
+            agree = (lx.argmax(-1) == lc.argmax(-1)).float().mean().item()
+            log(f"teacher forcing ({name} vs cold prefill, request {rid}, "
+                f"{len(stream)} positions): max_abs_err {err:.4f} (max "
+                f"|logit| {scale:.3f}; tol {tol:.4f} = 4 bf16 ulps), greedy "
+                f"agreement {agree:.4f}")
+            if not bool(torch.isfinite(lx).all()) or err > tol:
+                raise AssertionError(f"{name} logits disagree with a cold "
+                                     f"prefill")
+
+        peer = tiered_serve(torch, cfg, "global pool run", params=params,
+                            ssd_dir=d2, peer_ssd_dir=d1)
+        if peer["peer_blocks_fetched"] == 0 or peer["peer_fetch_failures"]:
+            raise AssertionError("the global pool run fetched no peer block "
+                                 "or a fetch failed")
+        if peer["peer_blocks"] != peer["peer_blocks_fetched"]:
+            raise AssertionError(
+                f"the workers counted {peer['peer_blocks']} peer blocks, the "
+                f"pool fetched {peer['peer_blocks_fetched']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -775,7 +1007,7 @@ def main() -> int:
                   main=False, n_splits=5)
 
     phase("5 end to end, smollm-360m full width")
-    launches = e2e_smollm(torch)
+    launches, smollm_params = e2e_smollm(torch)
 
     phase("6 SSD-scan kernel vs plain (card)")
     ssd = check_ssd(torch, timer, "mamba2-2.7b", b=1, s=512, h=80, p=64,
@@ -792,6 +1024,10 @@ def main() -> int:
 
     phase("8 end to end, mamba2-2.7b full width")
     ssd_launches = e2e_mamba(torch)
+
+    phase("9 the storage hierarchy, smollm-360m full width")
+    e2e_tiers(torch, smollm_params)
+    del smollm_params
 
     kernels = [
         dict(name="paged_attention", route="cuda",

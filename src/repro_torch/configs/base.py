@@ -23,22 +23,37 @@ def _pad_to(x: int, m: int) -> int:
 
 @dataclass(frozen=True)
 class CacheTierSpec:
-    """Per-serving-instance KVCache storage: the DRAM tier only. The SSD
-    tier (``ssd_blocks > 0``) is not ported yet and is refused."""
+    """Per-serving-instance KVCache storage hierarchy (Mooncake §3:
+    "the underutilized CPU, DRAM and SSD resources of the GPU cluster").
+
+    ``ssd_blocks = 0`` disables the SSD tier (flat DRAM pool); ``None``
+    capacities mean unbounded. ``ssd_dir`` makes the serving engine's SSD
+    tier real: ``HostKVPool`` backs it with a checksummed file store
+    (``serving/ssd_store.py``) in that directory and prefetches demoted
+    blocks asynchronously.
+    """
     dram_blocks: Optional[int] = 20_000
     ssd_blocks: Optional[int] = 0
+    dram_policy: str = "lru"
+    ssd_policy: str = "lru"
+    writeback_batch: int = 8   # demotions per batched SSD write
+    ssd_dir: Optional[str] = None   # file-backed store location (engine)
 
     @property
     def tiered(self) -> bool:
         return self.ssd_blocks is None or self.ssd_blocks > 0
 
-    def make_pool(self):
+    def make_pool(self, block_bytes: int = 0):
+        """Build the matching metadata pool (flat or tiered)."""
         from repro_torch.core.cache import CachePool
-        if self.tiered:
-            raise NotImplementedError(
-                "the SSD tier is not ported to repro_torch yet; use "
-                "ssd_blocks=0 (flat DRAM pool)")
-        return CachePool(self.dram_blocks)
+        from repro_torch.core.tiered import TieredCachePool
+        if not self.tiered:
+            return CachePool(self.dram_blocks, self.dram_policy,
+                             block_bytes=block_bytes)
+        return TieredCachePool(
+            self.dram_blocks, self.ssd_blocks,
+            policy=self.dram_policy, ssd_policy=self.ssd_policy,
+            block_bytes=block_bytes, writeback_batch=self.writeback_batch)
 
 
 @dataclass(frozen=True)

@@ -1,8 +1,8 @@
-"""Host KVCache pool metadata (Figure 3) with LRU eviction — the port's
-own copy of what the serving path uses of the reference's
-``core/cache.py``: ``CachePool`` for KV blocks and ``StateCache`` for
-SSM state checkpoints (the other Table 1 policies and pinning come with
-the tiers that use them).
+"""Host KVCache pool metadata (Figure 3) and eviction policies (Table 1)
+— the port's own copy of the reference's ``core/cache.py``:
+``CachePool`` for KV blocks (the DRAM tier, and the SSD tier inside
+``core.tiered.TieredCachePool``), ``StateCache`` for SSM state
+checkpoints, the LRU/LFU/LengthAware policies, and the block sizes.
 
 A *block* is 512 tokens of KVCache identified by a prefix-chained hash id
 (the trace's ``hash_ids``). ``CachePool`` tracks block residency and
@@ -10,30 +10,107 @@ metadata only; ``serving.engine.HostKVPool`` holds the bytes.
 """
 from __future__ import annotations
 
+import heapq
+import itertools
 from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Iterable, Optional
 
 
-class LRUPolicy:
+class EvictionPolicy:
+    """Interface: decide which resident block to evict."""
+    name = "base"
+
+    def on_insert(self, key: int, meta: "BlockMeta") -> None: ...
+    def on_hit(self, key: int, meta: "BlockMeta") -> None: ...
+    def on_evict(self, key: int) -> None: ...
+    def victim(self) -> Optional[int]:
+        raise NotImplementedError
+
+
+class LRUPolicy(EvictionPolicy):
     """Evict the least recently inserted or hit block."""
+    name = "lru"
 
     def __init__(self) -> None:
         self._order: OrderedDict[int, None] = OrderedDict()
 
-    def on_insert(self, key: int, meta: "BlockMeta") -> None:
+    def on_insert(self, key, meta):
         self._order[key] = None
         self._order.move_to_end(key)
 
-    def on_hit(self, key: int, meta: "BlockMeta") -> None:
+    def on_hit(self, key, meta):
         if key in self._order:
             self._order.move_to_end(key)
 
-    def on_evict(self, key: int) -> None:
+    def on_evict(self, key):
         self._order.pop(key, None)
 
-    def victim(self) -> Optional[int]:
+    def victim(self):
         return next(iter(self._order), None)
+
+
+class _HeapPolicy(EvictionPolicy):
+    """Lazy-deletion heap keyed by a (score, tiebreak) tuple; smallest first."""
+
+    def __init__(self) -> None:
+        self._heap: list[tuple] = []
+        self._entry: dict[int, tuple] = {}
+        self._counter = itertools.count()
+
+    def _score(self, meta: "BlockMeta") -> tuple:
+        raise NotImplementedError
+
+    def _push(self, key: int, meta: "BlockMeta") -> None:
+        entry = (*self._score(meta), next(self._counter), key)
+        self._entry[key] = entry
+        heapq.heappush(self._heap, entry)
+
+    def on_insert(self, key, meta):
+        self._push(key, meta)
+
+    def on_hit(self, key, meta):
+        if key in self._entry:
+            self._push(key, meta)  # old entry becomes stale
+
+    def on_evict(self, key):
+        self._entry.pop(key, None)
+
+    def victim(self):
+        while self._heap:
+            entry = self._heap[0]
+            key = entry[-1]
+            if self._entry.get(key) is entry:
+                return key
+            heapq.heappop(self._heap)  # stale
+        return None
+
+
+class LFUPolicy(_HeapPolicy):
+    name = "lfu"
+
+    def _score(self, meta):
+        return (meta.hits,)
+
+
+class LengthAwarePolicy(_HeapPolicy):
+    """LFU, but among equal frequencies prefer evicting blocks that occur
+    *later* in requests (deeper prefix position) — the paper's
+    LengthAwareCache."""
+    name = "length_aware"
+
+    def _score(self, meta):
+        return (meta.hits, -meta.position)
+
+
+def make_policy(name: str) -> EvictionPolicy:
+    policies = {"lru": LRUPolicy, "lfu": LFUPolicy,
+                "length_aware": LengthAwarePolicy}
+    try:
+        return policies[name]()
+    except KeyError:
+        raise ValueError(f"unknown eviction policy {name!r}; "
+                         f"registered: {sorted(policies)}") from None
 
 
 @dataclass
@@ -41,6 +118,8 @@ class BlockMeta:
     key: int
     position: int = 0        # block index within its request (depth)
     hits: int = 0
+    pinned: int = 0          # in-flight transfers / active prefills
+    size_bytes: int = 0
 
 
 class CachePool:
@@ -53,9 +132,11 @@ class CachePool:
     can break chains, so we check explicitly).
     """
 
-    def __init__(self, capacity_blocks: Optional[int] = None) -> None:
+    def __init__(self, capacity_blocks: Optional[int] = None,
+                 policy: str = "lru", block_bytes: int = 0) -> None:
         self.capacity = capacity_blocks
-        self.policy = LRUPolicy()
+        self.policy = make_policy(policy)
+        self.block_bytes = block_bytes
         self.blocks: dict[int, BlockMeta] = {}
         self.hits = 0
         self.misses = 0
@@ -89,14 +170,39 @@ class CachePool:
             self.misses += len(hash_ids) - n
         return n
 
+    def touch_keys(self, hash_ids: Iterable[int],
+                   count_read: bool = True) -> int:
+        """Hit-account an arbitrary set of resident keys (no prefix walk);
+        the tiered subclass overrides this to also promote SSD keys."""
+        n = 0
+        for h in hash_ids:
+            meta = self.blocks.get(h)
+            if meta is None:
+                continue
+            meta.hits += 1
+            self.policy.on_hit(h, meta)
+            self.hits += 1
+            n += 1
+        return n
+
+    def discard(self, key: int) -> bool:
+        """Drop one block outright (no eviction accounting)."""
+        return self.remove(key) is not None
+
     def _make_room(self) -> tuple[list[int], bool]:
-        """Evict victims until one slot is free; returns (evicted keys,
-        whether a slot is available)."""
+        """Evict unpinned victims until one slot is free; returns
+        (evicted keys, whether a slot is available)."""
         evicted: list[int] = []
+        attempts = 0
         while self.capacity is not None and len(self.blocks) >= self.capacity:
             v = self.policy.victim()
-            if v is None:
-                break
+            if v is None or attempts > len(self.blocks):
+                break  # nothing evictable (all pinned)
+            attempts += 1
+            if self.blocks.get(v) is not None and self.blocks[v].pinned:
+                # pinned victims are skipped by re-queueing as a hit
+                self.policy.on_hit(v, self.blocks[v])
+                continue
             self._evict(v)
             evicted.append(v)
         has_room = self.capacity is None or len(self.blocks) < self.capacity
@@ -111,16 +217,50 @@ class CachePool:
             dropped, has_room = self._make_room()
             evicted.extend(dropped)
             if not has_room:
-                break  # zero capacity: drop the insert
-            meta = BlockMeta(key=h, position=start_pos + i)
+                break  # everything pinned; drop the insert
+            meta = BlockMeta(key=h, position=start_pos + i,
+                             size_bytes=self.block_bytes)
             self.blocks[h] = meta
             self.policy.on_insert(h, meta)
         return evicted
+
+    def insert_meta(self, meta: BlockMeta) -> tuple[list[int], bool]:
+        """Insert one pre-existing ``BlockMeta`` preserving its hit count /
+        pin count / position (tier moves). Returns (evicted keys, placed)."""
+        if meta.key in self.blocks:
+            return [], True
+        evicted, has_room = self._make_room()
+        if has_room:
+            self.blocks[meta.key] = meta
+            self.policy.on_insert(meta.key, meta)
+        return evicted, has_room
+
+    def remove(self, key: int) -> Optional[BlockMeta]:
+        """Withdraw a block without counting an eviction (tier moves)."""
+        meta = self.blocks.pop(key, None)
+        if meta is not None:
+            self.policy.on_evict(key)
+        return meta
 
     def _evict(self, key: int) -> None:
         self.blocks.pop(key, None)
         self.policy.on_evict(key)
         self.evictions += 1
+
+    def pin(self, hash_ids: Iterable[int]) -> None:
+        for h in hash_ids:
+            if h in self.blocks:
+                self.blocks[h].pinned += 1
+
+    def unpin(self, hash_ids: Iterable[int]) -> None:
+        for h in hash_ids:
+            if h in self.blocks:
+                self.blocks[h].pinned = max(0, self.blocks[h].pinned - 1)
+
+    @property
+    def hit_rate(self) -> float:
+        t = self.hits + self.misses
+        return self.hits / t if t else 0.0
 
 
 class StateCache(CachePool):
@@ -151,6 +291,12 @@ class StateCache(CachePool):
         elif touch:
             self.misses += len(hash_ids)
         return best
+
+
+def kv_block_bytes(cfg, block_tokens: int = 512) -> int:
+    """Bytes of one 512-token KVCache block for a model config (bf16)."""
+    return 2 * cfg.attention_layers * block_tokens * cfg.n_kv_heads \
+        * cfg.head_dim * 2
 
 
 def ssm_state_bytes(cfg) -> int:

@@ -2,16 +2,22 @@
 pair on one GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
-        --requests 16 [--trace trace.jsonl]
+        --requests 16 [--trace trace.jsonl] \
+        [--ssd-blocks 64 --ssd-dir D [--ssd-mode overlap]] [--peer-ssd-dir P]
 
 The counterpart of ``python -m repro.launch.serve`` for what the port
-covers: the reduced model, a flat DRAM ``HostKVPool``, chunked prefill
+covers: the reduced model, a ``HostKVPool`` (flat DRAM by default; with
+``--ssd-blocks`` a DRAM tier over an SSD tier, file-backed in
+``--ssd-dir`` and loaded per ``--ssd-mode``), chunked prefill
 (``prefill_chunk=256``) staged into a shared ``DevicePagePool`` (64-token
 pages), and paged continuous-batching decode, all driven by the
 ``ServingLoop`` with admission backpressure and preemption (``--no-loop``
-keeps the phase-at-a-time driver). Weights are random, from ``--seed``.
-``serve()`` is the body, for callers that bring their own config and
-device (the full-width smoke run on the GPU, the CPU tests).
+keeps the phase-at-a-time driver). With ``--peer-ssd-dir``, blocks a
+PREVIOUS run demoted to its store become fetchable as a peer node's
+through a shared ``GlobalBlockDirectory`` (the global pool across
+launcher runs — same seed, same hash chains). Weights are random, from
+``--seed``. ``serve()`` is the body, for callers that bring their own
+config and device (the full-width smoke run on the GPU, the CPU tests).
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import argparse
 import sys
 import threading
 import time
+from contextlib import ExitStack, closing
 from typing import Optional
 
 import numpy as np
@@ -26,6 +33,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, get_config
+from repro_torch.core.directory import GlobalBlockDirectory
 from repro_torch.core.trace import TraceSpec, generate_trace, load_trace
 from repro_torch.data.pipeline import realize_request_tokens
 from repro_torch.models.transformer import init_params
@@ -68,109 +76,151 @@ def serve(cfg: ModelConfig, device="cuda", *, params=None,
           chunks_per_iter: int = 1, admission: str = "predictive",
           preempt: bool = True, restore_mode: str = "auto",
           pool_blocks: int = 4096, width_buckets: int = 1,
-          decode_substrate: str = "paged", seed: int = 0,
+          decode_substrate: str = "paged", ssd_blocks: int = 0,
+          ssd_dir: Optional[str] = None, ssd_mode: str = "overlap",
+          peer_ssd_dir: Optional[str] = None, seed: int = 0,
           log=print) -> dict:
     """Serve ``requests`` requests end to end; returns a summary dict
-    (counts, times, per-request token streams)."""
+    (counts, times, per-request token streams, the tiers' counters)."""
     device = resolve_device(device)
     if params is None:
         gen = torch.Generator().manual_seed(seed)
         params = init_params(cfg, gen, device)
-    pool = HostKVPool(capacity_blocks=pool_blocks)
-    page_pool = None
-    if decode_substrate == "paged":
-        per_seq = MAX_LEN // 64
-        page_pool = DevicePagePool(cfg, n_pages=1 + (max_batch + 1) * per_seq,
-                                   page_tokens=64, device=device)
-    pws = [PrefillWorker(params, cfg, pool, prefill_chunk=256,
-                         page_pool=page_pool)]
-    dw = DecodeWorker(params, cfg, max_batch=max_batch, max_len=MAX_LEN,
-                      substrate=decode_substrate, page_pool=page_pool,
-                      width_buckets=width_buckets)
-    payloads = make_payloads(requests, cfg.vocab_size, max_new=max_new,
-                             seed=seed, trace=trace)
-    t_submit: dict[int, float] = {}
-    outputs: dict[int, list] = {}
-    token_t: dict[int, list] = {}
-    t0 = time.monotonic()
-    ls: dict = {}
-    if not no_loop:
-        pws += [PrefillWorker(params, cfg, pool, prefill_chunk=256,
-                              page_pool=page_pool)
-                for _ in range(prefill_workers - 1)]
-        loop = ServingLoop(pws, dw, tbt_budget_s=tbt_budget,
-                           chunks_per_iter=chunks_per_iter,
-                           max_queue=max(requests, 8), admission=admission,
-                           preempt=preempt, restore_mode=restore_mode)
+    # the pools own a prefetch thread and the store's file: closing them
+    # (pool first, then the peer) joins the thread and flushes the store
+    with ExitStack() as stack:
+        directory = peer_pool = None
+        if peer_ssd_dir:
+            directory = GlobalBlockDirectory()
+            # restart recovery re-indexes the peer's flushed blocks; bind()
+            # publishes them, so this run's misses can fetch across "nodes"
+            peer_pool = stack.enter_context(closing(HostKVPool(
+                capacity_blocks=8, ssd_capacity_blocks=None,
+                ssd_dir=peer_ssd_dir, directory=directory, node_id=1)))
+        pool = stack.enter_context(closing(HostKVPool(
+            capacity_blocks=pool_blocks, ssd_capacity_blocks=ssd_blocks,
+            ssd_dir=ssd_dir, directory=directory, node_id=0)))
+        if peer_pool is not None:
+            pool.add_peer(1, peer_pool)
+        page_pool = None
+        if decode_substrate == "paged":
+            per_seq = MAX_LEN // 64
+            page_pool = DevicePagePool(
+                cfg, n_pages=1 + (max_batch + 1) * per_seq, page_tokens=64,
+                device=device)
+        pws = [PrefillWorker(params, cfg, pool, prefill_chunk=256,
+                             ssd_mode=ssd_mode, page_pool=page_pool)]
+        dw = DecodeWorker(params, cfg, max_batch=max_batch, max_len=MAX_LEN,
+                          substrate=decode_substrate, page_pool=page_pool,
+                          width_buckets=width_buckets)
+        payloads = make_payloads(requests, cfg.vocab_size, max_new=max_new,
+                                 seed=seed, trace=trace)
+        t_submit: dict[int, float] = {}
+        outputs: dict[int, list] = {}
+        token_t: dict[int, list] = {}
+        t0 = time.monotonic()
+        ls: dict = {}
+        if not no_loop:
+            pws += [PrefillWorker(params, cfg, pool, prefill_chunk=256,
+                                  ssd_mode=ssd_mode, page_pool=page_pool)
+                    for _ in range(prefill_workers - 1)]
+            loop = ServingLoop(pws, dw, tbt_budget_s=tbt_budget,
+                               chunks_per_iter=chunks_per_iter,
+                               max_queue=max(requests, 8), admission=admission,
+                               preempt=preempt, restore_mode=restore_mode)
 
-        def feeder():
-            for rid, toks, mn, sess in payloads:
-                t_submit[rid] = time.monotonic()
-                loop.submit(ServingRequest(req_id=rid, tokens=toks,
-                                           max_new=mn, session=sess))
-            loop.close_intake()
+            def feeder():
+                for rid, toks, mn, sess in payloads:
+                    t_submit[rid] = time.monotonic()
+                    loop.submit(ServingRequest(req_id=rid, tokens=toks,
+                                               max_new=mn, session=sess))
+                loop.close_intake()
 
-        th = threading.Thread(target=feeder, name="repro-loop-feeder")
-        th.start()
-        ls = loop.run()
-        th.join()
-        done = ls["completed"]
-        for rid, o in loop.outputs.items():
-            outputs[rid] = list(o.tokens)
-            token_t[rid] = list(o.token_t)
-        log(f"loop: {ls['iterations']} iterations, {ls['decode_steps']} "
-            f"decode steps, {ls['prefill_chunks']} prefill chunks "
-            f"interleaved, {ls['rejected']} rejected by '{admission}' "
-            f"backpressure, {ls['preemptions']} preemptions "
-            f"({ls['restores_reload']} reload / {ls['restores_recompute']} "
-            f"recompute restores)")
-    else:
-        done = 0
-        queue = list(payloads)
-        pw = pws[0]
-        while queue or dw.n_active:
-            while queue and dw.n_active < max_batch:
-                rid, toks, mn, sess = queue.pop(0)
-                t_submit[rid] = time.monotonic()
-                pres = pw(toks, session=sess)
-                dw.join(ServingRequest(req_id=rid, tokens=toks, max_new=mn,
-                                       session=sess), pres)
-                outputs[rid] = [pres.first_token]
-                token_t[rid] = [time.monotonic()]
-            for rid, tok, fin in dw.step():
-                outputs[rid].append(tok)
-                token_t[rid].append(time.monotonic())
-                done += fin
-    dt = time.monotonic() - t0
-    total_new = sum(len(t) for t in outputs.values())
-    ttft = [token_t[r][0] - t_submit[r] for r in token_t if token_t[r]]
-    gaps = [b - a for ts in token_t.values() for a, b in zip(ts, ts[1:])]
-    st = {k: sum(w.stats()[k] for w in pws) for k in pws[0].stats()}
-    summary = dict(
-        completed=done, submitted=len(payloads), seconds=dt,
-        new_tokens=total_new, decode_tok_s=total_new / dt if dt else 0.0,
-        ttft_p50_s=_pct(ttft, 50), tbt_p50_s=_pct(gaps, 50),
-        tbt_p99_s=_pct(gaps, 99), prefill_chunks=st["chunks"],
-        reused_blocks=st["reused_blocks"],
-        paged_calls=dw.counters["paged_calls"],
-        decode_steps=dw.counters["steps"], loop=ls, outputs=outputs,
-        payloads=payloads)
-    log(f"served {done} requests in {dt:.1f}s — {total_new / dt:.1f} tok/s "
-        f"decode, TTFT p50 {summary['ttft_p50_s'] * 1e3:.1f} ms, TBT p50/p99 "
-        f"{summary['tbt_p50_s'] * 1e3:.1f}/{summary['tbt_p99_s'] * 1e3:.1f} "
-        f"ms, pool: {pool.n_blocks} blocks resident, prefix reuse "
-        f"{st['reused_blocks']} blocks")
-    if page_pool is not None:
-        ps = page_pool.stats()
-        ds = dw.stats()
-        log(f"paged substrate: {page_pool.used_pages}/{page_pool.n_pages} "
-            f"pages held, {ps['pages_written']} written, "
-            f"{ps['shared_adoptions']} shared-prefix adoptions, "
-            f"{ps['cow_copies']} COW, {ds['zero_copy_joins']} zero-copy "
-            f"joins, {ps['pages_exported']} pages spilled / "
-            f"{ps['pages_imported']} imported")
-    pool.close()
-    return summary
+            th = threading.Thread(target=feeder, name="repro-loop-feeder")
+            th.start()
+            ls = loop.run()
+            th.join()
+            done = ls["completed"]
+            for rid, o in loop.outputs.items():
+                outputs[rid] = list(o.tokens)
+                token_t[rid] = list(o.token_t)
+            log(f"loop: {ls['iterations']} iterations, {ls['decode_steps']} "
+                f"decode steps, {ls['prefill_chunks']} prefill chunks "
+                f"interleaved, {ls['rejected']} rejected by '{admission}' "
+                f"backpressure, {ls['preemptions']} preemptions "
+                f"({ls['restores_reload']} reload / {ls['restores_recompute']} "
+                f"recompute restores)")
+        else:
+            done = 0
+            queue = list(payloads)
+            pw = pws[0]
+            while queue or dw.n_active:
+                while queue and dw.n_active < max_batch:
+                    rid, toks, mn, sess = queue.pop(0)
+                    t_submit[rid] = time.monotonic()
+                    pres = pw(toks, session=sess)
+                    dw.join(ServingRequest(req_id=rid, tokens=toks, max_new=mn,
+                                           session=sess), pres)
+                    outputs[rid] = [pres.first_token]
+                    token_t[rid] = [time.monotonic()]
+                for rid, tok, fin in dw.step():
+                    outputs[rid].append(tok)
+                    token_t[rid].append(time.monotonic())
+                    done += fin
+        dt = time.monotonic() - t0
+        total_new = sum(len(t) for t in outputs.values())
+        ttft = [token_t[r][0] - t_submit[r] for r in token_t if token_t[r]]
+        gaps = [b - a for ts in token_t.values() for a, b in zip(ts, ts[1:])]
+        st = {k: sum(w.stats()[k] for w in pws) for k in pws[0].stats()}
+        summary = dict(
+            completed=done, submitted=len(payloads), seconds=dt,
+            new_tokens=total_new, decode_tok_s=total_new / dt if dt else 0.0,
+            ttft_p50_s=_pct(ttft, 50), tbt_p50_s=_pct(gaps, 50),
+            tbt_p99_s=_pct(gaps, 99), prefill_chunks=st["chunks"],
+            reused_blocks=st["reused_blocks"],
+            ssd_loaded_blocks=st["ssd_loaded_blocks"],
+            overlapped_requests=st["overlapped_requests"],
+            fallback_blocks=st["fallback_blocks"],
+            peer_blocks=st["peer_blocks"], skipped_blocks=st["skipped_blocks"],
+            overlap_plans=[p for w in pws for p in w.overlap_plans],
+            paged_calls=dw.counters["paged_calls"],
+            decode_steps=dw.counters["steps"], loop=ls, outputs=outputs,
+            payloads=payloads)
+        log(f"served {done} requests in {dt:.1f}s — {total_new / dt:.1f} tok/s "
+            f"decode, TTFT p50 {summary['ttft_p50_s'] * 1e3:.1f} ms, TBT p50/p99 "
+            f"{summary['tbt_p50_s'] * 1e3:.1f}/{summary['tbt_p99_s'] * 1e3:.1f} "
+            f"ms, pool: {pool.n_blocks} blocks resident, prefix reuse "
+            f"{st['reused_blocks']} blocks")
+        if page_pool is not None:
+            ps = page_pool.stats()
+            ds = dw.stats()
+            log(f"paged substrate: {page_pool.used_pages}/{page_pool.n_pages} "
+                f"pages held, {ps['pages_written']} written, "
+                f"{ps['shared_adoptions']} shared-prefix adoptions, "
+                f"{ps['cow_copies']} COW, {ds['zero_copy_joins']} zero-copy "
+                f"joins, {ps['pages_exported']} pages spilled / "
+                f"{ps['pages_imported']} imported")
+        if pool.store is not None:
+            pool.store.flush()      # what close() would write, counted here
+            s = pool.store.stats()
+            summary["store"] = s
+            log(f"ssd store: {s['blocks']} blocks on disk "
+                f"({s['file_bytes'] >> 10} KiB), {s['n_flushes']} write-back "
+                f"flushes, {s['layer_reads']} layer reads, "
+                f"{s['read_failures']} read failures; overlapped "
+                f"{st['overlapped_requests']} prefills, "
+                f"{st['ssd_loaded_blocks']} blocks loaded, "
+                f"{st['fallback_blocks']} fell back to recompute")
+        summary.update(peer_blocks_fetched=pool.peer_blocks_fetched,
+                       peer_fetch_failures=pool.peer_fetch_failures,
+                       fallback_reasons=dict(pool.fallback_reasons))
+        if peer_pool is not None:
+            summary["directory"] = directory.stats()
+            log(f"global pool: fetched {pool.peer_blocks_fetched} blocks "
+                f"off the peer store ({pool.peer_fetch_failures} failures, "
+                f"fallbacks {summary['fallback_reasons']}); directory "
+                f"{summary['directory']}")
+        return summary
 
 
 def main(argv=None) -> int:
@@ -201,6 +251,20 @@ def main(argv=None) -> int:
                     choices=("auto", "reload", "recompute"),
                     help="how preempted victims restore")
     ap.add_argument("--pool-blocks", type=int, default=4096)
+    ap.add_argument("--ssd-blocks", type=int, default=0,
+                    help="SSD-tier capacity in blocks (0 = flat DRAM pool)")
+    ap.add_argument("--ssd-dir", default=None,
+                    help="directory for the file-backed SSD block store; "
+                         "with --ssd-blocks, demoted KV really hits disk")
+    ap.add_argument("--ssd-mode", default="overlap",
+                    choices=("blocking", "overlap"),
+                    help="how SSD-resident prefixes load: synchronously, or "
+                         "overlapped with head-chunk recompute (§5.2)")
+    ap.add_argument("--peer-ssd-dir", default=None,
+                    help="a PEER node's SSD store directory (e.g. left by a "
+                         "previous run): its blocks join a shared "
+                         "GlobalBlockDirectory and local misses resolve to "
+                         "cross-node fetches")
     ap.add_argument("--width-buckets", type=int, default=1,
                     help="per-step block-table width buckets")
     ap.add_argument("--decode-substrate", default="paged",
@@ -216,7 +280,10 @@ def main(argv=None) -> int:
           admission=args.admission, preempt=not args.no_preempt,
           restore_mode=args.restore_mode, pool_blocks=args.pool_blocks,
           width_buckets=args.width_buckets,
-          decode_substrate=args.decode_substrate, seed=args.seed)
+          decode_substrate=args.decode_substrate,
+          ssd_blocks=args.ssd_blocks, ssd_dir=args.ssd_dir,
+          ssd_mode=args.ssd_mode, peer_ssd_dir=args.peer_ssd_dir,
+          seed=args.seed)
     return 0
 
 

@@ -1,27 +1,32 @@
-"""Serving engines of the port — the counterpart of the main-path classes
-of the reference's ``repro/serving/engine.py``.
+"""Serving engines of the port — the counterpart of the reference's
+``repro/serving/engine.py``.
 
-The §3 workflow on the GPU: a host-DRAM KVCache pool holding 512-token
-blocks keyed by prefix-chained hashes (``HostKVPool``), a prefill worker
-that reuses pool blocks and runs chunked incremental prefill
-(``PrefillWorker``/``ChunkedPrefill``) and stores fresh blocks back to
-the pool, ``stage_run`` copying a prompt's KV into the shared
-``DevicePagePool``, and a continuous-batching decode worker whose slots
-sit at independent depths (``DecodeWorker``, paged or dense substrate).
-For SSM models prefix caching takes its other form: recurrent-state
-checkpoints at block boundaries (``StateCheckpointWorker``); the KV
-workers refuse SSM models.
+The §3 workflow on the GPU: a host KVCache pool holding 512-token blocks
+keyed by prefix-chained hashes in a DRAM tier over an optional SSD tier
+(``HostKVPool``; the SSD tier's bytes live in a checksummed file store,
+``serving/ssd_store.py``), a prefill worker that reuses pool blocks and
+runs chunked incremental prefill (``PrefillWorker``/``ChunkedPrefill``;
+with ``ssd_mode="overlap"`` it recomputes a prefix's head while its tail
+streams off disk or off a peer's store layer by layer) and stores fresh
+blocks back to the pool, ``stage_run`` copying a prompt's KV into the
+shared ``DevicePagePool``, and a continuous-batching decode worker whose
+slots sit at independent depths (``DecodeWorker``, paged or dense
+substrate). Pools joined through a ``GlobalBlockDirectory`` and
+``connect_pools`` fetch each other's blocks in process (``PeerSource``
+over ``transport.InProcPeer``). For SSM models prefix caching takes its
+other form: recurrent-state checkpoints at block boundaries
+(``StateCheckpointWorker``); the KV workers refuse SSM models.
 
 Host KV bytes and state checkpoints are CPU tensors; device work runs on
-the device the parameters live on. Not ported yet: the SSD tier and its
-overlapped load path, peers and the global directory, sharded decode.
+the device the parameters live on. Not ported yet: peers over a socket
+(the wire), sharded decode.
 """
 from __future__ import annotations
 
 import hashlib
 import threading
 import time
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -29,14 +34,19 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import CacheTierSpec, ModelConfig
-from repro_torch.core.cache import CachePool, StateCache
+from repro_torch.core.cache import BlockMeta, CachePool, StateCache
 from repro_torch.core.trace import BLOCK_TOKENS
 from repro_torch.models.mamba import MambaState
 from repro_torch.models.transformer import (Caches, decode_step,
                                             decode_step_paged, init_caches,
                                             prefill)
+from repro_torch.serving.layerwise import overlap_split
 from repro_torch.serving.paged_cache import DevicePagePool
 from repro_torch.serving.request import ServingRequest
+from repro_torch.serving.ssd_store import (AsyncPrefetcher, PrefetchHandle,
+                                           SSDBlockStore)
+from repro_torch.serving.transport import (InProcPeer, PeerError,
+                                           fallback_reason)
 
 
 def _sync(device: torch.device) -> None:
@@ -104,30 +114,141 @@ class PrefixHasher:
 
 @dataclass
 class FetchPlan:
-    """Residency snapshot of a hash chain's prefix (DRAM tier only here:
-    every resident block's tier is ``"dram"``)."""
+    """Side-effect-free snapshot of a hash chain's residency: which prefix
+    blocks are resident and in which tier. The engine plans the §5.2
+    load-vs-compute split off this, then commits via ``finish_fetch``.
+
+    With a ``GlobalBlockDirectory`` a miss can resolve to a PEER node
+    (tier ``"peer"``); ``sources[i]`` then names the owning node. The
+    directory is advisory — every peer block re-verifies at fetch time
+    and a stale entry degrades to recompute, never to wrong bytes."""
     hash_ids: list[int]
-    tiers: list[str]
+    tiers: list[str]                # per resident block: dram | ssd | peer
+    sources: Optional[list] = None  # per block: owner node id (peer only)
 
     @property
     def n_resident(self) -> int:
         return len(self.tiers)
 
+    @property
+    def has_ssd(self) -> bool:
+        return "ssd" in self.tiers
+
+    @property
+    def has_remote(self) -> bool:
+        return "peer" in self.tiers
+
+    def source(self, i: int):
+        return self.sources[i] if self.sources is not None else None
+
+    def truncate(self, n: int) -> "FetchPlan":
+        return FetchPlan(self.hash_ids, self.tiers[:n],
+                         None if self.sources is None else self.sources[:n])
+
+
+class PeerSource:
+    """Read-side adapter over a peer transport (``InProcPeer`` here; a
+    socket peer raises the same taxonomy). ``read_layer`` maps a taxonomy
+    error to a per-key reason (``peer_unreachable``, ``stale_directory``,
+    ``verify_failed``) and returns ``None``, exactly like a failed local
+    store read, so the fetching pool can log WHY it fell back to
+    recompute and self-heal the directory."""
+
+    def __init__(self, node, peer) -> None:
+        self.node = node
+        self.peer = peer
+        self.reasons: dict[int, str] = {}
+
+    @property
+    def n_layers(self) -> int:
+        if self.peer is None:
+            return 0
+        try:
+            return self.peer.n_layers
+        except PeerError:
+            return 0
+
+    def note_empty(self, key: int) -> None:
+        """Classify a fetch that never started: a dead peer vs an alive
+        peer with nothing to serve (the directory entry was stale)."""
+        if key in self.reasons:
+            return
+        if self.peer is None:
+            self.reasons[key] = "peer_unreachable"
+            return
+        try:
+            self.peer.n_layers
+        except PeerError as e:
+            self.reasons[key] = fallback_reason(e)
+        else:
+            self.reasons[key] = "stale_directory"
+
+    def read_layer(self, key: int, layer: int):
+        if self.peer is None:
+            self.reasons[key] = "peer_unreachable"
+            return None
+        try:
+            return self.peer.read_layer(key, layer)
+        except PeerError as e:
+            self.reasons[key] = fallback_reason(e)
+            return None
+
 
 class HostKVPool:
-    """Flat CPU-DRAM KVCache pool: prefix hash → per-layer KV block bytes
+    """Two-tier CPU KVCache pool: prefix hash → per-layer KV block bytes
     ((L, 512, KV, Dh) host tensors). Metadata and eviction are delegated
-    to ``CachePool``. Also holds the preemption SPILL SLAB: req_id →
-    (k, v, n_tokens) of a victim's exported device run (the HBM→DRAM
-    rung), keyed per request and popped on restore/abandon."""
+    to ``CachePool``/``TieredCachePool`` (demote on evict, promote on hit):
+
+    * ``ssd_capacity_blocks`` alone keeps demoted bytes in host tensors
+      (the tier split is the metadata's concern only);
+    * with ``ssd_dir`` the SSD tier is REAL: demotions batch-write to a
+      checksummed ``SSDBlockStore`` file, promotions read them back, and
+      ``start_prefetch``/``finish_fetch`` expose the async layer-wise load
+      path the ``PrefillWorker`` overlaps with head recompute (§5.2). A
+      block whose on-disk bytes fail verification is discarded from the
+      hierarchy and becomes a miss — never wrong bytes. A store a
+      previous run (of either package) flushed is recovered into the SSD
+      tier's metadata.
+
+    With a shared ``GlobalBlockDirectory`` (+ ``node_id`` and peers wired
+    by ``add_peer``/``connect_pools``) the pool joins the cluster-wide
+    pool: its tier moves publish to the directory, and ``plan_fetch``
+    resolves local misses to a peer's DRAM or SSD. Peer blocks stream
+    through the same ``AsyncPrefetcher`` layer-major queue, verify before
+    their metadata enters the local hierarchy, and on ANY failure the run
+    truncates to recompute with the reason in ``fallback_reasons``.
+
+    Also holds the preemption SPILL SLAB: req_id → (k, v, n_tokens) of a
+    victim's exported device run (the HBM→DRAM rung), keyed per request
+    and popped on restore/abandon.
+    """
 
     def __init__(self, capacity_blocks: Optional[int] = None,
-                 spec: Optional[CacheTierSpec] = None) -> None:
+                 policy: str = "lru", ssd_capacity_blocks: int = 0,
+                 ssd_policy: str = "lru", writeback_batch: int = 8,
+                 ssd_dir: Optional[str] = None,
+                 ssd_read_bw: Optional[float] = None,
+                 ssd_write_bw: Optional[float] = None,
+                 spec: Optional[CacheTierSpec] = None, directory=None,
+                 node_id=None) -> None:
         if spec is None:
-            spec = CacheTierSpec(dram_blocks=capacity_blocks)
+            spec = CacheTierSpec(
+                dram_blocks=capacity_blocks, ssd_blocks=ssd_capacity_blocks,
+                dram_policy=policy, ssd_policy=ssd_policy,
+                writeback_batch=writeback_batch, ssd_dir=ssd_dir)
         self.spec = spec
         self.meta: CachePool = spec.make_pool()
         self.data: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        self.store: Optional[SSDBlockStore] = None
+        self.prefetcher: Optional[AsyncPrefetcher] = None
+        self.directory = directory
+        self.node_id = node_id
+        self.peers: dict = {}           # node id -> peer transport
+        self.alive = True               # kill() = failure-injection switch
+        self.peer_blocks_fetched = 0
+        self.peer_fetch_failures = 0
+        self.fallback_reasons: dict[str, int] = {}
+        self._inflight: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
         # written by the serving-loop thread, read by stats() from any
         # thread — hence its own lock
         self._spill_lock = threading.Lock()
@@ -135,40 +256,261 @@ class HostKVPool:
         #: guarded_by self._spill_lock
         self._spill_counters = dict(spills=0, spill_restores=0,
                                     spill_drops=0)
+        if spec.ssd_dir is not None and not spec.tiered:
+            raise ValueError(
+                "ssd_dir given but the SSD tier is disabled (ssd_blocks=0) "
+                "— nothing would ever reach the file-backed store; set "
+                "ssd_capacity_blocks/CacheTierSpec.ssd_blocks > 0")
+        if spec.tiered and spec.ssd_dir is not None:
+            self.store = SSDBlockStore(
+                spec.ssd_dir, writeback_batch=spec.writeback_batch,
+                read_bw=ssd_read_bw, write_bw=ssd_write_bw)
+            self.prefetcher = AsyncPrefetcher(self.store)
+            self.meta.on_demote = self._on_demote
+            self.meta.on_promote = self._on_promote
+            self.meta.on_drop = self._on_drop
+            # restart recovery: blocks a previous run flushed re-enter the
+            # SSD tier's metadata (chain hashes are stable across runs, so
+            # matching prefixes become hits again; depth is unknown → 0)
+            for key in self.store.keys():
+                ssd_evicted, placed = self.meta.ssd.insert_meta(
+                    BlockMeta(key=key))
+                for e in ssd_evicted:
+                    self.store.delete(e)
+                if not placed:
+                    self.store.delete(key)
+        # join the global pool AFTER recovery so bind() seeds recovered
+        # blocks too; chaining preserves the byte-holder hooks above
+        if directory is not None and hasattr(self.meta, "on_demote"):
+            directory.bind(node_id, self.meta)
 
+    # ---- global pool membership ----------------------------------------
+    def add_peer(self, node_id, peer) -> None:
+        """Make a remote node fetchable: a peer transport (anything with
+        ``n_layers`` + ``read_layer`` raising the shared taxonomy) or a
+        ``HostKVPool``, which is wrapped in an ``InProcPeer``."""
+        if not hasattr(peer, "read_layer"):
+            peer = InProcPeer(peer)
+        self.peers[node_id] = peer
+
+    def kill(self) -> None:
+        """Failure injection: model this node dying — peers' reads against
+        it raise ``PeerUnreachable`` from now on. Local state is left
+        intact so tests can assert nothing was served from a dead node."""
+        self.alive = False
+
+    def _note_fallback(self, reason: str) -> None:
+        self.fallback_reasons[reason] = self.fallback_reasons.get(reason, 0) + 1
+
+    # ---- tier-event hooks (file-backed mode only) ----------------------
+    def _on_demote(self, key: int) -> None:
+        kv = self.data.pop(key, None)
+        if kv is not None:
+            self.store.put(key, *kv)    # staged; flushed per writeback batch
+
+    def _on_promote(self, key: int, count_read: bool) -> None:
+        if count_read:
+            kv = self._inflight.pop(key, None)
+            if kv is None:              # promotion outside a verified fetch
+                kv = self.store.read_block(key)
+            if kv is not None:
+                self.data[key] = kv
+            # unreadable bytes leave no DRAM copy; the next verified fetch
+            # sees the hole and discards the block's metadata
+        self.store.delete(key)
+
+    def _on_drop(self, key: int) -> None:
+        self.data.pop(key, None)
+        if self.store is not None:
+            self.store.delete(key)
+
+    # ---- fetch protocol ------------------------------------------------
     def plan_fetch(self, hash_ids: list[int]) -> FetchPlan:
-        """Residency snapshot of the chain's prefix (no side effects)."""
+        """Residency snapshot of the chain's prefix (no side effects).
+        Local misses consult the global directory: a block a reachable
+        peer claims extends the plan with tier ``"peer"``."""
+        rt = getattr(self.meta, "resident_tier", None)
         tiers: list[str] = []
+        sources: list = []
         for h in hash_ids:
-            if h not in self.meta:
+            t = rt(h) if rt is not None \
+                else ("dram" if h in self.meta else None)
+            src = None
+            if t is None and self.directory is not None and self.peers:
+                owner = self.directory.pick_owner(
+                    h, exclude=(self.node_id,), among=self.peers)
+                if owner is not None:
+                    t, src = "peer", owner[0]
+            if t is None:
                 break
-            tiers.append("dram")
-        return FetchPlan(list(hash_ids), tiers)
+            tiers.append(t)
+            sources.append(src)
+        return FetchPlan(list(hash_ids), tiers, sources)
+
+    def start_prefetch(self, plan: FetchPlan,
+                       from_block: int = 0) -> Optional[PrefetchHandle]:
+        """Enqueue async layer-wise loads of the plan's SSD and peer
+        blocks at index ≥ ``from_block``; returns a PrefetchHandle (or
+        None). Peer blocks stream through the same layer-major queue,
+        read off the owning node via a ``PeerSource``."""
+        if self.prefetcher is None:
+            return None
+        keys: list[int] = []
+        sources: dict = {}
+        peer_srcs: dict = {}
+        for i in range(from_block, plan.n_resident):
+            h, t = plan.hash_ids[i], plan.tiers[i]
+            if t == "ssd":
+                keys.append(h)
+            elif t == "peer":
+                node = plan.source(i)
+                if node not in peer_srcs:
+                    peer_srcs[node] = PeerSource(node, self.peers.get(node))
+                keys.append(h)
+                sources[h] = peer_srcs[node]
+        if not keys:
+            return None
+        return self.prefetcher.fetch(keys, sources)
+
+    def _remote_block(self, src: PeerSource, key: int):
+        """Synchronous whole-block peer read (the blocking path)."""
+        L = src.n_layers
+        if L == 0:
+            src.note_empty(key)
+            return None
+        ks, vs = [], []
+        for layer in range(L):
+            pair = src.read_layer(key, layer)
+            if pair is None:
+                return None
+            ks.append(pair[0])
+            vs.append(pair[1])
+        return torch.stack(ks), torch.stack(vs)
+
+    def _take_peer_block(self, i: int, h: int, kv) -> bool:
+        """Install a VERIFIED peer block: bytes first, then metadata (the
+        hierarchy never claims bytes it can't serve). Returns False when
+        the local hierarchy has no room — treated as a fetch failure. A
+        pinned-full-DRAM insert that lands straight in the SSD tier
+        writes the bytes through to the store."""
+        self.data[h] = (kv[0], kv[1])
+        evicted = self.meta.insert([h], start_pos=i)
+        for e in evicted:
+            self.data.pop(e, None)      # file-backed: on_drop already freed
+        if h not in self.meta:
+            self.data.pop(h, None)
+            self._note_fallback("no_local_room")
+            return False
+        rt = getattr(self.meta, "resident_tier", None) \
+            if self.store is not None else None
+        if rt is not None and rt(h) == "ssd":
+            blk = self.data.pop(h)
+            if h not in self.store:     # landed straight in the SSD tier
+                self.store.put(h, *blk)
+        self.peer_blocks_fetched += 1
+        return True
+
+    def finish_fetch(self, plan: FetchPlan,
+                     handle: Optional[PrefetchHandle] = None,
+                     from_block: int = 0) -> int:
+        """Verify + install bytes for plan blocks [from_block:], promote
+        their metadata, and return how many CONSECUTIVE blocks from
+        ``from_block`` are usable. A block that fails verification is
+        discarded from the hierarchy (peer blocks: the stale directory
+        claim is withdrawn) and truncates the usable run — the caller
+        recomputes from there, with the reason in ``fallback_reasons``."""
+        if handle is not None:
+            handle.wait()               # §5.2 wait-before-attend barrier
+        h_sources = handle.sources if handle is not None else {}
+        n_ok = 0
+        local_seg: list[int] = []
+        for i in range(from_block, plan.n_resident):
+            h, tier = plan.hash_ids[i], plan.tiers[i]
+            if tier == "dram":
+                if h in self.data or self.store is None:
+                    n_ok += 1
+                    local_seg.append(h)
+                    continue
+                self.meta.discard(h)    # metadata claimed bytes we lost
+                break
+            if tier == "peer":
+                node = plan.source(i)
+                src = h_sources.get(h)
+                kv = handle.result(h) if handle is not None else None
+                if kv is None:
+                    if src is None:
+                        src = PeerSource(node, self.peers.get(node))
+                    kv = self._remote_block(src, h)
+                if kv is None:
+                    reason = (src.reasons.get(h) if src is not None
+                              else None) or "peer_fetch_failed"
+                    self._note_fallback(reason)
+                    self.peer_fetch_failures += 1
+                    if self.directory is not None and reason in (
+                            "stale_directory", "verify_failed"):
+                        self.directory.unregister(h, node)  # self-heal
+                    break
+                if not self._take_peer_block(i, h, kv):
+                    break
+                n_ok += 1
+                continue
+            # tier == "ssd" — the local store path
+            kv = handle.result(h) if handle is not None else None
+            if kv is None and self.store is not None:
+                kv = self.store.read_block(h)
+            if kv is None:
+                self.meta.discard(h)
+                self._note_fallback("local_verify_failed")
+                break
+            self._inflight[h] = kv
+            n_ok += 1
+            local_seg.append(h)
+        if local_seg:
+            self.meta.touch_keys(local_seg)  # promotions consume _inflight
+        self._inflight.clear()
+        return n_ok
 
     def match_prefix(self, hash_ids: list[int]) -> int:
-        return self.meta.lookup(hash_ids)
+        if self.store is None and not self.peers:
+            return self.meta.lookup(hash_ids)
+        n = self.finish_fetch(self.plan_fetch(hash_ids))
+        self.meta.misses += len(hash_ids) - n
+        return n
 
+    # ---- bytes ---------------------------------------------------------
     def get(self, hash_ids: list[int]):
-        """Stack blocks → (L, n·512, KV, Dh) k and v host tensors."""
+        """Stack blocks → (L, n·512, KV, Dh) k and v host tensors, reading
+        through the store for blocks whose bytes sit on disk."""
         ks, vs = [], []
         for h in hash_ids:
             kv = self.data.get(h)
+            if kv is None and self.store is not None:
+                kv = self.store.read_block(h)
             if kv is None:
-                raise KeyError(f"block {h} has no bytes")
+                raise KeyError(f"block {h} has no readable bytes")
             ks.append(kv[0])
             vs.append(kv[1])
         return torch.cat(ks, dim=1), torch.cat(vs, dim=1)
 
     def put(self, hash_ids: list[int], k: torch.Tensor, v: torch.Tensor,
             start_pos: int = 0) -> None:
-        """k/v (L, n·512, KV, Dh) host tensors covering ``hash_ids``."""
-        for e in self.meta.insert(hash_ids, start_pos=start_pos):
-            self.data.pop(e, None)
+        """k/v (L, n·512, KV, Dh) host tensors covering ``hash_ids``; a
+        block the hierarchy places straight in the SSD tier is written to
+        the store."""
+        evicted = self.meta.insert(hash_ids, start_pos=start_pos)
+        for e in evicted:
+            self.data.pop(e, None)      # file-backed: on_drop already freed
+        rt = getattr(self.meta, "resident_tier", None) \
+            if self.store is not None else None
         for i, h in enumerate(hash_ids):
             if h not in self.meta or h in self.data:
                 continue
             sl = slice(i * BLOCK_TOKENS, (i + 1) * BLOCK_TOKENS)
-            self.data[h] = (k[:, sl].clone(), v[:, sl].clone())
+            if rt is not None and rt(h) == "ssd":
+                if h not in self.store:  # inserted straight to the SSD tier
+                    self.store.put(h, k[:, sl], v[:, sl])
+            else:
+                self.data[h] = (k[:, sl].clone(), v[:, sl].clone())
 
     # ---- preemption spill slab (device→host demotion of live runs) -----
     def spill_put(self, req_id: int, k, v, n_tokens: int) -> None:
@@ -203,12 +545,31 @@ class HostKVPool:
         with self._spill_lock:
             return len(self._spill)
 
+    def est_block_read_s(self) -> float:
+        """Expected SSD read seconds per block (for the split search)."""
+        return self.store.est_block_read_s() if self.store is not None \
+            else 0.0
+
     @property
     def n_blocks(self) -> int:
-        return len(self.data)
+        return len(self.data) + (len(self.store) if self.store else 0)
 
     def stats(self) -> dict:
-        out = dict(dram_blocks=len(self.data), total_blocks=self.n_blocks)
+        """Block residency, peer-fetch counters, fallback reasons
+        (flattened as ``fallback_<reason>``), the store's counters
+        (prefixed ``store_``) and the preemption spill slab."""
+        out = dict(
+            dram_blocks=len(self.data),
+            store_blocks=len(self.store) if self.store else 0,
+            total_blocks=self.n_blocks,
+            peer_blocks_fetched=self.peer_blocks_fetched,
+            peer_fetch_failures=self.peer_fetch_failures,
+        )
+        for reason, n in self.fallback_reasons.items():
+            out[f"fallback_{reason}"] = n
+        if self.store is not None:
+            for key, n in self.store.stats().items():
+                out[f"store_{key}"] = n
         with self._spill_lock:
             out.update(self._spill_counters)
             out["spill_entries"] = len(self._spill)
@@ -218,8 +579,24 @@ class HostKVPool:
         return out
 
     def close(self) -> None:
+        """Drop the spill slab, join the prefetch thread, then flush and
+        close the store."""
         with self._spill_lock:
             self._spill.clear()
+        if self.prefetcher is not None:
+            self.prefetcher.close()
+        if self.store is not None:
+            self.store.close()
+
+
+def connect_pools(pools: list[HostKVPool]) -> None:
+    """Cross-register every pool as a peer of every other (the in-process
+    stand-in for Messenger endpoints). Pools must carry distinct
+    ``node_id``s and share one ``GlobalBlockDirectory``."""
+    for a in pools:
+        for b in pools:
+            if a is not b:
+                a.add_peer(b.node_id, b)
 
 
 @dataclass
@@ -230,6 +607,10 @@ class PrefillResult:
     prompt_len: int
     reused_blocks: int
     new_blocks: int
+    ssd_blocks: int = 0         # prefix blocks loaded off the SSD store
+    peer_blocks: int = 0        # prefix blocks fetched off a PEER's pool
+    overlapped: bool = False    # head recompute ∥ tail SSD load was used
+    skipped_blocks: int = 0     # DRAM blocks chunk-skipped mid-head-span
     hash_ids: Optional[list] = None   # the request's prefix chain
     pages: Optional[list] = None      # staged device page run
     page_pool: Optional[object] = None  # the DevicePagePool holding ``pages``
@@ -347,11 +728,22 @@ class PrefillWorker:
     """§3 steps 1–3: KVCache reuse → chunked incremental prefill →
     store-back of fresh full blocks to the host pool (a device-to-host
     copy, Mooncake's design). One request at a time (B = 1), on the
-    device the parameters live on. Every prefill is chunk-resumable:
-    ``start()`` returns a ``ChunkedPrefill``; ``__call__`` drains it."""
+    device the parameters live on.
+
+    With a file-backed pool, ``ssd_mode`` picks how SSD- or peer-resident
+    prefix blocks reach the card: ``"blocking"`` loads them synchronously
+    before any compute; ``"overlap"`` splits the prefix per
+    ``layerwise.overlap_split``, RECOMPUTING the head chunks while the
+    tail streams from the store layer by layer on the prefetch thread,
+    and only then computes the uncached suffix. Verification failures
+    shrink the loaded tail and the lost blocks are recomputed. Each
+    overlapped request's split lands in ``overlap_plans``.
+
+    Every prefill is chunk-resumable: ``start()`` returns a
+    ``ChunkedPrefill``; ``__call__`` drains it."""
 
     def __init__(self, params, cfg: ModelConfig, pool: HostKVPool, *,
-                 prefill_chunk: int = 1024,
+                 prefill_chunk: int = 1024, ssd_mode: str = "overlap",
                  page_pool: Optional[DevicePagePool] = None) -> None:
         if cfg.attention_layers != cfg.n_layers:
             raise ValueError(
@@ -359,15 +751,25 @@ class PrefillWorker:
                 f"{cfg.name} ({cfg.kind}) has {cfg.attention_layers} of "
                 f"{cfg.n_layers} attention layers — an SSM model prefills "
                 f"through StateCheckpointWorker")
+        if ssd_mode not in ("blocking", "overlap"):
+            raise ValueError(f"unknown ssd_mode {ssd_mode!r}")
         self.params = params
         self.cfg = cfg
         self.pool = pool
         self.chunk = prefill_chunk
+        self.ssd_mode = ssd_mode
         self.page_pool = page_pool
         self.device = params["embed"].device
         self.hasher = PrefixHasher()
         self.counters = dict(reused_blocks=0, computed_tokens=0, requests=0,
-                             page_oom=0, chunks=0, stage_deferred=0)
+                             ssd_loaded_blocks=0, overlapped_requests=0,
+                             fallback_blocks=0, peer_blocks=0,
+                             skipped_blocks=0, page_oom=0, chunks=0,
+                             stage_deferred=0)
+        #: the most recent overlapped requests' splits (a dict each: the
+        #: ``ChunkOverlapPlan`` fields, the loaded tail, the estimates and
+        #: the seconds from the barrier to the tail on the card)
+        self.overlap_plans: deque = deque(maxlen=256)
         # serving-loop hook: called with the page count a stage would pin;
         # False skips staging (the join stages later)
         self.stage_guard = None
@@ -398,6 +800,16 @@ class PrefillWorker:
         self.counters["chunks"] += 1
         return logits, caches
 
+    def _set_blocks(self, caches: Caches, hash_ids: list[int], lo: int,
+                    hi: int) -> Caches:
+        """Copy pool blocks [lo, hi) into the cache arena on this thread
+        (a blocking host-to-device copy) and resume after them."""
+        B = BLOCK_TOKENS
+        k_h, v_h = self.pool.get(hash_ids[lo:hi])
+        caches.kv.k[:, 0, lo * B:hi * B] = k_h.to(self.device)
+        caches.kv.v[:, 0, lo * B:hi * B] = v_h.to(self.device)
+        return caches._replace(length=hi * B)
+
     def _stage(self, hash_ids, k_full, v_full, S) -> Optional[list[int]]:
         if self.page_pool is not None and self.stage_guard is not None \
                 and not self.stage_guard(self.page_pool.pages_for(S)):
@@ -407,6 +819,15 @@ class PrefillWorker:
         if pages is None and self.page_pool is not None:
             self.counters["page_oom"] += 1
         return pages
+
+    def _stage_result(self, hash_ids, k_full, v_full, S) -> dict:
+        """PrefillResult kwargs for the staged page run (+ generation
+        snapshot so late re-joins can detect recycled pages)."""
+        pages = self._stage(hash_ids, k_full, v_full, S)
+        return dict(
+            hash_ids=hash_ids, pages=pages, page_pool=self.page_pool,
+            page_gens=None if pages is None
+            else self.page_pool.gens_of(pages))
 
     def stats(self) -> dict:
         out = dict(self.counters)
@@ -426,7 +847,26 @@ class PrefillWorker:
         cfg = self.cfg
         S = len(tokens)
         hash_ids = self.hasher.hash_ids(tokens, session=session)
+
+        if self.ssd_mode == "overlap" and self.pool.prefetcher is not None:
+            plan = self.pool.plan_fetch(hash_ids)
+            n_res = plan.n_resident
+            if n_res * BLOCK_TOKENS >= S:    # full hit: keep a tail to
+                n_res = max((S - 1) // BLOCK_TOKENS, 0)  # recompute logits
+            plan = plan.truncate(n_res)
+            if plan.has_ssd or plan.has_remote:
+                result = yield from self._chunks_overlapped(
+                    tokens, hash_ids, plan)
+                return result
+
+        # blocking path: flat pool, metadata-only tiers, or synchronous
+        # file-backed/peer loads (ssd_mode="blocking")
+        # peer blocks are counted around the synchronous fetch alone: the
+        # serving loop interleaves other prefills on this pool between
+        # this generator's chunks
+        peer0 = self.pool.peer_blocks_fetched
         n_hit = self.pool.match_prefix(hash_ids)
+        n_peer = self.pool.peer_blocks_fetched - peer0
         prefix_tokens = n_hit * BLOCK_TOKENS
         if prefix_tokens >= S:           # full hit: recompute last block's
             n_hit = max((S - 1) // BLOCK_TOKENS, 0)  # tail to get logits
@@ -436,10 +876,7 @@ class PrefillWorker:
                             device=self.device)
         caches = init_caches(cfg, 1, S, device=self.device)
         if n_hit:
-            k_h, v_h = self.pool.get(hash_ids[:n_hit])
-            caches.kv.k[:, 0, :prefix_tokens] = k_h.to(self.device)
-            caches.kv.v[:, 0, :prefix_tokens] = v_h.to(self.device)
-        caches = caches._replace(length=prefix_tokens)
+            caches = self._set_blocks(caches, hash_ids, 0, n_hit)
         # chunked incremental prefill over the uncached suffix (a cold
         # request is the n_hit = 0 case)
         logits = None
@@ -461,12 +898,135 @@ class PrefillWorker:
         self.counters["reused_blocks"] += n_hit
         self.counters["computed_tokens"] += S - prefix_tokens
         self.counters["requests"] += 1
-        pages = self._stage(hash_ids, k_full, v_full, S)
+        self.counters["peer_blocks"] += n_peer
         return PrefillResult(
             first_token=first, kv_k=k_full, kv_v=v_full, prompt_len=S,
             reused_blocks=n_hit, new_blocks=n_total - n_hit,
-            hash_ids=hash_ids, pages=pages, page_pool=self.page_pool,
-            page_gens=None if pages is None else self.page_pool.gens_of(pages))
+            peer_blocks=n_peer,
+            **self._stage_result(hash_ids, k_full, v_full, S))
+
+    def _chunks_overlapped(self, tokens: np.ndarray, hash_ids: list[int],
+                           plan: FetchPlan):
+        """Head recompute ∥ tail SSD/peer load (§5.2 / Jin et al.), as a
+        chunk-resumable generator.
+
+        Timeline: pick split s via ``overlap_split``; blocks [0, d0) come
+        from DRAM; launch async layer-wise loads of blocks [s, n);
+        recompute chunks over the non-DRAM runs of [d0·B, s·B) while they
+        stream (each run resumes prefill at its own offset); barrier; set
+        the loaded tail into the cache arena; compute the uncached suffix.
+        """
+        B = BLOCK_TOKENS
+        cfg = self.cfg
+        S = len(tokens)
+        n = plan.n_resident
+        tl = self.pool.est_block_read_s()
+        tc = self._t_block_ema if self._t_block_ema is not None else tl
+        # peer blocks are loads for the split search (the local read EMA
+        # is the per-block load estimate at hand)
+        ov = overlap_split(["dram" if t == "dram" else "ssd"
+                            for t in plan.tiers], tc, tl)
+        s, d0 = ov.split, ov.dram_head
+        handle = self.pool.start_prefetch(plan, from_block=s)
+        if d0:
+            self.pool.meta.touch_keys(hash_ids[:d0])
+
+        t = torch.as_tensor(np.asarray(tokens, np.int64)[None, :],
+                            device=self.device)
+        caches = init_caches(cfg, 1, S, device=self.device)
+        if d0:
+            caches = self._set_blocks(caches, hash_ids, 0, d0)
+
+        # head assembly, overlapping the prefetch thread's layer loads:
+        # DRAM blocks inside [d0, s) are chunk-SKIPPED (set straight into
+        # the arena), and only the non-resident runs between them
+        # recompute. The suffix below is never empty, so yielding after
+        # each head chunk never strands the result.
+        i = d0
+        while i < s:
+            j = i
+            if plan.tiers[i] == "dram":
+                while j < s and plan.tiers[j] == "dram":
+                    j += 1
+                caches = self._set_blocks(caches, hash_ids, i, j)
+                self.pool.meta.touch_keys(hash_ids[i:j])
+            else:
+                while j < s and plan.tiers[j] != "dram":
+                    j += 1
+                for lo in range(i * B, j * B, self.chunk):
+                    hi = min(lo + self.chunk, j * B)
+                    _, caches = self._chunk_extend(t, caches, lo, hi)
+                    yield
+            i = j
+        n_skip = ov.head_skipped
+
+        # §5.2 barrier: verify + install the loaded tail, then copy it to
+        # the card here, on the worker's thread
+        t_barrier = time.monotonic()
+        peer0 = self.pool.peer_blocks_fetched
+        n_tail = self.pool.finish_fetch(plan, handle, from_block=s)
+        n_peer = self.pool.peer_blocks_fetched - peer0
+        usable = s + n_tail
+        if n_tail:
+            caches = self._set_blocks(caches, hash_ids, s, usable)
+        t_barrier = time.monotonic() - t_barrier
+
+        # uncached suffix (+ any blocks lost to verification failures);
+        # never empty — the caller truncates full-hit plans
+        if usable * B >= S:
+            raise AssertionError(f"empty suffix: {usable} blocks of {S}")
+        logits = None
+        for lo in range(usable * B, S, self.chunk):
+            hi = min(lo + self.chunk, S)
+            logits, caches = self._chunk_extend(t, caches, lo, hi)
+            if hi < S:
+                yield
+        first = int(torch.argmax(logits[0, -1]))
+        k_full = caches.kv.k[:, 0].to("cpu", copy=True)
+        v_full = caches.kv.v[:, 0].to("cpu", copy=True)
+
+        # store-back: the RECOMPUTED head runs (chunk-skipped DRAM blocks
+        # are already pool-resident) and the fresh suffix blocks
+        n_total = len(hash_ids)
+        i = d0
+        while i < s:
+            if plan.tiers[i] == "dram":
+                i += 1
+                continue
+            j = i
+            while j < s and plan.tiers[j] != "dram":
+                j += 1
+            sl = slice(i * B, j * B)
+            self.pool.put(hash_ids[i:j], k_full[:, sl], v_full[:, sl],
+                          start_pos=i)
+            i = j
+        if n_total > usable:
+            sl = slice(usable * B, n_total * B)
+            self.pool.put(hash_ids[usable:n_total], k_full[:, sl],
+                          v_full[:, sl], start_pos=usable)
+
+        reused = d0 + n_skip + n_tail
+        self.counters["reused_blocks"] += reused
+        self.counters["computed_tokens"] += S - reused * B
+        self.counters["requests"] += 1
+        self.counters["ssd_loaded_blocks"] += n_tail
+        self.counters["overlapped_requests"] += 1
+        self.counters["fallback_blocks"] += n - usable
+        self.counters["peer_blocks"] += n_peer
+        self.counters["skipped_blocks"] += n_skip
+        self.overlap_plans.append(dict(
+            prompt_len=S, tiers="".join(t[0] for t in plan.tiers),
+            split=s, dram_head=d0, head_recompute=ov.head_recompute,
+            head_skipped=n_skip, loaded_tail=n_tail, fallback=n - usable,
+            t_compute_block_s=tc, t_load_block_s=tl,
+            t_overlapped_s=ov.t_overlapped, t_blocking_s=ov.t_blocking,
+            barrier_s=t_barrier))
+        return PrefillResult(
+            first_token=first, kv_k=k_full, kv_v=v_full, prompt_len=S,
+            reused_blocks=reused, new_blocks=n_total - reused,
+            ssd_blocks=n_tail, peer_blocks=n_peer, overlapped=True,
+            skipped_blocks=n_skip,
+            **self._stage_result(hash_ids, k_full, v_full, S))
 
 
 @dataclass

@@ -489,3 +489,58 @@ def test_ssd_kernel_passes_match_the_plain_passes(cuda, case):
     _ssd_close((got["cum"], got["states"]), (cum, states))
     _ssd_close((got["h_in"],), (h_in,))
     _ssd_close((y, hT), (chunk_scan(x, dt, C, cb, cum, h_in), h_T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["blocking", "overlap"])
+def test_tiered_prefill_sets_the_store_bytes_into_the_arena(cuda, tmp_path,
+                                                           mode):
+    """The tiered PrefillWorker on the card: a DRAM tier of one block over
+    a file-backed SSD tier. The revisit's prefix comes off disk (and off
+    DRAM), the bytes it sets into the cache arena equal the bytes the
+    pool held for each block, bit for bit, and the whole prefill equals a
+    flat-pool run's; every prefill chunk ran the prefill kernel."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import (HostKVPool, PrefillWorker,
+                                            prefix_hash_ids)
+    cfg = get_config("smollm-360m").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    rng = np.random.default_rng(42)
+    doc = rng.integers(0, cfg.vocab_size, 1024)
+    q1 = np.concatenate([doc, rng.integers(0, cfg.vocab_size, 48)])
+    q2 = np.concatenate([doc, rng.integers(0, cfg.vocab_size, 48)])
+    flat_pool = HostKVPool()
+    flat = PrefillWorker(params, cfg, flat_pool, prefill_chunk=128)
+    flat(q1)
+    want = flat(q2)
+    flat_pool.close()
+
+    pool = HostKVPool(capacity_blocks=1, ssd_capacity_blocks=32,
+                      ssd_dir=str(tmp_path), writeback_batch=1)
+    pw = PrefillWorker(params, cfg, pool, prefill_chunk=128, ssd_mode=mode)
+    pw(q1)
+    pool.store.flush()
+    ids = prefix_hash_ids(q2)
+    assert ids[0] in pool.store.keys()     # the head block sits on disk
+    held = {h: pool.data[h] if h in pool.data else pool.store.read_block(h)
+            for h in ids}
+    chunks0, launches0 = pw.counters["chunks"], flash_prefill.launches
+    pres = pw(q2)
+    torch.cuda.synchronize()
+    assert pres.reused_blocks == 2 and pres.overlapped == (mode == "overlap")
+    if mode == "overlap":
+        assert pres.ssd_blocks >= 1
+    for i, h in enumerate(ids):
+        sl = slice(i * 512, (i + 1) * 512)
+        assert torch.equal(pres.kv_k[:, sl].view(torch.int16),
+                           held[h][0].view(torch.int16))
+        assert torch.equal(pres.kv_v[:, sl].view(torch.int16),
+                           held[h][1].view(torch.int16))
+    assert torch.equal(pres.kv_k.view(torch.int16),
+                       want.kv_k.view(torch.int16))
+    assert pres.first_token == want.first_token
+    assert flash_prefill.launches - launches0 == \
+        cfg.n_layers * (pw.counters["chunks"] - chunks0)
+    assert pool.store.read_failures == 0
+    pool.close()
