@@ -54,7 +54,21 @@ Phases, each printed as it runs; any failure exits non-zero:
      (4 bf16 ulps), again after every slot of another copy
      is corrupted (recompute replaces what is lost); last, a run on a
      fresh directory fetches blocks off the first store as a peer's
-     through the global directory.
+     through the global directory;
+ 10. the Conductor and the wire at smollm-360m's full width (phase 5's
+     weights): the H100 ``Hardware``'s calibrated terms measured again
+     (pinned host-to-device, a llama2-70b prefill GEMM's share of the
+     bf16 peak, a device copy's share of the HBM rate); the cluster
+     launcher's Conductor lane (2 prefill + 2 decode workers over one
+     page pool, kvcache routing of the 24-request trace, a served request
+     teacher-forced through the kernel and plain paths); its global-pool
+     lane (random routing, blocking loads under a DRAM tier of 8 over SSD
+     64, peer blocks fetched, the store's read time fed to the cost
+     model); its 3-process lane (every node bit-exact against the
+     single-process oracle, 2 peer blocks a node over the wire) and its
+     chaos lane (node 0 SIGKILLed mid-fetch, survivors bit-exact, the
+     degradation accounted, node 0's directory claims dropped), each
+     lane's kernel launches counted from zero.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -936,6 +950,179 @@ def e2e_tiers(torch, params):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the Conductor and the wire
+# ---------------------------------------------------------------------------
+
+def calibrate(torch, timer) -> dict:
+    """The H100 ``Hardware``'s calibrated terms, measured here: host-to-
+    device from pinned memory (1 GiB), a bf16 matmul at a llama2-70b
+    prefill GEMM under 8-way tensor parallelism, and a 1 GiB device-to-
+    device copy (its read and write bytes over the HBM rate)."""
+    n = 1 << 30
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    h2d_ms = timer.ms(lambda: dev.copy_(host, non_blocking=True), iters=5,
+                      warmup=1)
+    src = torch.empty(n, dtype=torch.uint8, device="cuda")
+    d2d_ms = timer.ms(lambda: dev.copy_(src), iters=10)
+    del host, dev, src
+    m, k, nn = 4096, 8192, 3584
+    g = torch.Generator(device="cuda").manual_seed(10)
+    a = torch.randn(m, k, generator=g, device="cuda").bfloat16()
+    b = torch.randn(k, nn, generator=g, device="cuda").bfloat16()
+    mm_ms = timer.ms(lambda: torch.matmul(a, b))
+    return dict(dram_bw=n / (h2d_ms * 1e-3),
+                mfu_prefill=2.0 * m * k * nn / (mm_ms * 1e-3) / BF16_FLOP_S,
+                mbu_decode=2.0 * n / (d2d_ms * 1e-3) / HBM_BYTES_S,
+                h2d_ms=h2d_ms, d2d_ms=d2d_ms, matmul_ms=mm_ms)
+
+
+def cluster_lane(torch, cfg, name, **kw):
+    """One ``serve_cluster`` lane with this process's kernel launches
+    counted from zero and held to layers x steps; returns its summary."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.launch.serve_cluster import serve_cluster
+    paged_attention.launches = 0
+    flash_prefill.launches = 0
+    s = serve_cluster(cfg, "cuda", log=log, **kw)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_prefill": flash_prefill.launches}
+    if s.get("lane") is not None:
+        log(f"{name}: {s['served']} requests served, {s['rejected']} "
+            f"rejected, {s['tokens']} tokens in {s['seconds']:.3f} s "
+            f"({s['decode_tok_s']:.2f} tok/s); prefix reuse {s['reused']} "
+            f"blocks; arms won {s.get('arms')}; migrations "
+            f"{s.get('migrations')} (conductor "
+            f"{s.get('conductor_migrations')}); zero-copy joins "
+            f"{s.get('zero_copy_joins')}; page pool leak-free "
+            f"{s.get('pages_leak_free')}")
+        log(f"{name} launches: paged_attention {launches['paged_attention']} "
+            f"(= {cfg.n_layers} x {s['paged_calls']} paged step calls), "
+            f"flash_prefill {launches['flash_prefill']} (= {cfg.n_layers} x "
+            f"{s['prefill_chunks']} prefill chunks)")
+        if launches["paged_attention"] != cfg.n_layers * s["paged_calls"] \
+                or launches["flash_prefill"] != \
+                cfg.n_layers * s["prefill_chunks"] \
+                or not (launches["paged_attention"]
+                        and launches["flash_prefill"]):
+            raise AssertionError(f"{name}: launches do not match layers x "
+                                 f"steps, or a kernel never launched")
+        if not s["served"] or not s.get("pages_leak_free"):
+            raise AssertionError(f"{name}: nothing served or pages leaked")
+        for rid, out in s["outputs"].items():
+            if not out or not all(0 <= t < cfg.vocab_size for t in out):
+                raise AssertionError(f"{name}: request {rid}: bad stream")
+    return s
+
+
+def check_nodes(s, name, *, chaos: bool) -> None:
+    """Hold a --processes lane's report: every surviving node bit-exact
+    against the oracle, the prefill kernel launched in each, and the
+    wire or the degradation accounted."""
+    log(f"{name}: failures {s['failures']}, fallback_reasons "
+        f"{s['fallback_reasons']}, directory healed {s['directory_healed']}")
+    survivors = range(1 if chaos else 0, s["processes"])
+    for i in survivors:
+        r = s["results"].get(i)
+        if r is None or not r.get("bit_exact"):
+            raise AssertionError(f"{name}: node {i} not bit-exact")
+        log(f"{name} node {i}: bit-exact, peer blocks {r['peer_blocks']}, "
+            f"SocketPeer bw_ema {r['bw']} B/s and layers read {r['reads']}, "
+            f"BlockServer frames {r['server']['frames_served']} bytes "
+            f"{r['server']['bytes_served']}, launches {r['launches']}")
+        for plan in r["plans"]:
+            log(f"  {name} node {i} overlap plan: {json.dumps(plan)}")
+        if not r["launches"]["flash_prefill"]:
+            raise AssertionError(f"{name}: node {i} never launched "
+                                 f"flash_prefill")
+    if s["failures"]:
+        raise AssertionError(f"{name}: {s['failures']} failures")
+    if chaos:
+        if not (s["directory_healed"] and (
+                s["fallback_reasons"].get("peer_unreachable")
+                or s["fallback_reasons"].get("verify_failed"))):
+            raise AssertionError(f"{name}: the dead owner went unaccounted")
+    elif sum(s["results"][i]["peer_blocks"] for i in survivors) \
+            != 2 * len(survivors):
+        raise AssertionError(f"{name}: peer blocks over the wire != 2 a node")
+
+
+def e2e_cluster(torch, timer, params, smi):
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.costmodel import H100
+    from repro_torch.data.pipeline import realize_request_tokens
+    from repro_torch.launch.serve_cluster import make_trace
+    from repro_torch.models.layers import plain_attention
+    cfg = get_config("smollm-360m")
+    cal = calibrate(torch, timer)
+    log(f"calibration ({smi}): host-to-device from pinned memory "
+        f"{cal['dram_bw'] / 1e9:.2f} GB/s (1 GiB in {cal['h2d_ms']:.3f} ms; "
+        f"Hardware default {H100.dram_bw / 1e9:.2f}); bf16 matmul "
+        f"4096x8192 @ 8192x3584 {cal['matmul_ms']:.4f} ms = mfu "
+        f"{cal['mfu_prefill']:.4f} of 989 TFLOP/s (default "
+        f"{H100.mfu_prefill:.4f}); 1 GiB device copy {cal['d2d_ms']:.4f} ms "
+        f"= mbu {cal['mbu_decode']:.4f} of 3.35 TB/s (default "
+        f"{H100.mbu_decode:.4f})")
+
+    s = cluster_lane(torch, cfg, "conductor lane", params=params,
+                     requests=24, strategy="kvcache")
+    rid = next(r["req_id"] for r in s["records"] if r["accepted"])
+    req = next(r for r in make_trace(24) if r.req_id == rid)
+    prompt = realize_request_tokens(req, cfg.vocab_size)
+    stream = s["outputs"][rid]
+    lk = teacher_forced(torch, params, cfg, prompt, stream)
+    with plain_attention():
+        lp = teacher_forced(torch, params, cfg, prompt, stream)
+    torch.cuda.synchronize()
+    err = (lk - lp).abs().max().item()
+    tol = bf16_ulps(4, lp.abs().max().item())
+    log(f"conductor lane teacher forcing (request {rid}, prompt "
+        f"{len(prompt)}, {len(stream)} positions): kernel vs plain "
+        f"max_abs_err {err:.4f} (tol {tol:.4f} = 4 bf16 ulps), kernel "
+        f"argmax == served stream: {lk.argmax(-1).cpu().tolist() == stream}")
+    if not bool(torch.isfinite(lk).all()) or err > tol:
+        raise AssertionError("conductor lane: kernel and plain disagree")
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="cluster-", dir=os.path.join(ROOT, "build"))
+    try:
+        # random routing: under kvcache one instance takes every request
+        # (its modelled queue drains between phase-at-a-time dispatches),
+        # so nothing would ever be a peer's; blocking loads feed the read EMA
+        g = cluster_lane(torch, cfg, "global-pool lane", params=params,
+                         requests=24, global_pool=True, ssd_blocks=64,
+                         dram_blocks=8, ssd_dir=os.path.join(root, "gp"),
+                         strategy="random", ssd_mode="blocking")
+        ema = g["ssd_read_ema"]
+        log(f"global-pool lane: conductor SSD loads "
+            f"{g['conductor_ssd_loads']}, peer-SSD arms won "
+            f"{g['conductor_peer_ssd_loads']}, engine fetched "
+            f"{g['peer_blocks_fetched']} peer blocks "
+            f"({g['peer_fetch_failures']} failures, "
+            f"{g.get('fallback_reasons')}); store read EMA "
+            + (f"{ema * 1e3:.3f} ms a block, fed to "
+               f"CostModel.calibrate_ssd_read" if ema else "none"))
+        if not g["peer_blocks_fetched"] or g["peer_fetch_failures"] \
+                or not ema:
+            raise AssertionError("global-pool lane fetched no peer block, a "
+                                 "fetch failed, or no read was measured")
+        p3 = cluster_lane(torch, cfg, "3-process lane", processes=3,
+                          ssd_dir=os.path.join(root, "p3"))
+        check_nodes(p3, "3-process lane", chaos=False)
+        ch = cluster_lane(torch, cfg, "chaos lane", processes=3,
+                          chaos="kill-owner",
+                          ssd_dir=os.path.join(root, "chaos"))
+        check_nodes(ch, "chaos lane", chaos=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1027,6 +1214,9 @@ def main() -> int:
 
     phase("9 the storage hierarchy, smollm-360m full width")
     e2e_tiers(torch, smollm_params)
+
+    phase("10 the Conductor and the wire, smollm-360m full width")
+    e2e_cluster(torch, timer, smollm_params, smi)
     del smollm_params
 
     kernels = [

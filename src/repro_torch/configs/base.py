@@ -114,6 +114,27 @@ class ModelConfig:
         """Number of layers that carry a KV cache."""
         return 0 if self.kind == "ssm" else self.n_layers
 
+    def param_count(self) -> int:
+        """Approximate total parameter count — the reference's formula for
+        the dense and SSM families (what the cost model prices); the MoE,
+        hybrid and encoder terms come with those families."""
+        d, L = self.d_model, self.n_layers
+        n = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
+        if self.kind == "ssm":
+            s = self.ssm
+            di, nh = s.d_inner(d), s.n_heads(d)
+            per_ssm = d * (2 * di + 2 * s.d_state + nh) + di * d \
+                + s.d_conv * s.conv_channels(d) + 3 * nh + di
+            return n + per_ssm * L
+        per_attn = (d * self.padded_heads * self.head_dim) * 2 \
+            + (d * self.n_kv_heads * self.head_dim) * 2
+        per_mlp = 3 * d * self.d_ff
+        return n + (per_attn + per_mlp) * L
+
+    def active_param_count(self) -> int:
+        """Activated params per token: all of them for dense and SSM."""
+        return self.param_count()
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant, identical to the reference's ``reduced()``
         for dense and SSM configs: 2 layers, d_model ≤ 256, 4 query heads
@@ -161,6 +182,6 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     import importlib
-    for mod in ("smollm_360m", "qwen2_5_3b", "mamba2_2_7b"):
+    for mod in ("smollm_360m", "qwen2_5_3b", "mamba2_2_7b", "llama2_70b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
     _LOADED = True

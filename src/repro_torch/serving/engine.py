@@ -13,13 +13,14 @@ shared ``DevicePagePool``, and a continuous-batching decode worker whose
 slots sit at independent depths (``DecodeWorker``, paged or dense
 substrate). Pools joined through a ``GlobalBlockDirectory`` and
 ``connect_pools`` fetch each other's blocks in process (``PeerSource``
-over ``transport.InProcPeer``). For SSM models prefix caching takes its
-other form: recurrent-state checkpoints at block boundaries
-(``StateCheckpointWorker``); the KV workers refuse SSM models.
+over ``transport.InProcPeer``), or across processes over the wire
+(``transport.SocketPeer``, which returns the same host tensors). For SSM
+models prefix caching takes its other form: recurrent-state checkpoints
+at block boundaries (``StateCheckpointWorker``); the KV workers refuse
+SSM models.
 
 Host KV bytes and state checkpoints are CPU tensors; device work runs on
-the device the parameters live on. Not ported yet: peers over a socket
-(the wire), sharded decode.
+the device the parameters live on. Not ported yet: sharded decode.
 """
 from __future__ import annotations
 
@@ -304,9 +305,13 @@ class HostKVPool:
 
     # ---- tier-event hooks (file-backed mode only) ----------------------
     def _on_demote(self, key: int) -> None:
-        kv = self.data.pop(key, None)
+        kv = self.data.get(key)
         if kv is not None:
-            self.store.put(key, *kv)    # staged; flushed per writeback batch
+            # staged (flushed per writeback batch) BEFORE the DRAM copy
+            # goes: a peer's concurrent read through this pool's
+            # BlockServer always finds the block in one of the two
+            self.store.put(key, *kv)
+            del self.data[key]
 
     def _on_promote(self, key: int, count_read: bool) -> None:
         if count_read:
@@ -404,9 +409,9 @@ class HostKVPool:
         rt = getattr(self.meta, "resident_tier", None) \
             if self.store is not None else None
         if rt is not None and rt(h) == "ssd":
-            blk = self.data.pop(h)
             if h not in self.store:     # landed straight in the SSD tier
-                self.store.put(h, *blk)
+                self.store.put(h, *self.data[h])
+            del self.data[h]
         self.peer_blocks_fetched += 1
         return True
 
@@ -624,6 +629,14 @@ class PrefillResult:
                 and not self._pages_adopted:
             self.page_pool.release(self.pages)
             self._pages_adopted = True
+
+
+def paged_supported(cfg: ModelConfig) -> bool:
+    """The paged decode substrate covers uniform attention-only stacks;
+    an SSM stack keeps its recurrent state. Drivers use this to decide
+    whether to build a ``DevicePagePool`` at all (staging into a pool no
+    decode worker will ever adopt from just leaks pages)."""
+    return cfg.attention_layers == cfg.n_layers
 
 
 def stage_run(pool: Optional[DevicePagePool], hash_ids: list[int], k_full,

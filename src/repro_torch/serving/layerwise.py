@@ -1,12 +1,19 @@
-"""Layer-wise prefill (§5.2) — the port's own copy of the executable half
-of the reference's ``serving/layerwise.py``: the load-vs-recompute split
-of a tiered prefix (``ChunkOverlapPlan``, ``overlap_split``) that
-``PrefillWorker``'s overlapped path runs, and ``verify_stream_order``
-on the port's ``prefill``.
+"""Layer-wise prefill (§5.2) — the port's own copy of the reference's
+``serving/layerwise.py``.
 
-The reference's analytic timeline (``schedule``) and its occupation-cost
-accounting (``occupation_cost``) price transfers with the simulator's
-``CostModel``; they come with the port of the cost model.
+Mechanism (paper): before layer l's attention, *wait* for layer l's async
+KV load and *launch* layer l+1's; after the attention, *launch* layer l's
+async store. Total latency then ≈ max(compute, transfer) instead of
+compute + transfer.
+
+  * ``schedule`` prices that per-layer timeline analytically off the
+    Conductor's ``CostModel``, and ``occupation_cost`` the §5.2 S·T
+    accounting of a request's KVCache residency;
+  * ``ChunkOverlapPlan``/``overlap_split`` are the executable split of a
+    tiered prefix that ``PrefillWorker``'s overlapped path runs (head
+    recompute while the tail streams off disk);
+  * ``verify_stream_order`` checks the ordering contract on the port's
+    ``prefill``.
 """
 from __future__ import annotations
 
@@ -15,6 +22,79 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.costmodel import CostModel, InstanceSpec
+
+
+@dataclass
+class LayerwiseTimeline:
+    t_compute_layer: float        # compute time per layer (s)
+    t_store_layer: float          # KV store (device→DRAM/remote) per layer
+    t_load_layer: float           # prefix KV load per layer
+    total_overlapped: float       # layer-wise prefill wall time
+    total_serial: float           # store-after-compute wall time
+    store_hidden: bool            # store stream fits behind compute?
+
+    @property
+    def overhead(self) -> float:
+        """Extra latency of layer-wise prefill vs no-store prefill —
+        the paper's 'Layer-wise latency' curve in Figure 7."""
+        n = max(self.n_layers, 1) if hasattr(self, "n_layers") else 1
+        return self.total_overlapped - self.t_compute_layer * n
+
+
+def schedule(cfg: ModelConfig, input_tokens: int, prefix_tokens: int = 0,
+             inst: InstanceSpec = InstanceSpec(),
+             store_bw: float | None = None) -> LayerwiseTimeline:
+    """Per-layer launch/wait timeline of §5.2.
+
+    Compute proceeds layer by layer; layer l's store starts when its
+    attention completes and streams at ``store_bw``. With L layers:
+
+      total_overlapped = t_load_0 + L·t_c + max(0, t_s − t_c)
+                         (+ residual if the store stream backlogs)
+      total_serial     = t_load_total + L·t_c + L·t_s
+    """
+    cm = CostModel(cfg, inst)
+    L = max(cfg.attention_layers, 1)
+    bw = store_bw if store_bw is not None else inst.hw.net_bw
+    t_c = cm.prefill_time(input_tokens, prefix_tokens) / L
+    per_layer_bytes = cm.kv_bytes(input_tokens) / L
+    t_s = per_layer_bytes / bw
+    load_bytes = cm.kv_bytes(prefix_tokens) / L
+    t_l = load_bytes / inst.hw.dram_bw
+
+    # load of layer l overlaps compute of layer l-1 (wait-before-attend):
+    load_exposed = t_l + max(0.0, (L - 1) * (t_l - t_c))
+    # stores pipeline behind compute; the last layer's store is exposed,
+    # plus any backlog if t_s > t_c
+    store_exposed = t_s + max(0.0, (L - 1) * (t_s - t_c))
+    total_overlapped = load_exposed + L * t_c + store_exposed
+    total_serial = L * (t_l + t_c + t_s)
+    tl = LayerwiseTimeline(
+        t_compute_layer=t_c, t_store_layer=t_s, t_load_layer=t_l,
+        total_overlapped=total_overlapped, total_serial=total_serial,
+        store_hidden=t_s <= t_c)
+    tl.n_layers = L  # type: ignore[attr-defined]
+    return tl
+
+
+def occupation_cost(cfg: ModelConfig, input_tokens: int, *,
+                    inst: InstanceSpec = InstanceSpec(),
+                    inline_slowdown: float = 4.0) -> dict:
+    """§5.2's S·T argument: VRAM-seconds held by a request's KVCache under
+    (a) layer-wise streaming prefill (KV leaves as produced: T ≈ t_layer
+    average residency ≈ total/2) and (b) chunked prefill inlined into a
+    decode batch (T stretched by ``inline_slowdown``)."""
+    cm = CostModel(cfg, inst)
+    S = cm.kv_bytes(input_tokens)
+    tl = schedule(cfg, input_tokens, inst=inst)
+    t_fast = tl.total_overlapped
+    return dict(
+        kv_bytes=S,
+        layerwise_cost=S * t_fast / 2,              # drains as it fills
+        inline_cost=S * t_fast * inline_slowdown,   # held for the whole
+        ratio=2 * inline_slowdown,                  # stretched prefill
+    )
 
 
 @dataclass
