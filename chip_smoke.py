@@ -68,7 +68,17 @@ Phases, each printed as it runs; any failure exits non-zero:
      single-process oracle, 2 peer blocks a node over the wire) and its
      chaos lane (node 0 SIGKILLed mid-fetch, survivors bit-exact, the
      degradation accounted, node 0's directory claims dropped), each
-     lane's kernel launches counted from zero.
+     lane's kernel launches counted from zero;
+ 11. the simulator on H100 prices (phase 5's weights, phase 10's
+     calibration): the cost model of smollm-360m on one calibrated H100
+     against a synchronised 256-token prefill chunk at offset 1280 and a
+     paged decode step of 8 slots (a reading); the quickstart's sections
+     1-3 at 3000 requests priced on a calibrated 8-GPU node, and its
+     section 4 (chunked prefill with prefix reuse) at full width with
+     flash_prefill launches counted from zero and the KV held against
+     the plain path; the overload replay of 4000 requests at 4 to 128x
+     under each admission policy, its invariants gated; the
+     Figure-12 scenario, Mooncake 2P+2D against the coupled baseline x4.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -1121,6 +1131,177 @@ def e2e_cluster(torch, timer, params, smi):
         check_nodes(ch, "chaos lane", chaos=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return cal
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the simulator on H100 prices
+# ---------------------------------------------------------------------------
+
+def synced_ms(torch, fn, n: int = 5) -> float:
+    """Median host wall time of ``fn`` in ms, synchronised around each
+    call (the time a caller waits, host dispatch included)."""
+    fn()
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.monotonic() - t0) * 1e3)
+    return sorted(ts)[n // 2]
+
+
+def modelled_vs_measured(torch, params, cfg, hw, device="cuda") -> None:
+    """The cost model of smollm-360m on one calibrated H100 against the
+    port's synchronised prefill chunk and paged decode step (phase 5's
+    shapes: 256 tokens at offset 1280; 8 slots at the launcher's depths)."""
+    import numpy as np
+
+    from repro_torch.core.costmodel import CostModel, InstanceSpec
+    from repro_torch.launch.serve import MAX_LEN, make_payloads
+    from repro_torch.models.transformer import decode_step, init_caches
+    from repro_torch.serving.engine import (DecodeWorker, HostKVPool,
+                                            PrefillWorker)
+    from repro_torch.serving.paged_cache import DevicePagePool
+    from repro_torch.serving.request import ServingRequest
+    cm = CostModel(cfg, InstanceSpec(n_chips=1, hw=hw))
+    pp = DevicePagePool(cfg, n_pages=1 + 9 * (MAX_LEN // 64), page_tokens=64,
+                        device=device)
+    pw = PrefillWorker(params, cfg, HostKVPool(), prefill_chunk=256,
+                       page_pool=pp)
+    dw = DecodeWorker(params, cfg, max_batch=8, max_len=MAX_LEN, page_pool=pp)
+    payloads = make_payloads(12, cfg.vocab_size, max_new=MAX_LEN, seed=0)[:8]
+    for rid, toks, _, _ in payloads:
+        dw.join(ServingRequest(rid, toks, MAX_LEN - len(toks)), pw(toks))
+    lens = [len(t) for _, t, _, _ in payloads]
+    ema_ms = pw.est_chunk_s() * 1e3
+    toks = torch.as_tensor(np.asarray(payloads[0][1][:1536], np.int64)[None],
+                           device=device)
+    caches = init_caches(cfg, 1, 1536, device=device)._replace(length=1280)
+    chunk_ms = synced_ms(
+        torch, lambda: decode_step(params, toks[:, 1280:1536], caches, cfg))
+    step_ms = synced_ms(torch, dw.step)
+    mean_ctx = float(np.mean(lens))
+    m_pre = cm.prefill_time(1536, 1280) * 1e3
+    m_dec = cm.decode_iter_time(8, mean_ctx) * 1e3
+    log(f"(b) modelled, smollm-360m on one calibrated H100: prefill_time("
+        f"1536, 1280) {m_pre:.4f} ms; decode_iter_time(8, {mean_ctx:.1f}) "
+        f"{m_dec:.4f} ms")
+    log(f"(b) measured: 256-token chunk at offset 1280 {chunk_ms:.3f} ms "
+        f"(synchronised, median of 5; the worker's chunk EMA over the 8 "
+        f"prefills {ema_ms:.3f} ms); paged decode step, 8 slots at depths "
+        f"{lens}, {step_ms:.3f} ms")
+    log(f"(b) measured / modelled: prefill {chunk_ms / m_pre:.1f}x, decode "
+        f"{step_ms / m_dec:.1f}x (a reading, not a gate)")
+
+
+def check_replay(results: dict, n: int, speedup: float) -> None:
+    """The replay's invariants: every request completed or rejected, every
+    accepted request completed, no decode double-check under the policies
+    that gate on both pools at arrival."""
+    import numpy as np
+    for adm, res in results.items():
+        waste = sum(1 for r in res.records
+                    if r.reject_stage == "decode_doublecheck")
+        log(f"  {speedup:g}x {adm:10s} rejected {len(res.rejected())} "
+            f"(after prefill: {waste}) | completed {len(res.completed())} "
+            f"| goodput {res.goodput(30, .1):.4f} req/s | decode-load std "
+            f"{np.std([d for _, _, d in res.load_samples]):.4f} | "
+            f"{res.reject_breakdown()}")
+        if len(res.completed()) + len(res.rejected()) != n \
+                or not all(r.completed for r in res.records if r.accepted):
+            raise AssertionError(f"replay {speedup}x {adm}: a request was "
+                                 f"lost or an accepted one did not complete")
+        if adm in ("early", "predictive") and waste:
+            raise AssertionError(f"replay {speedup}x {adm}: rejected after "
+                                 f"prefill")
+
+
+def e2e_simulator(torch, params, cal, smi, device="cuda"):
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.costmodel import H100, InstanceSpec
+    from repro_torch.core.simulator import CoupledCluster, MooncakeCluster
+    from repro_torch.core.trace import BLOCK_TOKENS, simulated_requests
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.launch import overload_replay, quickstart
+    from repro_torch.models.layers import plain_attention
+    cfg = get_config("smollm-360m")
+    hw = dataclasses.replace(H100, dram_bw=cal["dram_bw"],
+                             mfu_prefill=cal["mfu_prefill"],
+                             mbu_decode=cal["mbu_decode"])
+    node = InstanceSpec(hw=hw)
+    log(f"(a) calibrated Hardware ({smi}): dram_bw {hw.dram_bw / 1e9:.2f} "
+        f"GB/s, mfu_prefill {hw.mfu_prefill:.4f}, mbu_decode "
+        f"{hw.mbu_decode:.4f}; data sheet peak_flops {hw.peak_flops:.3g}, "
+        f"hbm_bw {hw.hbm_bw:.3g}; simulated nodes of {node.n_chips} GPUs")
+    modelled_vs_measured(torch, params, cfg, hw, device)
+
+    t0 = time.monotonic()
+    log("(c) quickstart sections 1-3, 3000 requests, simulated seconds "
+        "priced on the calibrated H100 node:")
+    quickstart.simulator_sections(3000, node, log=log)
+    flash_prefill.launches = 0
+    r1, r2 = quickstart.engine_section(params, cfg, device, log=log)
+    torch.cuda.synchronize()
+    launches = flash_prefill.launches
+    computed = [r.prompt_len - BLOCK_TOKENS * r.reused_blocks
+                for r in (r1, r2)]
+    chunks = sum(-(-c // 128) for c in computed)
+    log(f"(c) section 4 at full width: flash_prefill {launches} launches "
+        f"(= {cfg.n_layers} x {chunks} chunks of 128); request 2 reused "
+        f"{r2.reused_blocks} blocks, computed {computed[1]} tokens")
+    if (r1.reused_blocks, r2.reused_blocks, computed[1]) != (0, 2, 64):
+        raise AssertionError("section 4: request 2 did not reuse the "
+                             "document's 2 blocks and compute only its tail")
+    if launches != cfg.n_layers * chunks:
+        raise AssertionError("section 4: flash_prefill launches do not "
+                             "match layers x chunks")
+    with plain_attention():
+        p1, _ = quickstart.engine_section(params, cfg, device,
+                                          log=lambda *_: None)
+    torch.cuda.synchronize()
+    err = max((r1.kv_k.float() - p1.kv_k.float()).abs().max().item(),
+              (r1.kv_v.float() - p1.kv_v.float()).abs().max().item())
+    scale = max(p1.kv_k.float().abs().max().item(),
+                p1.kv_v.float().abs().max().item())
+    tol = bf16_ulps(4, scale)
+    finite = bool(torch.isfinite(r1.kv_k.float()).all()
+                  and torch.isfinite(r1.kv_v.float()).all())
+    log(f"(c) section 4 request 1 KV, kernel vs plain: max_abs_err {err:.4f}"
+        f" (max |kv| {scale:.3f}; tol {tol:.4f} = 4 bf16 ulps); first token "
+        f"{r1.first_token} vs {p1.first_token}")
+    if not finite or err > tol:
+        raise AssertionError("section 4: kernel and plain KV disagree")
+    log(f"(c) took {time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
+    reqs = overload_replay.replay_trace(4000)
+    log(f"(d) overload replay: {len(reqs)} requests, 8P+8D, TTFT SLO 30 s, "
+        f"TBT SLO 0.1 s, t_d 20 s; simulated, priced on the calibrated "
+        f"H100 node")
+    # 4-32x is the reference's range; 64 and 128x find where the H100
+    # cluster overloads
+    for speedup in (4.0, 8.0, 16.0, 32.0, 64.0, 128.0):
+        results = overload_replay.replay(reqs, speedup, node,
+                                         log=lambda *_: None)
+        check_replay(results, len(reqs), speedup)
+    log(f"(d) took {time.monotonic() - t0:.1f} s")
+
+    reqs = simulated_requests(150, 32768, 512, cache_ratio=0.5, rps=2.0)
+    big = get_config("llama2-70b")
+    mc = MooncakeCluster(big, n_prefill=2, n_decode=2,
+                         inst_spec=node).run(reqs)
+    vl = CoupledCluster(big, n_instances=4, inst_spec=node).run(reqs)
+    for name, res in (("Mooncake 2P+2D", mc), ("coupled x4", vl)):
+        if len(res.completed()) + len(res.rejected()) != len(reqs):
+            raise AssertionError(f"figure 12 {name}: a request was lost")
+        log(f"(e) figure 12, {name}: goodput {res.goodput(30, .1):.4f} "
+            f"req/s, completed {len(res.completed())}, TTFT p90 "
+            f"{res.ttft_p90():.3f} s, TBT p90 {res.tbt_p90() * 1e3:.2f} ms "
+            f"(simulated, calibrated H100 nodes)")
 
 
 def main() -> int:
@@ -1216,7 +1397,10 @@ def main() -> int:
     e2e_tiers(torch, smollm_params)
 
     phase("10 the Conductor and the wire, smollm-360m full width")
-    e2e_cluster(torch, timer, smollm_params, smi)
+    cal = e2e_cluster(torch, timer, smollm_params, smi)
+
+    phase("11 the simulator on H100 prices")
+    e2e_simulator(torch, smollm_params, cal, smi)
     del smollm_params
 
     kernels = [

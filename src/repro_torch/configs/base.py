@@ -57,6 +57,40 @@ class CacheTierSpec:
 
 
 @dataclass(frozen=True)
+class ClusterSpec:
+    """A serving scenario as data: pool sizes, SLOs, cache hierarchy and
+    the scheduling policies (by registry name) of one ``MooncakeCluster``
+    (``core/simulator.py``). ``strategy`` / ``admission`` /
+    ``decode_policy`` resolve through ``repro_torch.core.policies`` — any
+    registered name, user policies included.
+
+    ``inst_spec`` is a ``repro_torch.core.costmodel.InstanceSpec``;
+    ``None`` means the default one, an 8-GPU H100 node. Typed loosely to
+    keep configs import-light.
+    """
+    n_prefill: int = 4
+    n_decode: int = 4
+    ttft_slo: float = 30.0
+    tbt_slo: float = 0.1
+    cache: CacheTierSpec = CacheTierSpec()
+    strategy: str = "kvcache"
+    admission: str = "early"
+    decode_policy: str = "min_tbt"
+    balancing_threshold: float = 1.3
+    layerwise_prefill: bool = True
+    #: share one GlobalBlockDirectory across prefill pools (the Figure-3
+    #: cluster-wide pool: demoted blocks become peer-SSD-fetchable). Only
+    #: meaningful when the cache is tiered; flat pools have no SSD tier.
+    global_pool: bool = True
+    t_d: float = 10.0              # predictive admission's uniform decode time
+    seed: int = 0
+    inst_spec: Optional[object] = None
+
+    def replace(self, **kw) -> "ClusterSpec":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     """Mamba2 mixer shape (one B/C group, the only one the reference's
     configs use and the SSD kernel takes)."""
@@ -172,6 +206,12 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]
+
+
+def list_configs() -> list[str]:
+    """The registered config names, sorted."""
+    _ensure_loaded()
+    return sorted(_REGISTRY)
 
 
 _LOADED = False

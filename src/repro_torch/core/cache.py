@@ -2,7 +2,8 @@
 — the port's own copy of the reference's ``core/cache.py``:
 ``CachePool`` for KV blocks (the DRAM tier, and the SSD tier inside
 ``core.tiered.TieredCachePool``), ``StateCache`` for SSM state
-checkpoints, the LRU/LFU/LengthAware policies, and the block sizes.
+checkpoints, the LRU/LFU/LengthAware policies, the block sizes, and
+``cache_hit_analysis`` (the Table 1 replay).
 
 A *block* is 512 tokens of KVCache identified by a prefix-chained hash id
 (the trace's ``hash_ids``). ``CachePool`` tracks block residency and
@@ -270,6 +271,10 @@ class StateCache(CachePool):
     *deepest* hit matters (states subsume their prefixes), and a transfer
     is constant-size (``ssm_state_bytes``)."""
 
+    def __init__(self, capacity_blocks: Optional[int] = None,
+                 policy: str = "lru", state_bytes: int = 0) -> None:
+        super().__init__(capacity_blocks, policy, block_bytes=state_bytes)
+
     def deepest_hit(self, hash_ids: list[int]) -> int:
         """Deepest resident checkpoint on this chain (0 = none).
         Unlike KV blocks, a checkpoint at depth k alone suffices."""
@@ -291,6 +296,16 @@ class StateCache(CachePool):
         elif touch:
             self.misses += len(hash_ids)
         return best
+
+
+def cache_hit_analysis(requests, policy: str, capacity: Optional[int]) -> float:
+    """Single global pool, replay in arrival order → block hit rate
+    (the paper's Table 1 methodology)."""
+    pool = CachePool(capacity_blocks=capacity, policy=policy)
+    for r in requests:
+        n = pool.lookup(r.hash_ids)
+        pool.insert(r.hash_ids[n:], start_pos=n)
+    return pool.hit_rate
 
 
 def kv_block_bytes(cfg, block_tokens: int = 512) -> int:

@@ -22,9 +22,11 @@ the commit machinery: SLO admission (line 25), hot-spot migration
 bookkeeping (line 28 — hot blocks spread automatically because they keep
 winning matches), queue/pool/decode accounting.
 
-The ``accounting`` knob sets whether decode pre-selection counts
-accepted-but-still-prefilling work ("pending") or reproduces the §7.2
-time lag ("current"); the reference's overload admission wrappers set it.
+Overload-oriented admission policies (§7) wrap ``schedule`` with earlier,
+load-based rejection — see ``repro_torch.core.policies.admission``. They
+set the ``accounting`` knob ("pending" counts accepted-but-still-
+prefilling work in decode pre-selection; "current" reproduces the §7.2
+time lag).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
-"""Pluggable scheduling policies: Arm candidates, prefill/decode routing
-and the serving loop's §7 admission — one string-keyed registry for all
-three kinds.
+"""Pluggable scheduling policies: Arm candidates, prefill/decode routing,
+§7 admission (around a Conductor, and the serving loop's backpressure) —
+one string-keyed registry for all three kinds.
 
     from repro_torch.core.policies import register_policy, list_policies
 
@@ -13,7 +13,9 @@ from repro_torch.core.policies.base import (Arm, DecodePolicy,  # noqa: F401
                                             PolicyContext, PrefillPolicy,
                                             get_policy, list_policies,
                                             register_policy)
-from repro_torch.core.policies.admission import BackpressureSignal  # noqa: F401
+from repro_torch.core.policies.admission import (  # noqa: F401
+    AdmissionPolicy, BackpressureSignal, BaselineAdmission, EarlyRejection,
+    PredictiveEarlyRejection, make_admission)
 from repro_torch.core.policies.routing import (  # noqa: F401
     CacheAwareRouting, KVCacheRouting, LoadBalanceRouting, RandomRouting,
     find_best_prefix, peer_fetch_arm, peer_ssd_arm, recompute_arm,

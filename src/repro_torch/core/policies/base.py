@@ -11,8 +11,9 @@ policy registry (the port's own copy of the reference's
     Conductor takes the min-TTFT arm (first wins on ties), so a policy is
     just "which arms exist" — strategies compose by proposing more arms.
   * ``DecodePolicy`` — ``select(req, instances, now) -> (instance, tbt)``.
-  * ``AdmissionPolicy`` (``policies.admission``) — the serving loop's §7
-    backpressure; the simulator's Conductor wrapper is not ported yet.
+  * ``AdmissionPolicy`` (``policies.admission``) — wraps a Conductor
+    with §7 overload admission, and gives the serving loop its §7
+    backpressure.
 
 All kinds share one registry: ``@register_policy(kind, name)`` at class
 level, ``get_policy(kind, name)`` to resolve (raising a ``ValueError``

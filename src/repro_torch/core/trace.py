@@ -24,7 +24,7 @@ from __future__ import annotations
 import json
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
 
@@ -44,6 +44,12 @@ class Request:
     def n_blocks(self) -> int:
         return len(self.hash_ids)
 
+    def to_json(self) -> str:
+        return json.dumps(dict(timestamp=self.timestamp,
+                               input_length=self.input_length,
+                               output_length=self.output_length,
+                               hash_ids=self.hash_ids))
+
 
 def load_trace(path: str, limit: Optional[int] = None) -> list[Request]:
     """Load the Mooncake open JSONL trace format verbatim."""
@@ -62,6 +68,12 @@ def load_trace(path: str, limit: Optional[int] = None) -> list[Request]:
                                hash_ids=list(d["hash_ids"])))
     out.sort(key=lambda r: r.timestamp)
     return out
+
+
+def save_trace(requests: Iterable[Request], path: str) -> None:
+    with open(path, "w") as f:
+        for r in requests:
+            f.write(r.to_json() + "\n")
 
 
 # ---------------------------------------------------------------------------
@@ -194,3 +206,55 @@ def generate_trace(spec: TraceSpec = TraceSpec()) -> list[Request]:
     for i, r in enumerate(requests):
         r.req_id = i
     return requests
+
+
+def simulated_requests(n: int, input_len: int, output_len: int = 512,
+                       cache_ratio: float = 0.5, rps: float = 1.0,
+                       seed: int = 0) -> list[Request]:
+    """§8.1.2 simulated data: fixed lengths, fixed prefix-cache ratio,
+    Poisson arrivals at ``rps`` requests/second."""
+    rng = np.random.default_rng(seed)
+    n_blocks = math.ceil(input_len / BLOCK_TOKENS)
+    shared_blocks = int(n_blocks * cache_ratio)
+    gaps = rng.exponential(1000.0 / max(rps, 1e-9), size=n)
+    ts = np.cumsum(gaps).astype(int)
+    out: list[Request] = []
+    next_hash = 10**9  # disjoint from generator ids
+    # requests pair-share prefixes so cache_ratio of blocks hit on 2nd use
+    shared_pool: list[list[int]] = []
+    for i in range(n):
+        if shared_blocks and shared_pool and rng.random() < 0.5:
+            prefix = shared_pool[int(rng.integers(len(shared_pool)))]
+        else:
+            prefix = list(range(next_hash, next_hash + shared_blocks))
+            next_hash += shared_blocks
+            if shared_blocks:
+                shared_pool.append(prefix)
+        tail = list(range(next_hash, next_hash + n_blocks - shared_blocks))
+        next_hash += n_blocks - shared_blocks
+        out.append(Request(req_id=i, timestamp=int(ts[i]),
+                           input_length=input_len, output_length=output_len,
+                           hash_ids=prefix + tail))
+    return out
+
+
+def trace_stats(requests: list[Request]) -> dict:
+    ins = np.array([r.input_length for r in requests])
+    outs = np.array([r.output_length for r in requests])
+    all_blocks: dict[int, int] = {}
+    for r in requests:
+        for h in r.hash_ids:
+            all_blocks[h] = all_blocks.get(h, 0) + 1
+    counts = np.array(list(all_blocks.values()))
+    return dict(
+        n=len(requests),
+        avg_input=float(ins.mean()),
+        avg_output=float(outs.mean()),
+        p50_input=float(np.percentile(ins, 50)),
+        p99_input=float(np.percentile(ins, 99)),
+        n_unique_blocks=len(all_blocks),
+        frac_blocks_single_use=float((counts == 1).mean()),
+        max_block_hits=int(counts.max()),
+        # upper bound on reuse: hits beyond first use / total block touches
+        max_reuse=float((counts - 1).sum() / counts.sum()),
+    )
