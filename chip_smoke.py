@@ -78,7 +78,19 @@ Phases, each printed as it runs; any failure exits non-zero:
      flash_prefill launches counted from zero and the KV held against
      the plain path; the overload replay of 4000 requests at 4 to 128x
      under each admission policy, its invariants gated; the
-     Figure-12 scenario, Mooncake 2P+2D against the coupled baseline x4.
+     Figure-12 scenario, Mooncake 2P+2D against the coupled baseline x4;
+ 12. the MoE family: (a) both attention kernels against their plain
+     versions at head_dim 128 — qwen3-moe's 64 query heads over 4 KV
+     heads, mixtral's 32 over 8 with its 4096-token window binding, and
+     a 64-token window; (b) qwen3-moe-235b-a22b at full width, depth cut
+     to 4 of 94 layers (weights drawn on the card), served by the
+     launcher's body with its launches counted, then one request
+     teacher-forced through the kernel and plain paths with every
+     layer's routing recorded: logits held up to the first position
+     where the experts that computed it differ, and at every position
+     with the plain run's routing replayed in the kernel path; (c)
+     mixtral-8x7b at full width, 2 of 32 layers: a 5,120-token prompt
+     through prefill() and 16 paged decode steps, held the same way.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -228,7 +240,8 @@ def paged_table(torch, *, lens, page, max_pages, P, qh2kv, seed):
     return table, lens_t, m
 
 
-def check_paged(torch, timer, name, case, main: bool, n_splits=None):
+def check_paged(torch, timer, name, case, main: bool, n_splits=None,
+                window: int = 0):
     from repro_torch.kernels.paged_attention.kernel import paged_attention
     from repro_torch.kernels.paged_attention.ops import grouped_map
     from repro_torch.kernels.paged_attention.ref import (
@@ -237,28 +250,31 @@ def check_paged(torch, timer, name, case, main: bool, n_splits=None):
     B, H, D = q.shape
     KV = kp.shape[2]
     mk = m if m is not None else grouped_map(H, KV, q.device)
-    out = paged_attention(q, kp, vp, table, lens, mk, n_splits=n_splits)
+    out = paged_attention(q, kp, vp, table, lens, mk, n_splits=n_splits,
+                          window=window)
     torch.cuda.synchronize()
     splits = paged_attention.last_splits
-    ref = paged_attention_ref(q, kp, vp, table, lens, qh2kv=m)
+    ref = paged_attention_ref(q, kp, vp, table, lens, qh2kv=m, window=window)
     err = (out.float() - ref.float()).abs().max().item()
     finite = bool(torch.isfinite(out.float()).all())
     # the plain split decomposition with the kernel's split count
     split_ref = paged_attention_splits_ref(q, kp, vp, table, lens, qh2kv=m,
-                                           n_splits=splits)
+                                           n_splits=splits, window=window)
     err_split = (out.float() - split_ref.float()).abs().max().item()
     log(f"paged[{name}]: B={B} H={H} KV={KV} D={D} lens={lens.tolist()} "
-        f"n_splits={splits} max_abs_err={err:.3e} (vs the plain split "
-        f"decomposition {err_split:.3e}; tol {TOL}) finite={finite}")
+        f"window={window} n_splits={splits} max_abs_err={err:.3e} (vs the "
+        f"plain split decomposition {err_split:.3e}; tol {TOL}) "
+        f"finite={finite}")
     if not (err <= TOL and err_split <= TOL and finite):
         raise AssertionError(f"paged decode kernel disagrees ({name})")
     if n_splits is not None and splits != n_splits:
         raise AssertionError(f"paged ran {splits} splits, not {n_splits}")
     if not main:
         return None
-    ms = timer.ms(lambda: paged_attention(q, kp, vp, table, lens, mk))
+    ms = timer.ms(lambda: paged_attention(q, kp, vp, table, lens, mk,
+                                          window=window))
     sweep = {ns: timer.ms(lambda: paged_attention(q, kp, vp, table, lens, mk,
-                                                  n_splits=ns))
+                                                  n_splits=ns, window=window))
              for ns in (1, 2, 4, 8)}
     log(f"paged[{name}]: forced splits " + ", ".join(
         f"{ns}: {t:.4f} ms" for ns, t in sweep.items())
@@ -266,25 +282,30 @@ def check_paged(torch, timer, name, case, main: bool, n_splits=None):
     # the fixed cost: the same call with no live token in any slot, and
     # one trivial kernel launch under the same timer
     no_tok = torch.zeros_like(lens)
-    empty_ms = timer.ms(lambda: paged_attention(q, kp, vp, table, no_tok, mk))
+    empty_ms = timer.ms(lambda: paged_attention(q, kp, vp, table, no_tok, mk,
+                                                window=window))
     one = torch.zeros(1, device=q.device)
     launch_ms = timer.ms(lambda: one.fill_(1.0))
     log(f"paged[{name}]: fixed cost: {empty_ms:.4f} ms with no live token, "
         f"{launch_ms:.4f} ms for one trivial kernel launch")
     plain_ms = timer.ms(lambda: paged_attention_ref(q, kp, vp, table, lens,
-                                                    qh2kv=m))
+                                                    qh2kv=m, window=window))
     # library yardstick: SDPA on pre-gathered, head-expanded KV (the
     # gather is excluded from its time)
     S = table.shape[1] * kp.shape[1]
     kx = kp[table.long()].reshape(B, S, KV, D)[:, :, mk.long()]
     vx = vp[table.long()].reshape(B, S, KV, D)[:, :, mk.long()]
     kx, vx = kx.transpose(1, 2).contiguous(), vx.transpose(1, 2).contiguous()
-    mask = (torch.arange(S, device=q.device)[None, :] < lens[:, None].long())
+    pos = torch.arange(S, device=q.device)[None, :]
+    mask = pos < lens[:, None].long()
+    if window:
+        mask &= pos >= lens[:, None].long() - window
     mask = mask[:, None, None, :]
     qx = q[:, :, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = timer.ms(lambda: sdpa(qx, kx, vx, attn_mask=mask))
-    toks = int(lens.sum())
+    # the tokens this run's slots attend (a window reads its last tokens)
+    toks = sum(min(n, window) if window else n for n in lens.tolist())
     n_bytes = (q.numel() + out.numel()) * 2 + toks * KV * D * 2 * 2 \
         + (table.numel() + lens.numel() + mk.numel()) * 4
     n_flops = 4.0 * D * H * toks
@@ -302,7 +323,7 @@ def check_paged(torch, timer, name, case, main: bool, n_splits=None):
 # ---------------------------------------------------------------------------
 
 def check_prefill(torch, timer, name, *, Sq, Sk, q_offset, H, KV, D, qh2kv,
-                  seed, main: bool, n_splits=None):
+                  seed, main: bool, n_splits=None, window: int = 0):
     from repro_torch.kernels.flash_prefill.kernel import flash_prefill
     from repro_torch.kernels.flash_prefill.ref import (flash_prefill_ref,
                                                        flash_prefill_split_ref)
@@ -312,39 +333,52 @@ def check_prefill(torch, timer, name, *, Sq, Sk, q_offset, H, KV, D, qh2kv,
     v = torch.randn(1, Sk, KV, D, generator=g, device="cuda").bfloat16()
     k[:, q_offset + Sq:] = 1e4        # keys past the chunk: never read
     v[:, q_offset + Sq:] = -1e4
+    k_lo = max(0, q_offset - window + 1) if window else 0
+    k[:, :k_lo] = 1e4                 # keys before every query's window
+    v[:, :k_lo] = -1e4
     m = torch.tensor(qh2kv, dtype=torch.int32, device="cuda")
-    out = flash_prefill(q, k, v, m, q_offset=q_offset, n_splits=n_splits)
+    out = flash_prefill(q, k, v, m, q_offset=q_offset, n_splits=n_splits,
+                        window=window)
     torch.cuda.synchronize()
     splits = flash_prefill.last_splits
-    ref = flash_prefill_ref(q, k, v, q_offset=q_offset, qh2kv=m)
+    ref = flash_prefill_ref(q, k, v, q_offset=q_offset, qh2kv=m,
+                            window=window)
     err = (out.float() - ref.float()).abs().max().item()
     finite = bool(torch.isfinite(out.float()).all())
     # the plain split-over-keys decomposition with the kernel's split count
     split_ref = flash_prefill_split_ref(q, k, v, q_offset=q_offset, qh2kv=m,
-                                        n_splits=splits)
+                                        n_splits=splits, window=window)
     err_split = (out.float() - split_ref.float()).abs().max().item()
     log(f"prefill[{name}]: Sq={Sq} Sk={Sk} q_offset={q_offset} H={H} KV={KV} "
-        f"D={D} n_splits={splits} max_abs_err={err:.3e} (vs the plain split "
-        f"decomposition {err_split:.3e}; tol {TOL}) finite={finite}")
+        f"D={D} window={window} n_splits={splits} max_abs_err={err:.3e} "
+        f"(vs the plain split decomposition {err_split:.3e}; tol {TOL}) "
+        f"finite={finite}")
     if not (err <= TOL and err_split <= TOL and finite):
         raise AssertionError(f"prefill kernel disagrees ({name})")
     if n_splits is not None and splits != n_splits:
         raise AssertionError(f"prefill ran {splits} splits, not {n_splits}")
     if not main:
         return None
-    ms = timer.ms(lambda: flash_prefill(q, k, v, m, q_offset=q_offset))
+    ms = timer.ms(lambda: flash_prefill(q, k, v, m, q_offset=q_offset,
+                                        window=window))
     plain_ms = timer.ms(lambda: flash_prefill_ref(q, k, v, q_offset=q_offset,
-                                                  qh2kv=m))
+                                                  qh2kv=m, window=window))
     ml = m.long()
     qx = q.transpose(1, 2).contiguous()
     kx = k[:, :, ml].transpose(1, 2).contiguous()
     vx = v[:, :, ml].transpose(1, 2).contiguous()
     qpos = q_offset + torch.arange(Sq, device="cuda")
-    mask = (qpos[:, None] >= torch.arange(Sk, device="cuda")[None, :])
+    kpos = torch.arange(Sk, device="cuda")[None, :]
+    mask = qpos[:, None] >= kpos
+    if window:
+        mask &= qpos[:, None] - kpos < window
     sdpa = torch.nn.functional.scaled_dot_product_attention
     lib_ms = timer.ms(lambda: sdpa(qx, kx, vx, attn_mask=mask))
-    keys = min(Sk, q_offset + Sq)
-    pairs = sum(min(Sk, q_offset + i + 1) for i in range(Sq))
+    # the keys read and the (query, key) pairs this chunk's masks keep
+    keys = min(Sk, q_offset + Sq) - k_lo
+    pairs = sum(min(Sk, q_offset + i + 1) - (max(0, q_offset + i - window + 1)
+                                             if window else 0)
+                for i in range(Sq))
     n_bytes = (q.numel() + out.numel()) * 2 + keys * KV * D * 2 * 2 \
         + m.numel() * 4
     n_flops = 4.0 * D * H * pairs
@@ -362,12 +396,13 @@ def check_prefill(torch, timer, name, *, Sq, Sk, q_offset, H, KV, D, qh2kv,
 # ---------------------------------------------------------------------------
 
 def teacher_forced(torch, params, cfg, prompt, stream, chunk=256, page=64,
-                   kv=None):
+                   kv=None, all_positions=False):
     """Logits of every position a served stream was sampled from: the
     first token's (chunked prefill) and each decode step's (paged). With
     ``kv`` — host (k, v) of the prompt from another path, such as a
     tiered prefill — the prompt's KV but its last token's comes from
-    there, and the first token's logits from a one-token extend."""
+    there, and the first token's logits from a one-token extend. With
+    ``all_positions`` the rows start with every prompt position's."""
     from repro_torch.models.transformer import (decode_step,
                                                 decode_step_paged,
                                                 init_caches)
@@ -377,16 +412,18 @@ def teacher_forced(torch, params, cfg, prompt, stream, chunk=256, page=64,
     S = len(prompt)
     t = torch.as_tensor(prompt[None, :].astype("int64"), device=dev)
     caches = init_caches(cfg, 1, S, device=dev)
+    prompt_rows = []
     if kv is None:
         for lo in range(0, S, chunk):
             logits, caches = decode_step(params, t[:, lo:lo + chunk], caches,
                                          cfg)
+            prompt_rows.append(logits[0])
     else:
         caches.kv.k[:, 0, :S - 1] = kv[0][:, :S - 1].to(dev)
         caches.kv.v[:, 0, :S - 1] = kv[1][:, :S - 1].to(dev)
         logits, caches = decode_step(params, t[:, S - 1:],
                                      caches._replace(length=S - 1), cfg)
-    rows = [logits[0, -1]]
+    rows = list(torch.cat(prompt_rows)) if all_positions else [logits[0, -1]]
     n_tok = S + len(stream)
     pp = DevicePagePool(cfg, n_pages=2 + -(-n_tok // page), page_tokens=page,
                         device=dev)
@@ -1303,6 +1340,303 @@ def e2e_simulator(torch, params, cal, smi, device="cuda"):
             f"{res.ttft_p90():.3f} s, TBT p90 {res.tbt_p90() * 1e3:.2f} ms "
             f"(simulated, calibrated H100 nodes)")
 
+# ---------------------------------------------------------------------------
+# phase 12: the MoE family
+# ---------------------------------------------------------------------------
+
+def routes_by_position(torch, cfg, routes):
+    """What ``record_routing`` collected over one teacher-forced run (per
+    chunk or step, one call per layer) → (layers, positions, k): the
+    experts that computed each position in each layer, ascending, -1 for
+    a choice dropped at capacity."""
+    from repro_torch.models.layers import dispatched_experts
+    L = cfg.n_layers
+    sets = [dispatched_experts(cfg, idx) for idx in routes]
+    return torch.stack([torch.cat(sets[l::L]) for l in range(L)])
+
+
+def hold_routed(torch, name, lk, lp, rk, rp):
+    """Kernel-path logits ``lk`` against plain-path ``lp`` (one row per
+    position) at every position before the first where a routing choice
+    differs between the two runs (``rk``/``rp``: (layers, positions, k),
+    the experts that computed each position in each layer, ascending), to
+    phase 5's rule: 4 bf16 ulps of the largest logit. Returns the number
+    of differing (layer, position, k) choices."""
+    if not rk.shape == rp.shape == (rk.shape[0], lk.shape[0], rk.shape[2]):
+        raise AssertionError(f"{name}: routing does not cover the positions")
+    diff = rk != rp
+    n_diff = int(diff.sum())
+    at = diff.any(-1).any(0).nonzero()
+    first = int(at[0]) if len(at) else lk.shape[0]
+    if first == 0:
+        log(f"{name}: a routing choice differs at position 0: no position "
+            f"to hold ({n_diff} differing (layer, position, k) choices)")
+        return n_diff
+    a, b = lk[:first], lp[:first]
+    err = (a - b).abs().max().item()
+    scale = b.abs().max().item()
+    tol = bf16_ulps(4, scale)
+    finite = bool(torch.isfinite(lk).all())
+    after = (lk[first:] - lp[first:]).abs().max().item() \
+        if first < lk.shape[0] else 0.0
+    layers = diff.any(-1).any(-1).nonzero().flatten().tolist()
+    log(f"{name}: kernel vs plain logits max_abs_err {err:.4f} over the "
+        f"{first} of {lk.shape[0]} positions before the first routing "
+        f"difference (max |logit| {scale:.3f}; tol {tol:.4f} = 4 bf16 "
+        f"ulps); {n_diff} (layer, position, k) choices differ, in layers "
+        f"{layers}, from position {first}; max |diff| at and after it "
+        f"{after:.4f} (not held); greedy agreement "
+        f"{(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.4f}")
+    if not finite or err > tol:
+        raise AssertionError(f"{name}: kernel path and plain path disagree")
+    return n_diff
+
+
+def hold_replayed(torch, name, lr, lp):
+    """The kernel path run under the plain run's routing choices
+    (``replay_routing``) against the plain run: every position held to
+    phase 5's rule."""
+    torch.cuda.synchronize()
+    err = (lr - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    tol = bf16_ulps(4, scale)
+    agree = (lr.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    log(f"{name}, the plain run's routing replayed in the kernel path: "
+        f"logits max_abs_err {err:.4f} over all {lr.shape[0]} positions "
+        f"(max |logit| {scale:.3f}; tol {tol:.4f} = 4 bf16 ulps), greedy "
+        f"agreement {agree:.4f}")
+    if not bool(torch.isfinite(lr).all()) or err > tol:
+        raise AssertionError(f"{name}: under the same routing the kernel "
+                             f"path and the plain path disagree")
+
+
+def moe_kernel_cases(torch, timer):
+    """(a): both attention kernels at the MoE models' shapes — head_dim
+    128, qwen3-moe's 64 query heads over 4 KV heads, and mixtral's 32
+    over 8 with its 4096-token window binding — and a 64-token window."""
+    g4 = [h // 16 for h in range(64)]
+    g8 = [h // 4 for h in range(32)]
+    check_paged(torch, timer, "qwen3-moe", paged_case(
+        torch, B=8, H=64, KV=4, D=128, page=64, max_pages=32, P=289,
+        lens=[2048, 1, 1537, 700, 64, 65, 1999, 333], qh2kv=None, seed=12),
+        main=True)
+    # one slot shorter than the window, one exactly at it
+    check_paged(torch, timer, "mixtral-window4096", paged_case(
+        torch, B=8, H=32, KV=8, D=128, page=64, max_pages=96, P=800,
+        lens=[6144, 4097, 5000, 100, 4096, 6000, 1, 4500], qh2kv=None,
+        seed=13), main=True, window=4096)
+    check_paged(torch, timer, "mixtral-window64", paged_case(
+        torch, B=8, H=32, KV=8, D=128, page=64, max_pages=32, P=289,
+        lens=[2048, 65, 64, 63, 1, 700, 1537, 130], qh2kv=None, seed=14),
+        main=False, window=64)
+    check_prefill(torch, timer, "qwen3-moe", Sq=256, Sk=1536, q_offset=1280,
+                  H=64, KV=4, D=128, qh2kv=g4, seed=15, main=True)
+    check_prefill(torch, timer, "mixtral-window4096", Sq=256, Sk=6144,
+                  q_offset=5888, H=32, KV=8, D=128, qh2kv=g8, seed=16,
+                  main=True, window=4096)
+    # the kernel's k_lo tile skip: most key tiles lie before every window
+    check_prefill(torch, timer, "mixtral-window64", Sq=256, Sk=1536,
+                  q_offset=1280, H=32, KV=8, D=128, qh2kv=g8, seed=17,
+                  main=False, window=64)
+
+
+def moe_params(torch, cfg, device):
+    """Random weights from seed 0, drawn on ``device`` (a CPU draw of
+    qwen3-moe's would hold ~35 GB of host memory)."""
+    from repro_torch.models.transformer import init_params
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    n = sum(t.numel() for st in [params] + [v for v in params.values()
+                                            if isinstance(v, dict)]
+            for t in st.values() if isinstance(t, torch.Tensor))
+    log(f"{cfg.name} at {cfg.n_layers} layers: d_model {cfg.d_model}, "
+        f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads, head_dim "
+        f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+        f"d_ff {cfg.moe.d_ff_expert}, capacity factor "
+        f"{cfg.moe.capacity_factor}, vocab {cfg.vocab_size} padded to "
+        f"{cfg.padded_vocab}, window {cfg.sliding_window}; {n / 1e9:.3f} B "
+        f"parameters ({cfg.param_count() / 1e9:.3f} B by param_count), "
+        f"drawn in {time.monotonic() - t0:.1f} s")
+    return params
+
+
+def e2e_qwen3_moe(torch, device="cuda"):
+    """(b): qwen3-moe-235b-a22b at full width (depth cut from 94 to 4
+    layers) served by the launcher's body, its launches counted, and one
+    request teacher-forced through the kernel and plain paths with every
+    routing choice recorded. ``device="cpu"``: a rehearsal at the
+    reduced width."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.layers import (moe_capacity, plain_attention,
+                                           record_routing, replay_routing)
+    cfg = get_config("qwen3-moe-235b-a22b")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, n_layers=4)
+    params = moe_params(torch, cfg, device)
+    log(f"capacity: {moe_capacity(cfg, 8)} of a decode step's 8 rows, "
+        f"{moe_capacity(cfg, 256)} of a 256-token chunk's (mean "
+        f"{256 * cfg.moe.top_k / cfg.moe.n_experts:.0f} an expert)")
+    paged_attention.launches = 0
+    flash_prefill.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    s = serve(cfg, device, params=params, requests=12, max_batch=8,
+              max_new=16, admission="predictive", seed=0, log=log)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_prefill": flash_prefill.launches}
+    log(f"qwen3-moe e2e: {s['completed']}/{s['submitted']} requests "
+        f"completed, {s['new_tokens']} tokens in {s['seconds']:.3f} s, decode "
+        f"{s['decode_tok_s']:.2f} tok/s, TTFT p50 {s['ttft_p50_s'] * 1e3:.2f} "
+        f"ms, TBT p50 {s['tbt_p50_s'] * 1e3:.2f} ms p99 "
+        f"{s['tbt_p99_s'] * 1e3:.2f} ms; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"qwen3-moe e2e launches: paged_attention "
+        f"{launches['paged_attention']} (= {cfg.n_layers} x "
+        f"{s['paged_calls']} paged step calls), flash_prefill "
+        f"{launches['flash_prefill']} (= {cfg.n_layers} x "
+        f"{s['prefill_chunks']} prefill chunks)")
+    if s["submitted"] != 8 or s["completed"] != s["submitted"]:
+        raise AssertionError("qwen3-moe: not every request completed")
+    if launches["paged_attention"] != cfg.n_layers * s["paged_calls"] \
+            or launches["flash_prefill"] != cfg.n_layers * s["prefill_chunks"]:
+        raise AssertionError("qwen3-moe: launches do not match layers x calls")
+    if not (launches["paged_attention"] and launches["flash_prefill"]):
+        raise AssertionError("qwen3-moe: a kernel of the path never launched")
+    for rid, toks, mn, _ in s["payloads"]:
+        out = s["outputs"][rid]
+        if len(out) != mn or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"qwen3-moe request {rid}: bad stream {out}")
+
+    rid, prompt, _, _ = s["payloads"][0]
+    stream = s["outputs"][rid]
+    with record_routing() as rk:
+        lk = teacher_forced(torch, params, cfg, prompt, stream,
+                            all_positions=True)
+    with plain_attention(), record_routing() as rp:
+        lp = teacher_forced(torch, params, cfg, prompt, stream,
+                            all_positions=True)
+    torch.cuda.synchronize()
+    served = lk[len(prompt) - 1:].argmax(-1).cpu().tolist() == stream
+    log(f"qwen3-moe teacher forcing (request {rid}, prompt {len(prompt)}, "
+        f"{len(stream)} served tokens, {lk.shape[0]} positions): kernel "
+        f"argmax == served stream: {served}")
+    n_diff = hold_routed(torch, "qwen3-moe teacher forcing", lk, lp,
+                         routes_by_position(torch, cfg, rk),
+                         routes_by_position(torch, cfg, rp))
+    with replay_routing(rp):
+        lr = teacher_forced(torch, params, cfg, prompt, stream,
+                            all_positions=True)
+    hold_replayed(torch, "qwen3-moe teacher forcing", lr, lp)
+    return dict(launches=launches, routing_differences=n_diff,
+                completed=s["completed"])
+
+
+def e2e_mixtral(torch, device="cuda", prompt_len=5120):
+    """(c): mixtral-8x7b at full width (depth cut from 32 to 2 layers):
+    ``prefill()`` of a prompt longer than the 4096-token window (the
+    window binds in the prefill kernel), its KV staged into pages, and 16
+    paged decode steps (the window binds in the paged kernel), kernel
+    path against plain path; the logits at every prompt position come
+    from one extend of the whole prompt over a linear cache (the same
+    computation as ``prefill()``, which returns the last only).
+    ``device="cpu"``: a rehearsal at the reduced width (a 64-token
+    window, so a shorter ``prompt_len`` still passes it)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.models.layers import (plain_attention, record_routing,
+                                           replay_routing)
+    from repro_torch.models.transformer import (decode_step,
+                                                decode_step_paged,
+                                                init_caches, prefill)
+    from repro_torch.serving.engine import stage_run
+    from repro_torch.serving.paged_cache import DevicePagePool
+    cfg = get_config("mixtral-8x7b")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    steps = 16
+    params = moe_params(torch, cfg, device)
+    prompt = np.random.default_rng(18).integers(0, cfg.vocab_size,
+                                                prompt_len)
+    t = torch.as_tensor(prompt[None].astype("int64"), device=device)
+
+    def run(stream):
+        first, c = prefill(params, t, cfg)
+        lin = init_caches(cfg, 1, prompt_len, window=prompt_len,
+                          device=device)       # linear: wider than the ring
+        every, _ = decode_step(params, t, lin, cfg)
+        rows = list(every[0])
+        if (first[0] - rows[-1]).abs().max().item() > bf16_ulps(
+                4, rows[-1].abs().max().item()):
+            raise AssertionError("mixtral: prefill() and the extend differ")
+        pp = DevicePagePool(cfg, n_pages=2 + -(-(prompt_len + steps) // 64),
+                            page_tokens=64, device=device)
+        pages = stage_run(pp, [], c.kv.k[:, 0], c.kv.v[:, 0], prompt_len)
+        pages += pp.alloc(pp.pages_for(prompt_len + steps) - len(pages))
+        table = torch.tensor([pages], dtype=torch.int32, device=device)
+        tok = int(rows[-1].argmax())
+        out = [tok]
+        for i in range(steps):
+            tk = torch.tensor([[stream[i] if stream else tok]],
+                              dtype=torch.int64, device=device)
+            lens = torch.tensor([prompt_len + i], dtype=torch.int32,
+                                device=device)
+            lg, _, _ = decode_step_paged(params, tk, pp.k_pages, pp.v_pages,
+                                         table, lens, cfg)
+            rows.append(lg[0, -1])
+            tok = int(lg[0, -1].argmax())
+            out.append(tok)
+        return torch.stack(rows), out
+
+    paged_attention.launches = 0
+    flash_prefill.launches = 0
+    with record_routing() as rk:
+        lk, stream = run(None)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_prefill": flash_prefill.launches}
+    log(f"mixtral: prompt {prompt_len} tokens, window {cfg.sliding_window}, "
+        f"{steps} paged steps; launches: flash_prefill "
+        f"{launches['flash_prefill']} (= {cfg.n_layers} x 2: prefill() and "
+        f"the extend), paged_attention {launches['paged_attention']} (= "
+        f"{cfg.n_layers} x {steps})")
+    if launches != {"paged_attention": cfg.n_layers * steps,
+                    "flash_prefill": 2 * cfg.n_layers}:
+        raise AssertionError("mixtral: launches do not match layers x calls")
+    with plain_attention(), record_routing() as rp:
+        lp, _ = run(stream)
+    torch.cuda.synchronize()
+    if paged_attention.launches != launches["paged_attention"] \
+            or flash_prefill.launches != launches["flash_prefill"]:
+        raise AssertionError("mixtral: the plain run launched a kernel")
+    # routing: prefill() and the extend each route every prompt position
+    # once a layer; the holding compares the extend's and the steps'
+    L = cfg.n_layers
+    same = all(torch.equal(a, b) for a, b in zip(rk[:L], rk[L:2 * L]))
+    log(f"mixtral: prefill() and the extend route the prompt alike: {same}")
+    ext_k = rk[L:]
+    ext_p = rp[L:]
+    n_diff = hold_routed(torch, "mixtral teacher forcing", lk, lp,
+                         routes_by_position(torch, cfg, ext_k),
+                         routes_by_position(torch, cfg, ext_p))
+    with replay_routing(rp):
+        lr, _ = run(stream)
+    hold_replayed(torch, "mixtral teacher forcing", lr, lp)
+    return dict(launches=launches, routing_differences=n_diff)
+
+
 
 def main() -> int:
     try:
@@ -1402,6 +1736,17 @@ def main() -> int:
     phase("11 the simulator on H100 prices")
     e2e_simulator(torch, smollm_params, cal, smi)
     del smollm_params
+
+    phase("12 the MoE family: qwen3-moe-235b-a22b and mixtral-8x7b")
+    torch.cuda.empty_cache()
+    moe_kernel_cases(torch, timer)
+    qwen = e2e_qwen3_moe(torch)
+    torch.cuda.empty_cache()
+    mix = e2e_mixtral(torch)
+    log(f"phase 12 launches: qwen3-moe {qwen['launches']}, mixtral "
+        f"{mix['launches']}; routing choices differing kernel vs plain: "
+        f"qwen3-moe {qwen['routing_differences']}, mixtral "
+        f"{mix['routing_differences']}")
 
     kernels = [
         dict(name="paged_attention", route="cuda",

@@ -1,6 +1,6 @@
 """Model configuration for the PyTorch port (own copy of the reference's
-``repro/configs/base.py``, cut to what the ported dense and SSM serving
-paths read).
+``repro/configs/base.py``, cut to what the ported dense, MoE and SSM
+serving paths read).
 
 Derived quantities, as in the reference:
   * ``padded_heads`` — query heads padded up to a multiple of 16
@@ -91,6 +91,20 @@ class ClusterSpec:
 
 
 @dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+    # 'ep': experts sharded over the model axis (requires n_experts % 16 == 0)
+    # 'tp': expert hidden dim sharded over the model axis (few-expert models)
+    # (read by the sharded MoE paths, not ported yet; kept for parity)
+    parallelism: str = "ep"
+    # apply MoE every k-th layer (1 = all layers); others use dense MLP
+    every: int = 1
+
+
+@dataclass(frozen=True)
 class SSMConfig:
     """Mamba2 mixer shape (one B/C group, the only one the reference's
     configs use and the SSD kernel takes)."""
@@ -114,7 +128,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    kind: str  # dense | ssm (the families this package serves so far)
+    kind: str  # dense | moe | ssm (the families this package serves so far)
     n_layers: int
     d_model: int
     n_heads: int
@@ -122,6 +136,7 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 128
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     qk_norm: bool = False
     attn_bias: bool = False
@@ -150,7 +165,7 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Approximate total parameter count — the reference's formula for
-        the dense and SSM families (what the cost model prices); the MoE,
+        the dense, MoE and SSM families (what the cost model prices); the
         hybrid and encoder terms come with those families."""
         d, L = self.d_model, self.n_layers
         n = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
@@ -163,17 +178,32 @@ class ModelConfig:
         per_attn = (d * self.padded_heads * self.head_dim) * 2 \
             + (d * self.n_kv_heads * self.head_dim) * 2
         per_mlp = 3 * d * self.d_ff
-        return n + (per_attn + per_mlp) * L
+        if self.moe is not None:
+            # moe-every-k layers use experts, the rest a dense MLP
+            per_moe = 3 * d * self.moe.d_ff_expert * self.moe.n_experts \
+                + d * self.moe.n_experts
+            n_moe_layers = L // self.moe.every
+            ffn = per_moe * n_moe_layers + per_mlp * (L - n_moe_layers)
+        else:
+            ffn = per_mlp * L
+        return n + per_attn * L + ffn
 
     def active_param_count(self) -> int:
-        """Activated params per token: all of them for dense and SSM."""
-        return self.param_count()
+        """Activated params per token (MoE: the top-k experts only)."""
+        full = self.param_count()
+        if self.moe is None:
+            return full
+        n_moe_layers = self.n_layers // self.moe.every
+        per_expert = 3 * self.d_model * self.moe.d_ff_expert * n_moe_layers
+        return full - per_expert * (self.moe.n_experts - self.moe.top_k)
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant, identical to the reference's ``reduced()``
-        for dense and SSM configs: 2 layers, d_model ≤ 256, 4 query heads
-        (padded to 16), head_dim 32, vocab 512; an SSM mixer shrinks to
-        d_state 16, head_dim 16, chunk 32."""
+        for dense, MoE and SSM configs: 2 layers, d_model ≤ 256, 4 query
+        heads (padded to 16), head_dim 32, vocab 512; MoE shrinks to 4
+        experts, top-2, d_ff_expert 128 at capacity factor 2.0; an SSM
+        mixer to d_state 16, head_dim 16, chunk 32; a sliding window to
+        64."""
         d = min(self.d_model, 256)
         kw: dict = dict(
             name=self.name + "-reduced",
@@ -185,6 +215,13 @@ class ModelConfig:
             d_ff=max(128, d * 2),
             vocab_size=512,
         )
+        if self.moe is not None:
+            # capacity_factor E/k ⇒ cap == T: drop-free routing, so
+            # incremental decode ≡ full prefill exactly (production
+            # configs keep 1.25 — capacity drops are real MoE behaviour)
+            kw["moe"] = dataclasses.replace(
+                self.moe, n_experts=4, top_k=2, d_ff_expert=128,
+                capacity_factor=2.0)
         if self.ssm is not None:
             kw["ssm"] = dataclasses.replace(
                 self.ssm, d_state=16, head_dim=16, chunk=32)
@@ -222,6 +259,7 @@ def _ensure_loaded() -> None:
     if _LOADED:
         return
     import importlib
-    for mod in ("smollm_360m", "qwen2_5_3b", "mamba2_2_7b", "llama2_70b"):
+    for mod in ("qwen3_moe_235b_a22b", "smollm_360m", "qwen2_5_3b",
+                "mixtral_8x7b", "mamba2_2_7b", "llama2_70b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
     _LOADED = True

@@ -1,12 +1,15 @@
 """Where a serving step's time goes on the GPU.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile [--arch mamba2-2.7b]
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        [--arch mamba2-2.7b | qwen3-moe-235b-a22b]
 
-smollm-360m (the default): prefills the launcher's workload (8 requests
-of the generated trace, prompts capped at 1536 tokens) into a full decode
-batch at full width (random weights, seed 0), then, under
-``torch.profiler``, runs five decode steps and five 256-token prefill
-chunks at offset 1280. mamba2-2.7b: prefills the workload's first prompt
+smollm-360m (the default) and qwen3-moe-235b-a22b: prefill the
+launcher's workload (8 requests of the generated trace, prompts capped
+at 1536 tokens) into a full decode batch at full width (random weights,
+seed 0), then, under ``torch.profiler``, run five decode steps and five
+256-token prefill chunks at offset 1280. qwen3-moe runs 4 of its 94
+layers (94 layers are 470 GB of bf16 weights; 4 are 22.4 GB), its
+weights drawn on the card. mamba2-2.7b: prefills the workload's first prompt
 to 1024 tokens at full width, then profiles five 512-token extends from
 that state (what ``StateCheckpointWorker`` runs per block) and five
 one-token decode steps. For each call it prints the host wall time
@@ -17,6 +20,7 @@ took the most device time. GPU only.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import time
 
@@ -35,6 +39,8 @@ from repro_torch.serving.request import ServingRequest
 
 STEPS = 5      # profiled calls of each kind
 TOP = 12       # kernels listed per kind
+# depth of a config too deep for one card (``chip_smoke.py`` phase 12's)
+DEPTH = {"qwen3-moe-235b-a22b": 4}
 
 
 def _kernels(prof) -> list:
@@ -98,14 +104,20 @@ def _profile_ssm(cfg, device) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="smollm-360m",
-                    choices=("smollm-360m", "mamba2-2.7b"))
+                    choices=("smollm-360m", "mamba2-2.7b",
+                             "qwen3-moe-235b-a22b"))
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     cfg = get_config(args.arch)
+    cfg = dataclasses.replace(cfg, n_layers=DEPTH.get(args.arch,
+                                                      cfg.n_layers))
     if cfg.kind == "ssm":
         _profile_ssm(cfg, device)
         return 0
-    params = init_params(cfg, torch.Generator().manual_seed(0), device)
+    # a large model's draw stays on the card (the host copy of qwen3-moe's
+    # fp32 draw would be ~35 GB)
+    gen = torch.Generator(device=device if cfg.moe else "cpu").manual_seed(0)
+    params = init_params(cfg, gen, device)
     pool = HostKVPool()
     pp = DevicePagePool(cfg, n_pages=1 + 9 * (MAX_LEN // 64), page_tokens=64,
                         device=device)
@@ -115,7 +127,8 @@ def main(argv=None) -> int:
     for rid, toks, _, sess in payloads[:8]:
         dw.join(ServingRequest(rid, toks, MAX_LEN - len(toks)), pw(toks))
     lens = [len(t) for _, t, _, _ in payloads[:8]]
-    print(f"{cfg.name}: decode batch of {dw.n_active} slots at depths {lens}; "
+    print(f"{cfg.name} ({cfg.n_layers} layers): decode batch of "
+          f"{dw.n_active} slots at depths {lens}; "
           f"{torch.cuda.get_device_name(0)}")
     _report("decode step (paged, 8 slots)", dw.step, STEPS, TOP)
 

@@ -6,7 +6,10 @@ pair on one GPU.
         [--ssd-blocks 64 --ssd-dir D [--ssd-mode overlap]] [--peer-ssd-dir P]
 
 The counterpart of ``python -m repro.launch.serve`` for what the port
-covers: the reduced model, a ``HostKVPool`` (flat DRAM by default; with
+covers: the reduced model of ``--arch`` (a dense or MoE config of the
+registry: smollm-360m, qwen2.5-3b, llama2-70b, qwen3-moe-235b-a22b,
+mixtral-8x7b; a prompt longer than a windowed model's sliding window is
+refused), a ``HostKVPool`` (flat DRAM by default; with
 ``--ssd-blocks`` a DRAM tier over an SSD tier, file-backed in
 ``--ssd-dir`` and loaded per ``--ssd-mode``), chunked prefill
 (``prefill_chunk=256``) staged into a shared ``DevicePagePool`` (64-token
@@ -225,7 +228,9 @@ def serve(cfg: ModelConfig, device="cuda", *, params=None,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m",
+                    help="a registered dense or MoE config, served at its "
+                         "reduced size (e.g. qwen3-moe-235b-a22b)")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--trace", default=None)
     ap.add_argument("--max-batch", type=int, default=8)

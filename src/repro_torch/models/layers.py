@@ -1,6 +1,7 @@
 """Transformer building blocks in PyTorch (bf16 compute, fp32 reductions)
 — the counterparts of the reference's ``repro/models/layers.py`` for the
-dense serving path.
+dense and MoE serving paths (single device: the reference's expert- and
+tensor-parallel ``shard_map`` MoE paths are not ported).
 
 Attention keeps the reference's numerics on its plain paths (``_attend``:
 fp32 logits, a -1e30 mask, fp32 softmax, probabilities cast to bf16
@@ -34,6 +35,10 @@ NEG_INF = -1e30
 ATTN_CHUNK_Q = 1024
 
 _FORCE_PLAIN = False
+# routing log of ``record_routing()`` and routing script of
+# ``replay_routing()``: None when off
+_ROUTES: Optional[list] = None
+_REPLAY: Optional[list] = None
 
 
 @contextlib.contextmanager
@@ -48,6 +53,37 @@ def plain_attention():
         yield
     finally:
         _FORCE_PLAIN = prev
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Collect the (T, k) expert ids, in choice order, of every
+    ``moe_block`` call made inside (one entry per MoE layer per forward,
+    in call order) — for setting two runs' routing side by side
+    (``dispatched_experts``) or replaying one in the other."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
+
+
+@contextlib.contextmanager
+def replay_routing(routes: list):
+    """Route the ``moe_block`` calls made inside by ``routes`` (what
+    ``record_routing`` collected from a run of the same calls), in call
+    order, instead of by their own top-k; gates come from this run's
+    router. Holds one path's numerics against another's under the same
+    routing choices; never entered on the serving path."""
+    global _REPLAY
+    prev, _REPLAY = _REPLAY, list(routes)
+    try:
+        yield
+        if _REPLAY:
+            raise RuntimeError(f"{len(_REPLAY)} recorded routes not replayed")
+    finally:
+        _REPLAY = prev
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +233,8 @@ def _qkv(x, p, cfg: ModelConfig):
 
 
 def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
-                    cache=None, cache_len=None, kv_out: bool = False,
+                    cache=None, cache_len=None, ring: bool = False,
+                    kv_out: bool = False,
                     window_override: Optional[int] = None):
     """Self-attention sub-block: norm → qkv → rope → attend → out proj.
 
@@ -207,7 +244,10 @@ def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
         Dh)): the S new tokens are written IN PLACE at ``cache_len`` — an
         int (uniform batch: chunked prefill, the causal kernel's runtime
         q_offset) or a (B,) tensor (continuous batching: dense decode) —
-        and the updated cache is returned.
+        and the updated cache is returned;
+      * ``ring``: the cache IS the sliding window (a ring buffer of
+        S_cache slots): one new token per step lands in slot
+        ``cache_len % S_cache`` and attends every filled slot.
     """
     B, S, _ = x.shape
     Hp, KV, Dh = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim
@@ -235,7 +275,19 @@ def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
         positions = (pos + ar)[None, :].expand(B, S)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if per_seq:
+    if ring:
+        assert S == 1, "the ring-buffer cache takes one token per step"
+        slot = pos % k_cache.shape[1]
+        if per_seq:
+            rows = torch.arange(B, device=x.device)
+            k_cache[rows, slot] = k[:, 0]
+            v_cache[rows, slot] = v[:, 0]
+        else:
+            k_cache[:, slot] = k[:, 0]
+            v_cache[:, slot] = v[:, 0]
+        o = decode_attention(q, _expand(k_cache, qh2kv),
+                             _expand(v_cache, qh2kv), pos + 1, window)
+    elif per_seq:
         rows = torch.arange(B, device=x.device)[:, None]
         k_cache[rows, positions] = k
         v_cache[rows, positions] = v
@@ -299,3 +351,103 @@ def mlp_block(x, p, cfg: ModelConfig):
     gate = F.silu(h @ p["w1"])
     up = h @ p["w3"]
     return (gate * up) @ p["w2"]
+
+
+# ---------------------------------------------------------------------------
+# MoE (single device: the reference's ``_moe_dispatch_compute`` path)
+# ---------------------------------------------------------------------------
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``jax.lax.top_k``: the k largest in descending order, the lower
+    index first among equal values (a stable descending sort; bare
+    ``torch.topk`` breaks ties its own way)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch_indices(gates_idx, n_experts: int, capacity: int):
+    """gates_idx (T, k) expert ids → flat slot ids (T*k,) into an
+    (E*C [+1 overflow]) buffer, in the flat (T, k) order; slot E*C means
+    'dropped'."""
+    flat_e = gates_idx.reshape(-1).long()
+    oh = F.one_hot(flat_e, n_experts)                        # (Tk, E)
+    pos = torch.cumsum(oh, dim=0) - oh
+    pos_e = torch.sum(pos * oh, dim=-1)     # position within its expert
+    slot = flat_e * capacity + pos_e
+    return torch.where(pos_e < capacity, slot, n_experts * capacity)
+
+
+def _expert_ffn(buf, w1, w2, w3):
+    """buf (E, C, D); w1, w3 (E, D, F), w2 (E, F, D) → (E, C, D)."""
+    gate = F.silu(torch.bmm(buf, w1))
+    up = torch.bmm(buf, w3)
+    return torch.bmm(gate * up, w2)
+
+
+def _route(xf, router_w, top_k: int):
+    logits = (xf @ router_w).float()                          # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    if _REPLAY is not None:
+        idx = _REPLAY.pop(0).to(probs.device)
+        if idx.shape != (probs.shape[0], top_k):
+            raise RuntimeError(f"replayed routes {tuple(idx.shape)} do not "
+                               f"fit {probs.shape[0]} rows of top-{top_k}")
+        gates = torch.gather(probs, -1, idx)
+    else:
+        gates, idx = _top_k(probs, top_k)                     # (T, k)
+    if _ROUTES is not None:
+        _ROUTES.append(idx.clone())
+    gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+    # load-balance aux loss (Switch-style): E * mean(f_e * p_e)
+    E = router_w.shape[-1]
+    me = torch.mean(probs, dim=0)
+    ce = torch.mean(F.one_hot(idx[:, 0], E).float(), dim=0)
+    aux = E * torch.sum(me * ce)
+    return gates.to(xf.dtype), idx, aux
+
+
+def _moe_dispatch_compute(xf, router_w, w1, w2, w3, top_k: int,
+                          capacity: int):
+    """Capacity-routed MoE on a flat token slab (T, D) → (y, aux). Kept
+    rows are written to their unique slots by index (dropped ones to the
+    overflow row, discarded); a dropped choice reads the zero row back."""
+    T, D = xf.shape
+    E = router_w.shape[-1]
+    gates, idx, aux = _route(xf, router_w, top_k)
+    slot = _dispatch_indices(idx, E, capacity)                # (T*k,)
+    buf = xf.new_zeros((E * capacity + 1, D))
+    buf[slot] = xf.repeat_interleave(top_k, dim=0)
+    out = _expert_ffn(buf[:-1].view(E, capacity, D), w1, w2, w3)
+    out_flat = torch.cat([out.reshape(E * capacity, D), xf.new_zeros((1, D))])
+    y = out_flat[slot].view(T, top_k, D)
+    return torch.sum(y * gates[:, :, None], dim=1), aux
+
+
+def moe_capacity(cfg: ModelConfig, n_tokens: int) -> int:
+    """Expert capacity for a slab of ``n_tokens`` rows (the reference's
+    ``cap_of``, in its float order)."""
+    moe = cfg.moe
+    return max(int(n_tokens * moe.top_k / moe.n_experts
+                   * moe.capacity_factor + 0.999), moe.top_k)
+
+
+def dispatched_experts(cfg: ModelConfig, idx: torch.Tensor) -> torch.Tensor:
+    """The (T, k) expert ids of one ``moe_block`` call over T rows → the
+    experts that computed each row, ascending, a choice dropped at the
+    call's capacity as -1."""
+    E, C = cfg.moe.n_experts, moe_capacity(cfg, idx.shape[0])
+    slot = _dispatch_indices(idx, E, C).view(idx.shape)
+    return torch.where(slot < E * C, idx, -1).sort(dim=-1).values
+
+
+def moe_block(x, p, cfg: ModelConfig):
+    """x (B, S, D) → (y, aux loss). Every row handed over takes part in
+    the routing — a paged step's idle slots too — and the capacity is
+    that of all B·S rows."""
+    B, S, D = x.shape
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    T = B * S
+    y, aux = _moe_dispatch_compute(
+        h.reshape(T, D), p["router"], p["w1"], p["w2"], p["w3"],
+        cfg.moe.top_k, moe_capacity(cfg, T))
+    return y.reshape(B, S, D), aux

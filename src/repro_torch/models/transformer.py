@@ -1,6 +1,6 @@
 """Model assembly in PyTorch — the counterpart of the reference's
-``repro/models/transformer.py`` for uniform dense stacks and pure SSM
-(Mamba2) stacks (the MoE, hybrid and encoder families are not ported
+``repro/models/transformer.py`` for uniform dense and MoE stacks and pure
+SSM (Mamba2) stacks (the hybrid and encoder families are not ported
 yet).
 
 Parameters are a plain dict of tensors stacked on a leading layer axis,
@@ -10,9 +10,11 @@ layers is a Python loop here. Forward modes:
   * ``prefill``           — full sequence, last-position logits + KV;
   * ``decode_step``       — a few tokens against preallocated linear
                             caches (chunked-prefill extend at an int
-                            length, or per-slot decode at a (B,) length); for
-                            an SSM stack a chunk continuation or a
-                            one-token step from the carried state;
+                            length, or per-slot decode at a (B,) length),
+                            or one token into a sliding-window ring cache
+                            (``ring=True``); for an SSM stack a chunk
+                            continuation or a one-token step from the
+                            carried state;
   * ``decode_step_paged`` — one continuous-batching token per slot over
                             the shared paged KV store (attention only).
 KV caches and page slabs are updated in place; an SSM state is replaced
@@ -27,7 +29,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (DTYPE, attention_block, mlp_block,
-                                       paged_attention_block, rms_norm)
+                                       moe_block, paged_attention_block,
+                                       rms_norm)
 from repro_torch.models.mamba import MambaState, mamba_block
 
 
@@ -92,6 +95,27 @@ def _init_mlp(gen, cfg: ModelConfig, L: int) -> dict:
     )
 
 
+def _norm_per_layer(gen: torch.Generator, shape, scale: float):
+    """``_norm`` drawn one layer at a time: the fp32 draw of a whole
+    expert stack (qwen3-moe's w1 at 4 layers: 12.9 GB) never exists."""
+    out = torch.empty(shape, dtype=DTYPE, device=gen.device)
+    for l in range(shape[0]):
+        out[l] = _norm(gen, shape[1:], scale)
+    return out
+
+
+def _init_moe(gen, cfg: ModelConfig, L: int) -> dict:
+    D, E, F = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert
+    s = (2.0 / (D + F)) ** 0.5
+    return dict(
+        ln=torch.ones((L, D), dtype=DTYPE, device=gen.device),
+        router=_norm(gen, (L, D, E), D ** -0.5),
+        w1=_norm_per_layer(gen, (L, E, D, F), s),
+        w2=_norm_per_layer(gen, (L, E, F, D), s),
+        w3=_norm_per_layer(gen, (L, E, D, F), s),
+    )
+
+
 def _init_mamba(gen, cfg: ModelConfig, L: int) -> dict:
     s_cfg = cfg.ssm
     D = cfg.d_model
@@ -114,12 +138,13 @@ def _init_mamba(gen, cfg: ModelConfig, L: int) -> dict:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
-    """Stacked parameter dict for a dense or SSM model: the reference's
-    shapes and scales (``_init_attn``/``_init_mlp``/``_init_mamba``),
-    drawn from ``generator`` (on its own device) and moved to
-    ``device``."""
+    """Stacked parameter dict for a dense, MoE or SSM model: the
+    reference's shapes and scales (``_init_attn``/``_init_mlp``/
+    ``_init_moe``/``_init_mamba``), drawn from ``generator`` (on its own
+    device: a CUDA generator keeps a large model's draw off the host) and
+    moved to ``device``."""
     device = resolve_device(device)
-    if cfg.kind not in ("dense", "ssm"):
+    if cfg.kind not in ("dense", "moe", "ssm"):
         raise NotImplementedError(f"{cfg.kind} models are not ported yet")
     D, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     params: dict = {
@@ -132,8 +157,16 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["mamba"] = _init_mamba(generator, cfg, L)
     else:
         params["attn"] = _init_attn(generator, cfg, L)
-        params["mlp"] = _init_mlp(generator, cfg, L)
+        if _use_moe(cfg):
+            params["moe"] = _init_moe(generator, cfg, L)
+        else:
+            params["mlp"] = _init_mlp(generator, cfg, L)
     return _to(params, device)
+
+
+def _use_moe(cfg: ModelConfig) -> bool:
+    """Experts in every layer (the uniform MoE stack)."""
+    return cfg.moe is not None and cfg.moe.every == 1
 
 
 def _to(tree, device):
@@ -151,9 +184,12 @@ def _layer(stack: dict, l: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                device="cuda") -> Caches:
+                window: int = 0, device="cuda") -> Caches:
     """Preallocated decode caches: stacked KV for an attention stack, a
-    zero stacked Mamba2 state for an SSM stack."""
+    zero stacked Mamba2 state for an SSM stack. ``window`` > 0 — and, as
+    in the reference, a windowed model's ``sliding_window`` when it is 0
+    — bounds the KV cache to that many slots (the ring buffer of
+    sliding-window decode)."""
     device = resolve_device(device)
     if cfg.kind == "ssm":
         s = cfg.ssm
@@ -165,8 +201,9 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
                               s.conv_channels(cfg.d_model)), dtype=DTYPE,
                              device=device))
         return Caches(kv=None, length=0, ssm=ssm)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
-             cfg.head_dim)
+    eff_window = window or cfg.sliding_window
+    S = min(max_len, eff_window) if eff_window else max_len
+    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
     return Caches(kv=KVCache(k=torch.zeros(shape, dtype=DTYPE, device=device),
                              v=torch.zeros(shape, dtype=DTYPE, device=device)),
                   length=0)
@@ -201,10 +238,20 @@ def _ssm_stack(params, x, cfg: ModelConfig, caches):
     return x, MambaState(ssm=torch.stack(ssms), conv=torch.stack(convs))
 
 
+def _ffn(x, p, cfg: ModelConfig, use_moe: bool):
+    """The layer's FFN sub-block → (y, aux loss)."""
+    if use_moe:
+        return moe_block(x, p, cfg)
+    return mlp_block(x, p, cfg), 0.0
+
+
 def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
-                   caches, q_offset: int, window_override):
-    """One attention + MLP block per layer; returns (x, per-layer kv)."""
-    kvs = []
+                   caches, q_offset: int, ring: bool, window_override):
+    """One attention + FFN (MLP or MoE) block per layer; returns (x, the
+    summed MoE aux loss, per-layer kv)."""
+    use_moe = _use_moe(cfg)
+    p_f = params["moe"] if use_moe else params["mlp"]
+    kvs, aux = [], 0.0
     for l in range(cfg.n_layers):
         p_a = _layer(params["attn"], l)
         if mode == "prefill":
@@ -214,11 +261,14 @@ def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
         else:
             y, kv = attention_block(
                 x, p_a, cfg, cache=(caches.kv.k[l], caches.kv.v[l]),
-                cache_len=caches.length, window_override=window_override)
+                cache_len=caches.length, ring=ring,
+                window_override=window_override)
         x = x + y
-        x = x + mlp_block(x, _layer(params["mlp"], l), cfg)
+        y, a = _ffn(x, _layer(p_f, l), cfg, use_moe)
+        x = x + y
+        aux = aux + a
         kvs.append(kv)
-    return x, kvs
+    return x, aux, kvs
 
 
 def prefill(params, tokens, cfg: ModelConfig, *, q_offset: int = 0,
@@ -232,9 +282,9 @@ def prefill(params, tokens, cfg: ModelConfig, *, q_offset: int = 0,
         logits = _logits_at(params, h[:, -1:, :], cfg)[:, 0]
         return logits, Caches(kv=None, length=q_offset + tokens.shape[1],
                               ssm=ssm)
-    h, kvs = _uniform_stack(params, x, cfg, mode="prefill", caches=None,
-                            q_offset=q_offset,
-                            window_override=window_override)
+    h, _, kvs = _uniform_stack(params, x, cfg, mode="prefill", caches=None,
+                               q_offset=q_offset, ring=False,
+                               window_override=window_override)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = _logits_at(params, h[:, -1:, :], cfg)[:, 0]
     kv = KVCache(k=torch.stack([k for k, _ in kvs]),
@@ -243,17 +293,19 @@ def prefill(params, tokens, cfg: ModelConfig, *, q_offset: int = 0,
 
 
 def decode_step(params, tokens, caches: Caches, cfg: ModelConfig, *,
-                window_override=None):
+                ring: bool = False, window_override=None):
     """tokens (B, S) against preallocated caches (KV written in place; an
     SSM state continues from ``caches.ssm`` and is returned anew).
+    ``ring``: the KV cache is a sliding-window ring buffer (S = 1).
     Returns (logits (B, S, V) fp32, caches with the length advanced)."""
     x = _embed(params, tokens, cfg)
     ssm = caches.ssm
     if cfg.kind == "ssm":
         h, ssm = _ssm_stack(params, x, cfg, caches)
     else:
-        h, _ = _uniform_stack(params, x, cfg, mode="decode", caches=caches,
-                              q_offset=0, window_override=window_override)
+        h, _, _ = _uniform_stack(params, x, cfg, mode="decode",
+                                 caches=caches, q_offset=0, ring=ring,
+                                 window_override=window_override)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = _logits_at(params, h, cfg)
     return logits, Caches(kv=caches.kv, length=caches.length + tokens.shape[1],
@@ -268,13 +320,15 @@ def decode_step_paged(params, tokens, k_pages, v_pages, block_table,
     block_table (B, max_pages) int32 (0-padded with the null page);
     seq_lens (B,) int32 tokens already written per slot. Returns
     (logits (B, 1, V) fp32, k_pages, v_pages)."""
+    use_moe = _use_moe(cfg)
+    p_f = params["moe"] if use_moe else params["mlp"]
     x = _embed(params, tokens, cfg)
     for l in range(cfg.n_layers):
         x = x + paged_attention_block(
             x, _layer(params["attn"], l), cfg, k_pages=k_pages[l],
             v_pages=v_pages[l], block_table=block_table, seq_lens=seq_lens,
             window_override=window_override)
-        x = x + mlp_block(x, _layer(params["mlp"], l), cfg)
+        x = x + _ffn(x, _layer(p_f, l), cfg, use_moe)[0]
     h = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return _logits_at(params, h, cfg), k_pages, v_pages
 

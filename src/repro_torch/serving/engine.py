@@ -849,6 +849,19 @@ class PrefillWorker:
         return out
 
     def start(self, tokens: np.ndarray, session=None) -> ChunkedPrefill:
+        window = self.cfg.sliding_window
+        if window and len(tokens) > window:
+            # the reference bounds this prefill's cache to the window
+            # (init_caches' eff_window) and then raises on a chunk wider
+            # than the window or, chunk by chunk, silently clamps the
+            # write offset: refuse instead
+            raise ValueError(
+                f"a {len(tokens)}-token prompt is longer than "
+                f"{self.cfg.name}'s {window}-token sliding window; the "
+                f"reference's "
+                f"PrefillWorker writes it into a window-sized cache (an "
+                f"error for chunks wider than the window, a silent clamp "
+                f"for narrower ones), so the port refuses it")
         return ChunkedPrefill(self, tokens, session=session)
 
     def __call__(self, tokens: np.ndarray, session=None) -> PrefillResult:
@@ -1119,6 +1132,17 @@ class DecodeWorker:
                  page_tokens: int = 64, width_buckets: int = 1) -> None:
         if substrate not in ("paged", "dense"):
             raise ValueError(f"unknown decode substrate {substrate!r}")
+        if substrate == "dense" and cfg.sliding_window \
+                and max_len > cfg.sliding_window:
+            # the reference's dense arena is window-sized (init_caches'
+            # eff_window): a slot past the window would have its writes
+            # silently clamped to the last slot
+            raise ValueError(
+                f"dense decode of {cfg.name} with max_len {max_len} past "
+                f"its {cfg.sliding_window}-token sliding window: the "
+                f"reference's window-sized arena silently clamps writes "
+                f"past the window, so the port refuses it — decode on the "
+                f"paged substrate")
         if cfg.kind == "ssm":
             # the reference's dense join copies KV only and would leave a
             # joined slot's SSM state at zero; refuse rather than decode

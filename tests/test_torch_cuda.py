@@ -393,6 +393,62 @@ def test_mamba_kernel_path_matches_plain_path(cuda):
         1.0, plain.abs().max().item())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("capacity_factor", [2.0, 1.25])
+def test_moe_block_on_the_card_matches_the_cpu(cuda, capacity_factor):
+    """qwen3-moe-235b-a22b.reduced()'s moe_block on the card against the
+    same call on the CPU (reduced: capacity factor 2.0, drop-free; 1.25:
+    an expert overflows). Every row dispatched to the same experts on
+    both, except rows whose CPU router logits leave no more than one
+    bf16 ulp between the k-th and the (k+1)-th expert (and rows an
+    upstream flip pushed past the capacity); y within 2e-2 on the rows
+    dispatched alike."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.layers import (dispatched_experts, moe_block,
+                                           record_routing, rms_norm)
+    from repro_torch.models.transformer import init_params
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+    p = {k: t[0] for k, t in init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")["moe"].items()}
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 128, cfg.d_model)).astype(
+        np.float32))
+    r0 = p["router"][:, 0].float()
+    x = (x + 0.5 * r0 / r0.norm() * cfg.d_model ** 0.5).bfloat16()  # → e0
+    with record_routing() as r_cpu:
+        y_cpu, aux_cpu = moe_block(x, p, cfg)
+    with record_routing() as r_gpu:
+        y_gpu, aux_gpu = moe_block(x.to(cuda), {k: t.to(cuda)
+                                                for k, t in p.items()}, cfg)
+    torch.cuda.synchronize()
+    d_cpu = dispatched_experts(cfg, r_cpu[0])
+    d_gpu = dispatched_experts(cfg, r_gpu[0].cpu())
+    k = cfg.moe.top_k
+    h = rms_norm(x, p["ln"], cfg.norm_eps).reshape(-1, cfg.d_model)
+    lg = torch.sort((h @ p["router"]).float(), dim=-1).values
+    kth, nxt = lg[:, -k], lg[:, -k - 1]
+    ulp = 2.0 ** (torch.floor(torch.log2(kth.abs().clamp(min=1e-30))) - 7)
+    near = (kth - nxt) <= ulp
+    same = (d_cpu == d_gpu).all(-1)
+    assert bool((d_cpu == -1).any()) == (capacity_factor < 2.0)
+    if bool(near.any()):
+        # a flip may move later rows past the capacity
+        first = int(near.nonzero()[0])
+        assert bool(same[:first].all())
+    else:
+        assert bool(same.all())
+        assert abs(float(aux_gpu) - float(aux_cpu)) <= 2e-5 * max(
+            1.0, abs(float(aux_cpu)))
+    keep = same.reshape(x.shape[:2])
+    assert keep.float().mean() > 0.9
+    np.testing.assert_allclose(y_gpu.float().cpu()[keep].numpy(),
+                               y_cpu.float()[keep].numpy(), atol=TOL,
+                               rtol=TOL)
+
+
 # B, Sq, Sk, H, KV, D, offset, window, forced key splits
 FLASH_SPLIT_CASES = [
     (1, 256, 256, 4, 2, 64, 0, 0, 5),      # q_offset 0: splits empty for

@@ -5,7 +5,11 @@ per-slot path and the paged path, and the greedy rule (tokens equal
 wherever the reference's top-1/top-2 gap exceeds 4e-2; near-ties are
 counted and reported). Plus the port's own exactness properties:
 chunked prefill equals one-shot prefill, paged equals dense, and the
-weight bridge and ``init_params`` layout.
+weight bridge and ``init_params`` layout. The MoE configs run at their
+reduced size, which is drop-free (capacity = every row); a windowed
+config (mixtral-8x7b: a 64-token window at reduced size, shorter than
+the first prompt) decodes its dense run through the sliding-window ring
+cache, the reference's only dense path for prompts past the window.
 
 Logits agree within 2e-2 of the logit scale (max |logit|, at least 1):
 both sides round logits to bf16, whose ulp at the largest logits here
@@ -34,7 +38,9 @@ PAGE = 16
 PROMPTS = (70, 37)           # two slots at different depths
 
 
-@pytest.fixture(scope="module", params=["smollm-360m", "qwen2.5-3b"])
+@pytest.fixture(scope="module", params=["smollm-360m", "qwen2.5-3b",
+                                        "qwen3-moe-235b-a22b",
+                                        "mixtral-8x7b"])
 def model(request):
     jcfg = jax_config(request.param).reduced()
     cfg = get_config(request.param).reduced()
@@ -62,9 +68,19 @@ def _greedy_rule(ref: np.ndarray, port: np.ndarray) -> int:
     return int((~decisive).sum())
 
 
+def _ring_fill(cache, b, kv, n):
+    """Write a prompt's n positions of KV into slot b of a (L, B, S, ...)
+    cache: position t at t % S, the last S positions only (the whole
+    prompt when S ≥ n: a linear cache)."""
+    S = cache.shape[2]
+    for t in range(max(n - S, 0), n):
+        cache[:, b, t % S] = kv[:, t]
+
+
 def _jax_run(jcfg, jp, prompts, forced, paged: bool):
     """Reference: prefill each prompt, then STEPS teacher-forced decode
-    steps of the 2-slot batch. Returns first-token and per-step logits."""
+    steps of the 2-slot batch (a windowed config's dense run through its
+    ring cache). Returns first-token and per-step logits."""
     firsts, kvs = [], []
     for p in prompts:
         lg, c = JT.prefill(jp, jnp.asarray(p[None]), jcfg)
@@ -101,18 +117,24 @@ def _jax_run(jcfg, jp, prompts, forced, paged: bool):
         k, v = np.zeros(c.kv.k.shape, np.float32), np.zeros(c.kv.v.shape,
                                                             np.float32)
         for b, (kb, vb) in enumerate(kvs):
-            k[:, b, :kb.shape[1]], v[:, b, :vb.shape[1]] = kb, vb
+            _ring_fill(k, b, kb, kb.shape[1])
+            _ring_fill(v, b, vb, vb.shape[1])
         c = c._replace(kv=JT.KVCache(jnp.asarray(k, jnp.bfloat16),
                                      jnp.asarray(v, jnp.bfloat16)),
                        length=jnp.asarray(lens))
-        step = jax.jit(lambda t, c: JT.decode_step(jp, t, c, jcfg))
+        ring = bool(jcfg.sliding_window)
+        step = jax.jit(lambda t, c: JT.decode_step(jp, t, c, jcfg,
+                                                   ring=ring))
         for s in range(STEPS):
             lg, c = step(jnp.asarray(forced[:, s:s + 1]), c)
             steps.append(np.asarray(lg[:, 0]))
     return np.stack(firsts), np.stack(steps)
 
 
-def _port_run(cfg, tp, prompts, forced, paged: bool):
+def _port_run(cfg, tp, prompts, forced, paged: bool, ring: bool = False):
+    """The port's run of ``_jax_run``; the dense run of a windowed config
+    goes through the ring cache with ``ring``, else through a linear
+    cache of the whole length (window-masked)."""
     firsts, kvs = [], []
     for p in prompts:
         lg, c = TT.prefill(tp, torch.from_numpy(p[None]), cfg)
@@ -141,12 +163,14 @@ def _port_run(cfg, tp, prompts, forced, paged: bool):
                                             table, lens + s, cfg)
             steps.append(lg[:, 0])
     else:
-        c = TT.init_caches(cfg, B, max_len, device="cpu")
+        c = TT.init_caches(cfg, B, max_len, window=0 if ring else max_len,
+                           device="cpu")
         for b, (k, v) in enumerate(kvs):
-            c.kv.k[:, b, :k.shape[1]], c.kv.v[:, b, :v.shape[1]] = k, v
+            _ring_fill(c.kv.k, b, k, k.shape[1])
+            _ring_fill(c.kv.v, b, v, v.shape[1])
         c = c._replace(length=lens.clone())
         for s in range(STEPS):
-            lg, c = TT.decode_step(tp, tokens[:, s:s + 1], c, cfg)
+            lg, c = TT.decode_step(tp, tokens[:, s:s + 1], c, cfg, ring=ring)
             steps.append(lg[:, 0])
     return torch.stack(firsts), torch.stack(steps)
 
@@ -156,7 +180,8 @@ def test_prefill_and_teacher_forced_decode_match_reference(model, paged,
                                                            record_property):
     jcfg, cfg, jp, tp, prompts, forced = model
     jf, js = _jax_run(jcfg, jp, prompts, forced, paged)
-    tf, ts = _port_run(cfg, tp, prompts, forced, paged)
+    tf, ts = _port_run(cfg, tp, prompts, forced, paged,
+                       ring=bool(cfg.sliding_window))
     _close_logits(tf, jf, "first token")
     for s in range(STEPS):
         _close_logits(ts[s], js[s], f"decode step {s}")
@@ -178,7 +203,9 @@ def test_chunked_prefill_equals_one_shot(model):
     _, cfg, _, tp, prompts, _ = model
     p = torch.from_numpy(prompts[0][None])
     one, c1 = TT.prefill(tp, p, cfg)
-    c = TT.init_caches(cfg, 1, p.shape[1], device="cpu")
+    # a linear cache of the whole prompt (window=: wider than a windowed
+    # config's ring)
+    c = TT.init_caches(cfg, 1, p.shape[1], window=p.shape[1], device="cpu")
     for lo in range(0, p.shape[1], 32):
         lg, c = TT.decode_step(tp, p[:, lo:lo + 32], c, cfg)
     assert c.length == p.shape[1]
@@ -209,7 +236,8 @@ def test_init_params_matches_reference_layout(model):
     pad_cols = tp["attn"]["wq"][:, :, cfg.n_heads * Dh:Hp * Dh]
     assert pad_cols.abs().max() == 0                      # padded heads: q=0
     assert tp["attn"]["wq"][:, :, :cfg.n_heads * Dh].abs().max() > 0
-    n_port = sum(t.numel() for stack in (tp, tp["attn"], tp["mlp"])
+    stacks = [tp] + [v for v in tp.values() if isinstance(v, dict)]
+    n_port = sum(t.numel() for stack in stacks
                  for t in stack.values() if isinstance(t, torch.Tensor))
     assert n_port == sum(a.size for a in jax.tree.leaves(jp))
 

@@ -6,7 +6,10 @@ near-tie, counted and reported); then the port's own exactness
 properties — a preempted stream restored by reload and by recompute
 equals one never preempted, the bucketed step equals the full step,
 paged equals dense — and the host-side pool, admission and launcher
-pieces."""
+pieces. The loop parity and the exactness properties run again for
+qwen3-moe-235b-a22b at its reduced size, which is drop-free (capacity =
+every row), so a row's tokens do not depend on the rows beside it, as in
+the reference's own claims."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -42,15 +45,25 @@ torch.set_num_threads(1)
 
 GAP = 4e-2
 ARCH = "smollm-360m"
+MOE_ARCH = "qwen3-moe-235b-a22b"
+
+
+def _weights(arch):
+    jcfg = jax_config(arch).reduced()
+    cfg = get_config(arch).reduced()
+    jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    return jcfg, cfg, jp, tp
 
 
 @pytest.fixture(scope="module")
 def weights():
-    jcfg = jax_config(ARCH).reduced()
-    cfg = get_config(ARCH).reduced()
-    jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
-    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
-    return jcfg, cfg, jp, tp
+    return _weights(ARCH)
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    return _weights(MOE_ARCH)
 
 
 def _jax_payloads(n, vocab, max_new):
@@ -80,6 +93,14 @@ def _run_loop(loop_cls, req_cls, pws, dw, payloads):
 
 
 def test_serving_loop_matches_reference(weights, record_property):
+    _loop_matches_reference(weights, record_property)
+
+
+def test_moe_serving_loop_matches_reference(moe_weights, record_property):
+    _loop_matches_reference(moe_weights, record_property)
+
+
+def _loop_matches_reference(weights, record_property):
     jcfg, cfg, jp, tp = weights
     payloads = make_payloads(6, cfg.vocab_size, max_new=12, seed=0)[:3]
     ref_payloads = _jax_payloads(6, jcfg.vocab_size, 12)[:3]
@@ -101,7 +122,7 @@ def test_serving_loop_matches_reference(weights, record_property):
         DecodeWorker(tp, cfg, max_batch=4, max_len=2048, page_pool=pp),
         payloads)
     assert stats["completed"] == len(payloads)
-    ties = 0
+    ties = flips = 0
     for rid, prompt, mn, _ in payloads:
         r, p = ref[rid], port[rid]
         assert len(r) == len(p) == mn
@@ -112,11 +133,24 @@ def test_serving_loop_matches_reference(weights, record_property):
         ctx = np.concatenate([prompt, np.asarray(r[:i], np.int32)])
         logits, _ = JT.prefill(jp, jnp.asarray(ctx[None]), jcfg)
         top2 = np.sort(np.asarray(logits[0]))[-2:]
-        assert top2[1] - top2[0] <= GAP, (rid, i, top2)
-        ties += 1
+        if top2[1] - top2[0] <= GAP:
+            ties += 1
+            continue
+        # ... or, for MoE, a routing choice the reference itself makes
+        # differently compiled and op by op: under jit XLA keeps the bf16
+        # router product in fp32, so an expert pair a few bf16 ulps apart
+        # can swap. Then the reference run op by op — the numerics its
+        # code states, which the port follows — picks the port's token.
+        assert cfg.moe is not None, (rid, i, top2)
+        with jax.disable_jit():
+            eager, _ = JT.prefill(jp, jnp.asarray(ctx[None]), jcfg)
+        assert int(np.argmax(np.asarray(eager[0]))) == p[i], (rid, i, top2)
+        flips += 1
     record_property("near_ties_skipped", ties)
-    print(f"serving: {ties} of {len(payloads)} streams diverged at a "
-          f"near-tie")
+    record_property("compiled_routing_flips", flips)
+    print(f"serving {cfg.name}: {ties} of {len(payloads)} streams diverged "
+          f"at a near-tie, {flips} at a routing choice the reference's "
+          f"compiled run makes differently from its op-by-op run")
     pp.check_leaks()
 
 
@@ -155,6 +189,15 @@ def test_preempted_stream_restores_exactly(weights, restore_mode):
     """Tight pool + full batch: a high-priority arrival spills the
     low-priority victim, which restores (by reload or by recompute) and
     completes; every stream equals the never-preempted oracle."""
+    _preempted_restores_exactly(weights, restore_mode)
+
+
+@pytest.mark.parametrize("restore_mode", ["reload", "recompute"])
+def test_moe_preempted_stream_restores_exactly(moe_weights, restore_mode):
+    _preempted_restores_exactly(moe_weights, restore_mode)
+
+
+def _preempted_restores_exactly(weights, restore_mode):
     _, cfg, _, tp = weights
     pws, dw, pp, pool = _mk(cfg, tp, max_batch=1, max_len=640, n_pages=17)
     loop = ServingLoop(pws, dw, chunks_per_iter=2, max_queue=16,
@@ -197,6 +240,14 @@ def _batch_streams(cfg, tp, **dw_kw):
 
 
 def test_bucketed_step_equals_full_step(weights):
+    _bucketed_equals_full(weights)
+
+
+def test_moe_bucketed_step_equals_full_step(moe_weights):
+    _bucketed_equals_full(moe_weights)
+
+
+def _bucketed_equals_full(weights):
     _, cfg, _, tp = weights
     full, _ = _batch_streams(cfg, tp)
     bucketed, dw = _batch_streams(cfg, tp, width_buckets=4)
@@ -205,6 +256,14 @@ def test_bucketed_step_equals_full_step(weights):
 
 
 def test_paged_substrate_equals_dense_substrate(weights):
+    _paged_equals_dense(weights)
+
+
+def test_moe_paged_substrate_equals_dense_substrate(moe_weights):
+    _paged_equals_dense(moe_weights)
+
+
+def _paged_equals_dense(weights):
     _, cfg, _, tp = weights
     paged, _ = _batch_streams(cfg, tp)
     dense, dw = _batch_streams(cfg, tp, substrate="dense")
@@ -297,7 +356,15 @@ def test_plan_restore_and_admission_policies():
 
 
 def test_launcher_body_serves_on_cpu():
-    cfg = get_config(ARCH).reduced()
+    _launcher_serves(ARCH)
+
+
+def test_moe_launcher_body_serves_on_cpu():
+    _launcher_serves(MOE_ARCH)
+
+
+def _launcher_serves(arch):
+    cfg = get_config(arch).reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     s = serve(cfg, "cpu", params=params, requests=12, max_batch=4,
               log=lambda m: None)
