@@ -90,7 +90,26 @@ Phases, each printed as it runs; any failure exits non-zero:
      where the experts that computed it differ, and at every position
      with the plain run's routing replayed in the kernel path; (c)
      mixtral-8x7b at full width, 2 of 32 layers: a 5,120-token prompt
-     through prefill() and 16 paged decode steps, held the same way.
+     through prefill() and 16 paged decode steps, held the same way;
+ 13. the remaining families: (a) the kernels at their new shapes, each
+     against its plain version, timed beside its bound, plain version
+     and SDPA — flash_prefill at whisper's decoder prompt (32 heads
+     padded over 20 KV, head_dim 64), at internvl2's prefill (256
+     patches + a 256-token prompt, 48 over 8) and at qwen3-14b's chunk
+     (48 padded over 8), paged_attention at qwen3-14b's decode, ssd_scan
+     at jamba's mixer (256 heads, p 64, d_state 64, 1,024 tokens); (b)
+     whisper-large-v3 at full width and depth: prefill(frames=) of four
+     1500-frame stub inputs and a 64-token prompt, 64 greedy
+     decode_steps, the encoder's share of the run, teacher-forced
+     through the plain path; (c) internvl2-26b at full width and depth:
+     prefill(patches=) of 256 stub patches and a 256-token prompt, 16
+     greedy steps, teacher-forced, peak memory; (d) qwen3-14b at full
+     width and depth served by the launcher's body (phase 5's workload),
+     launches counted, one request teacher-forced; (e) jamba-1.5-large's
+     hybrid stack at reduced width (one full-width period, 90 GB of
+     bf16, exceeds the card): prefill(), an extend of the whole prompt
+     and 16 steps, the kernel path under the plain run's MoE routing
+     held at every position.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -513,6 +532,40 @@ def bf16_ulps(n: int, scale: float) -> float:
     return n * 2.0 ** (math.floor(math.log2(scale)) - 7)
 
 
+def draw_params(torch, cfg, device):
+    """Random weights from seed 0, drawn on ``device``; logs the count."""
+    from repro_torch.models.transformer import init_params
+    t0 = time.monotonic()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    n = sum(t.numel() for st in [params] + [v for v in params.values()
+                                            if isinstance(v, dict)]
+            for t in st.values() if isinstance(t, torch.Tensor))
+    log(f"{cfg.name}: {cfg.n_layers} layers (+{cfg.encoder_layers} encoder), "
+        f"d_model {cfg.d_model}, {cfg.n_heads}->{cfg.padded_heads} query "
+        f"heads over {cfg.n_kv_heads} KV heads, head_dim {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size} padded to "
+        f"{cfg.padded_vocab}; {n / 1e9:.3f} B parameters "
+        f"({cfg.param_count() / 1e9:.3f} B by param_count), drawn in "
+        f"{time.monotonic() - t0:.1f} s")
+    return params
+
+
+def hold_rows(torch, name, lk, lp) -> float:
+    """Kernel-path logits against plain-path logits, every row, within 4
+    bf16 ulps of the largest logit (phase 5's rule); returns the error."""
+    err = (lk.float() - lp.float()).abs().max().item()
+    scale = lp.abs().max().item()
+    tol = bf16_ulps(4, scale)
+    agree = (lk.argmax(-1) == lp.argmax(-1)).float().mean().item()
+    log(f"{name}: kernel vs plain logits max_abs_err {err:.4f} over "
+        f"{lk.numel() // lk.shape[-1]} rows (max |logit| {scale:.3f}; tol "
+        f"{tol:.4f} = 4 bf16 ulps), greedy agreement {agree:.4f}")
+    if not bool(torch.isfinite(lk).all()) or err > tol:
+        raise AssertionError(f"{name}: kernel path and plain path disagree")
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 6: SSD scan
 # ---------------------------------------------------------------------------
@@ -547,7 +600,11 @@ def check_ssd(torch, timer, name, *, b, s, h, p, n, chunk, seed, main):
                                     device="cuda"))
         cum, states = chunk_state(x, dt, A, B, chunk)
         h_in, _ = state_pass(states, cum, h0)
-        pairs = [("cb (lower triangle)", got["cb"] * tri, cb * tri),
+        # the kernel writes cb's lower triangle only: the rest of its
+        # buffer is never written, so it is selected away, not multiplied
+        # (uninitialised bits may hold a NaN, and NaN x 0 is NaN)
+        pairs = [("cb (lower triangle)", torch.where(tri, got["cb"], 0.0),
+                  torch.where(tri, cb, 0.0)),
                  ("cum", got["cum"], cum), ("states", got["states"], states),
                  ("h_in", got["h_in"], h_in)] + pairs
     errs = []
@@ -1397,17 +1454,8 @@ def hold_replayed(torch, name, lr, lp):
     (``replay_routing``) against the plain run: every position held to
     phase 5's rule."""
     torch.cuda.synchronize()
-    err = (lr - lp).abs().max().item()
-    scale = lp.abs().max().item()
-    tol = bf16_ulps(4, scale)
-    agree = (lr.argmax(-1) == lp.argmax(-1)).float().mean().item()
-    log(f"{name}, the plain run's routing replayed in the kernel path: "
-        f"logits max_abs_err {err:.4f} over all {lr.shape[0]} positions "
-        f"(max |logit| {scale:.3f}; tol {tol:.4f} = 4 bf16 ulps), greedy "
-        f"agreement {agree:.4f}")
-    if not bool(torch.isfinite(lr).all()) or err > tol:
-        raise AssertionError(f"{name}: under the same routing the kernel "
-                             f"path and the plain path disagree")
+    hold_rows(torch, f"{name}, the plain run's routing replayed in the "
+              f"kernel path", lr, lp)
 
 
 def moe_kernel_cases(torch, timer):
@@ -1443,21 +1491,10 @@ def moe_kernel_cases(torch, timer):
 def moe_params(torch, cfg, device):
     """Random weights from seed 0, drawn on ``device`` (a CPU draw of
     qwen3-moe's would hold ~35 GB of host memory)."""
-    from repro_torch.models.transformer import init_params
-    t0 = time.monotonic()
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                         device)
-    n = sum(t.numel() for st in [params] + [v for v in params.values()
-                                            if isinstance(v, dict)]
-            for t in st.values() if isinstance(t, torch.Tensor))
-    log(f"{cfg.name} at {cfg.n_layers} layers: d_model {cfg.d_model}, "
-        f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads, head_dim "
-        f"{cfg.head_dim}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+    params = draw_params(torch, cfg, device)
+    log(f"{cfg.name}: {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
         f"d_ff {cfg.moe.d_ff_expert}, capacity factor "
-        f"{cfg.moe.capacity_factor}, vocab {cfg.vocab_size} padded to "
-        f"{cfg.padded_vocab}, window {cfg.sliding_window}; {n / 1e9:.3f} B "
-        f"parameters ({cfg.param_count() / 1e9:.3f} B by param_count), "
-        f"drawn in {time.monotonic() - t0:.1f} s")
+        f"{cfg.moe.capacity_factor}, window {cfg.sliding_window}")
     return params
 
 
@@ -1638,6 +1675,323 @@ def e2e_mixtral(torch, device="cuda", prompt_len=5120):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the remaining families
+# ---------------------------------------------------------------------------
+
+def family_kernel_cases(torch, timer) -> dict:
+    """(a): the kernels at the new families' shapes, each timed with its
+    bound, plain version and library call."""
+    from repro_torch.models.layers import qh2kv_map
+    whisper = qh2kv_map(20, 20, 32).tolist()
+    qwen14 = qh2kv_map(40, 8, 48).tolist()
+    grouped = qh2kv_map(48, 8, 48).tolist()
+    out = {}
+    out["flash_prefill whisper decoder"] = check_prefill(
+        torch, timer, "whisper", Sq=64, Sk=64, q_offset=0, H=32, KV=20, D=64,
+        qh2kv=whisper, seed=20, main=True)
+    out["flash_prefill internvl2 prefill"] = check_prefill(
+        torch, timer, "internvl2", Sq=512, Sk=512, q_offset=0, H=48, KV=8,
+        D=128, qh2kv=grouped, seed=21, main=True)
+    out["flash_prefill qwen3-14b chunk"] = check_prefill(
+        torch, timer, "qwen3-14b", Sq=256, Sk=1536, q_offset=1280, H=48,
+        KV=8, D=128, qh2kv=qwen14, seed=22, main=True)
+    out["paged_attention qwen3-14b decode"] = check_paged(
+        torch, timer, "qwen3-14b", paged_case(
+            torch, B=8, H=48, KV=8, D=128, page=64, max_pages=32, P=289,
+            lens=[1536, 1, 1100, 700, 64, 65, 1999, 333], qh2kv=qwen14,
+            seed=23), main=True)
+    out["ssd_scan jamba mixer"] = check_ssd(
+        torch, timer, "jamba", b=1, s=1024, h=256, p=64, n=64, chunk=256,
+        seed=24, main=True)
+    return out
+
+
+def greedy_run(torch, params, cfg, prompt, steps, stream=None, **kw):
+    """``prefill`` of ``prompt`` (B, S) with the frontend input ``kw``,
+    its caches copied into ones ``steps`` tokens longer, then ``steps``
+    ``decode_step``s fed greedily (or ``stream``). Returns the logits of
+    every sampled position (steps + 1, B, V) and the tokens fed
+    (steps, B)."""
+    from repro_torch.models.transformer import (decode_step, init_caches,
+                                                prefill)
+    B = prompt.shape[0]
+    first, c = prefill(params, prompt, cfg, **kw)
+    n = c.length
+    caches = init_caches(cfg, B, n + steps, enc_len=cfg.frontend_tokens
+                         if cfg.encoder_layers else 0, device=prompt.device)
+    caches.kv.k[:, :, :n] = c.kv.k
+    caches.kv.v[:, :, :n] = c.kv.v
+    caches = caches._replace(enc_kv=c.enc_kv, length=n)
+    rows, fed = [first], []
+    tok = first.argmax(-1)
+    for i in range(steps):
+        t = stream[i] if stream is not None else tok
+        fed.append(t)
+        lg, caches = decode_step(params, t[:, None], caches, cfg)
+        rows.append(lg[:, -1])
+        tok = lg[:, -1].argmax(-1)
+    return torch.stack(rows), torch.stack(fed)
+
+
+def e2e_whisper(torch, device="cuda", steps=64, prompt_len=64, batch=4):
+    """(b): whisper-large-v3 at full width and depth: ``prefill(frames=)``
+    of four 1500-frame stub inputs and a 64-token decoder prompt, 64
+    greedy ``decode_step``s, teacher-forced through the plain path."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.models.layers import plain_attention
+    from repro_torch.models.transformer import build_enc_kv, encode
+    cfg = get_config("whisper-large-v3")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    if prompt_len + steps > cfg.max_decode_len:
+        raise AssertionError("the run passes whisper's decoder cap")
+    params = draw_params(torch, cfg, device)
+    g = torch.Generator(device=device).manual_seed(19)
+    frames = torch.randn((batch, cfg.frontend_tokens, cfg.d_model),
+                         generator=g, device=device).bfloat16()
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=g, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    flash_prefill.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    lk, fed = greedy_run(torch, params, cfg, prompt, steps, frames=frames)
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    launches = flash_prefill.launches
+    t0 = time.monotonic()
+    build_enc_kv(params, encode(params, frames, cfg), cfg)
+    torch.cuda.synchronize()
+    enc_s = time.monotonic() - t0
+    log(f"whisper: {batch} x {cfg.frontend_tokens} frames, prompt "
+        f"{prompt_len}, {steps} greedy steps in {run_s:.3f} s; the encoder "
+        f"and the cross K/V alone {enc_s:.3f} s, {enc_s / run_s:.3f} of the "
+        f"run; flash_prefill launches {launches} (= {cfg.n_layers} x (1 + "
+        f"{steps})); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if device == "cuda" and launches != cfg.n_layers * (1 + steps):
+        raise AssertionError("whisper: launches do not match layers x calls")
+    with plain_attention():
+        lp, _ = greedy_run(torch, params, cfg, prompt, steps, stream=fed,
+                           frames=frames)
+    torch.cuda.synchronize()
+    err = hold_rows(torch, "whisper teacher forcing", lk, lp)
+    return dict(launches=launches, err=err, encoder_share=enc_s / run_s)
+
+
+def e2e_internvl2(torch, device="cuda", steps=16, prompt_len=256):
+    """(c): internvl2-26b at full width and depth: ``prefill(patches=)``
+    of 256 stub patches and a 256-token prompt, 16 greedy dense
+    ``decode_step``s, teacher-forced through the plain path."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.models.layers import plain_attention
+    cfg = get_config("internvl2-26b")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    params = draw_params(torch, cfg, device)
+    g = torch.Generator(device=device).manual_seed(25)
+    patches = torch.randn((1, cfg.frontend_tokens, cfg.d_model), generator=g,
+                          device=device).bfloat16()
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), generator=g,
+                           device=device)
+    torch.cuda.reset_peak_memory_stats()
+    flash_prefill.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    lk, fed = greedy_run(torch, params, cfg, prompt, steps, patches=patches)
+    torch.cuda.synchronize()
+    run_s = time.monotonic() - t0
+    launches = flash_prefill.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"internvl2: {cfg.frontend_tokens} patches + {prompt_len} tokens, "
+        f"{steps} greedy steps in {run_s:.3f} s; flash_prefill launches "
+        f"{launches} (= {cfg.n_layers} x (1 + {steps})); "
+        f"max_memory_allocated {peak:.2f} GiB")
+    if device == "cuda" and launches != cfg.n_layers * (1 + steps):
+        raise AssertionError("internvl2: launches do not match layers x "
+                             "calls")
+    with plain_attention():
+        lp, _ = greedy_run(torch, params, cfg, prompt, steps, stream=fed,
+                           patches=patches)
+    torch.cuda.synchronize()
+    err = hold_rows(torch, "internvl2 teacher forcing", lk, lp)
+    return dict(launches=launches, err=err, peak_gib=peak)
+
+
+def e2e_qwen3_14b(torch, device="cuda"):
+    """(d): qwen3-14b at full width and depth served by the launcher's
+    body (phase 5's workload), its launches counted, one request
+    teacher-forced through the kernel and plain paths."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.layers import plain_attention
+    cfg = get_config("qwen3-14b")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    params = draw_params(torch, cfg, device)
+    torch.cuda.reset_peak_memory_stats()
+    paged_attention.launches = 0
+    flash_prefill.launches = 0
+    s = serve(cfg, device, params=params, requests=12, max_batch=8,
+              max_new=16, admission="predictive", seed=0, log=log)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_prefill": flash_prefill.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"qwen3-14b e2e: {s['completed']}/{s['submitted']} requests "
+        f"completed, {s['new_tokens']} tokens in {s['seconds']:.3f} s, decode "
+        f"{s['decode_tok_s']:.2f} tok/s, TTFT p50 {s['ttft_p50_s'] * 1e3:.2f} "
+        f"ms, TBT p50 {s['tbt_p50_s'] * 1e3:.2f} ms p99 "
+        f"{s['tbt_p99_s'] * 1e3:.2f} ms; max_memory_allocated {peak:.2f} GiB")
+    log(f"qwen3-14b e2e launches: paged_attention "
+        f"{launches['paged_attention']} (= {cfg.n_layers} x "
+        f"{s['paged_calls']} paged step calls), flash_prefill "
+        f"{launches['flash_prefill']} (= {cfg.n_layers} x "
+        f"{s['prefill_chunks']} prefill chunks)")
+    if s["submitted"] != 8 or s["completed"] != s["submitted"]:
+        raise AssertionError("qwen3-14b: not every request completed")
+    if device == "cuda" and (
+            launches["paged_attention"] != cfg.n_layers * s["paged_calls"]
+            or launches["flash_prefill"]
+            != cfg.n_layers * s["prefill_chunks"]
+            or not (launches["paged_attention"]
+                    and launches["flash_prefill"])):
+        raise AssertionError("qwen3-14b: launches do not match layers x "
+                             "calls")
+    for rid, toks, mn, _ in s["payloads"]:
+        out = s["outputs"][rid]
+        if len(out) != mn or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"qwen3-14b request {rid}: bad stream {out}")
+    rid, prompt, _, _ = s["payloads"][0]
+    stream = s["outputs"][rid]
+    lk = teacher_forced(torch, params, cfg, prompt, stream)
+    with plain_attention():
+        lp = teacher_forced(torch, params, cfg, prompt, stream)
+    torch.cuda.synchronize()
+    served = lk.argmax(-1).cpu().tolist() == stream
+    log(f"qwen3-14b teacher forcing (request {rid}, prompt {len(prompt)}): "
+        f"kernel argmax == served stream: {served}")
+    hold_rows(torch, "qwen3-14b teacher forcing", lk, lp)
+    return dict(launches=launches, summary=s, peak_gib=peak)
+
+
+class kernels_as_plain_versions:
+    """Inside, the model calls each kernel's own plain version in its
+    place — ``flash_prefill_ref`` (fp32 probabilities, as the kernel
+    keeps them) for the prefill kernel and ``ssd_chunked`` for the SSD
+    scan — where ``plain_attention()`` gives the reference model's plain
+    numerics (``_attend`` rounds the probabilities to bf16). Holds a
+    kernel-path run against the same function on the same inputs."""
+
+    def __enter__(self):
+        import repro_torch.models.layers as L
+        import repro_torch.models.mamba as M
+        from repro_torch.kernels.flash_prefill.ref import flash_prefill_ref
+        from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+        self.saved = (L.flash_prefill_attention, M.ssd_scan_op)
+        L.flash_prefill_attention = flash_prefill_ref
+        M.ssd_scan_op = lambda x, dt, A, B, C, h0=None, *, chunk=256: \
+            ssd_chunked(x, dt, A, B, C, chunk, h0=h0)
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.models.layers as L
+        import repro_torch.models.mamba as M
+        L.flash_prefill_attention, M.ssd_scan_op = self.saved
+
+
+def e2e_jamba(torch, device="cuda", prompt_len=200, steps=16):
+    """(e): jamba-1.5-large-398b's period stack at ``.reduced()`` widths
+    on the card (one full-width period does not fit it): ``prefill()``, an
+    extend of the whole prompt from empty caches (every position's
+    logits) and 16 ``decode_step``s on its KV and states. The plain path
+    runs first with its MoE routing recorded; the kernels' plain versions
+    and the kernel path then run under that routing. Every position of
+    the kernel path is held against both plain runs within the distance
+    between the two plain runs (the stack's response to one attention
+    layer's rounding) plus 4 bf16 ulps."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+    from repro_torch.models.layers import (plain_attention, record_routing,
+                                           replay_routing)
+    from repro_torch.models.transformer import (decode_step, init_caches,
+                                                prefill)
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    params = draw_params(torch, cfg, device)
+    prompt = np.random.default_rng(26).integers(0, cfg.vocab_size,
+                                                prompt_len)
+    t = torch.as_tensor(prompt[None].astype("int64"), device=device)
+
+    def run(stream):
+        first, _ = prefill(params, t, cfg)
+        caches = init_caches(cfg, 1, prompt_len + steps, device=device)
+        every, caches = decode_step(params, t, caches, cfg)
+        rows = list(every[0])
+        if (first[0] - rows[-1]).abs().max().item() > bf16_ulps(
+                4, rows[-1].abs().max().item()):
+            raise AssertionError("jamba: prefill() and the extend differ")
+        tok, fed = int(rows[-1].argmax()), []
+        for i in range(steps):
+            tk = stream[i] if stream is not None else tok
+            fed.append(tk)
+            lg, caches = decode_step(params, torch.tensor(
+                [[tk]], dtype=torch.int64, device=device), caches, cfg)
+            rows.append(lg[0, -1])
+            tok = int(lg[0, -1].argmax())
+        return torch.stack(rows), fed
+
+    with plain_attention(), record_routing() as routes:
+        lp, fed = run(None)
+    with kernels_as_plain_versions(), replay_routing(routes):
+        lv, _ = run(fed)
+    flash_prefill.launches = 0
+    ssd_scan.launches = 0
+    with replay_routing(routes):
+        lk, _ = run(fed)
+    torch.cuda.synchronize()
+    launches = {"flash_prefill": flash_prefill.launches,
+                "ssd_scan": ssd_scan.launches}
+    n_mamba = cfg.n_layers - cfg.attention_layers
+    log(f"jamba (reduced, {cfg.n_layers} layers: 1 attention, {n_mamba} "
+        f"Mamba2, 4 MoE FFNs): prompt {prompt_len}, {steps} steps; "
+        f"launches: flash_prefill {launches['flash_prefill']} (= "
+        f"{cfg.attention_layers} x (2 + {steps})), ssd_scan "
+        f"{launches['ssd_scan']} (= {n_mamba} x 2: prefill() and the extend; "
+        f"a one-token step takes the recurrence); {len(routes)} MoE calls "
+        f"replayed")
+    if device == "cuda" and launches != {
+            "flash_prefill": cfg.attention_layers * (2 + steps),
+            "ssd_scan": 2 * n_mamba}:
+        raise AssertionError("jamba: launches do not match layers x calls")
+    # the stack's own response to rounding: the two plain runs differ
+    # only in how one attention layer rounds its probabilities (its
+    # output by at most about a bf16 ulp), and seven Mamba2 mixers and
+    # four MoE FFNs at this width carry that to every position
+    scale = lp.abs().max().item()
+    spread = (lv - lp).abs().max().item()
+    tol = spread + bf16_ulps(4, scale)
+    err_v = (lk - lv).abs().max().item()
+    err = (lk - lp).abs().max().item()
+    log(f"jamba, every position, the plain run's routing replayed: the "
+        f"kernels' plain versions vs the plain path {spread:.4f} (the "
+        f"stack's response to the attention's probability rounding); the "
+        f"kernel path vs the kernels' plain versions {err_v:.4f}, vs the "
+        f"plain path {err:.4f} (max |logit| {scale:.3f}; tol {tol:.4f} = "
+        f"that response + 4 bf16 ulps); greedy agreement with the plain "
+        f"path {(lk.argmax(-1) == lp.argmax(-1)).float().mean().item():.4f}")
+    if not bool(torch.isfinite(lk).all()) or max(err, err_v) > tol:
+        raise AssertionError("jamba: the kernel path and the plain path "
+                             "disagree")
+    return dict(launches=launches, err=err, spread=spread)
+
 def main() -> int:
     try:
         import torch
@@ -1747,6 +2101,24 @@ def main() -> int:
         f"{mix['launches']}; routing choices differing kernel vs plain: "
         f"qwen3-moe {qwen['routing_differences']}, mixtral "
         f"{mix['routing_differences']}")
+
+    phase("13 the remaining families: whisper, internvl2, qwen3-14b, jamba")
+    torch.cuda.empty_cache()
+    t13 = time.monotonic()
+    cases = family_kernel_cases(torch, timer)
+    log("phase 13 (a): " + json.dumps({k: {f: round(v, 5) if isinstance(
+        v, float) else v for f, v in r.items()} for k, r in cases.items()}))
+    wh = e2e_whisper(torch)
+    torch.cuda.empty_cache()
+    vl = e2e_internvl2(torch)
+    torch.cuda.empty_cache()
+    qw = e2e_qwen3_14b(torch)
+    torch.cuda.empty_cache()
+    jb = e2e_jamba(torch)
+    log(f"phase 13 launches: whisper flash_prefill {wh['launches']}, "
+        f"internvl2 flash_prefill {vl['launches']}, qwen3-14b "
+        f"{qw['launches']}, jamba {jb['launches']}; phase 13 took "
+        f"{time.monotonic() - t13:.1f} s")
 
     kernels = [
         dict(name="paged_attention", route="cuda",

@@ -1,6 +1,6 @@
 """Model configuration for the PyTorch port (own copy of the reference's
-``repro/configs/base.py``, cut to what the ported dense, MoE and SSM
-serving paths read).
+``repro/configs/base.py``: every family's fields and derived counts; the
+training fields ``optimizer`` and ``remat`` come with training).
 
 Derived quantities, as in the reference:
   * ``padded_heads`` — query heads padded up to a multiple of 16
@@ -128,7 +128,7 @@ class SSMConfig:
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    kind: str  # dense | moe | ssm (the families this package serves so far)
+    kind: str  # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -142,8 +142,17 @@ class ModelConfig:
     attn_bias: bool = False
     sliding_window: int = 0  # 0 = full attention
     rope_theta: float = 1e6
+    # --- hybrid (jamba) ---
+    attn_every: int = 0  # 1 attention layer per `attn_every` layers; rest SSM
+    # --- encoder-decoder (whisper) ---
+    encoder_layers: int = 0
+    cross_attention: bool = False
+    # --- modality frontend stub ---
+    frontend: str = "none"  # none | patch | audio
+    frontend_tokens: int = 0  # patches / audio frames the stub supplies
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
+    max_decode_len: int = 0  # architectural cap on decoder length (whisper)
     source: str = ""
 
     @property
@@ -161,32 +170,52 @@ class ModelConfig:
     @property
     def attention_layers(self) -> int:
         """Number of layers that carry a KV cache."""
-        return 0 if self.kind == "ssm" else self.n_layers
+        if self.kind == "ssm":
+            return 0
+        if self.attn_every:
+            return self.n_layers // self.attn_every
+        return self.n_layers
 
     def param_count(self) -> int:
-        """Approximate total parameter count — the reference's formula for
-        the dense, MoE and SSM families (what the cost model prices); the
-        hybrid and encoder terms come with those families."""
+        """Approximate total parameter count — the reference's formula
+        (what the cost model prices)."""
         d, L = self.d_model, self.n_layers
         n = self.padded_vocab * d * (1 if self.tie_embeddings else 2)
-        if self.kind == "ssm":
+        per_attn = (d * self.padded_heads * self.head_dim) * 2 \
+            + (d * self.n_kv_heads * self.head_dim) * 2
+        per_mlp = 3 * d * self.d_ff
+        per_ssm = 0
+        if self.ssm is not None:
             s = self.ssm
             di, nh = s.d_inner(d), s.n_heads(d)
             per_ssm = d * (2 * di + 2 * s.d_state + nh) + di * d \
                 + s.d_conv * s.conv_channels(d) + 3 * nh + di
-            return n + per_ssm * L
-        per_attn = (d * self.padded_heads * self.head_dim) * 2 \
-            + (d * self.n_kv_heads * self.head_dim) * 2
-        per_mlp = 3 * d * self.d_ff
-        if self.moe is not None:
-            # moe-every-k layers use experts, the rest a dense MLP
+        # FFN stack (moe-every-k layers use experts, the rest a dense
+        # MLP); a pure SSM stack has none
+        if self.kind == "ssm":
+            ffn = 0
+        elif self.moe is not None:
             per_moe = 3 * d * self.moe.d_ff_expert * self.moe.n_experts \
                 + d * self.moe.n_experts
             n_moe_layers = L // self.moe.every
             ffn = per_moe * n_moe_layers + per_mlp * (L - n_moe_layers)
         else:
             ffn = per_mlp * L
-        return n + per_attn * L + ffn
+        # mixer stack
+        if self.kind == "ssm":
+            mixer = per_ssm * L
+        elif self.attn_every:
+            n_attn = L // self.attn_every
+            mixer = per_attn * n_attn + per_ssm * (L - n_attn)
+        else:
+            mixer = per_attn * L
+        n += mixer + ffn
+        # encoder (whisper): self-attention + MLP per encoder layer, and
+        # the decoder's cross-attention projections
+        if self.encoder_layers:
+            n += self.encoder_layers * (per_attn + per_mlp)
+            n += L * per_attn
+        return n
 
     def active_param_count(self) -> int:
         """Activated params per token (MoE: the top-k experts only)."""
@@ -198,22 +227,24 @@ class ModelConfig:
         return full - per_expert * (self.moe.n_experts - self.moe.top_k)
 
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant, identical to the reference's ``reduced()``
-        for dense, MoE and SSM configs: 2 layers, d_model ≤ 256, 4 query
-        heads (padded to 16), head_dim 32, vocab 512; MoE shrinks to 4
-        experts, top-2, d_ff_expert 128 at capacity factor 2.0; an SSM
-        mixer to d_state 16, head_dim 16, chunk 32; a sliding window to
-        64."""
+        """Smoke-test variant, identical to the reference's ``reduced()``:
+        2 layers (a hybrid: one full period), d_model ≤ 256, 4 query heads
+        (padded to 16), head_dim 32, vocab 512; 2 encoder layers and at
+        most 16 frontend tokens; MoE shrinks to 4 experts, top-2,
+        d_ff_expert 128 at capacity factor 2.0; an SSM mixer to d_state
+        16, head_dim 16, chunk 32; a sliding window to 64."""
         d = min(self.d_model, 256)
         kw: dict = dict(
             name=self.name + "-reduced",
-            n_layers=2,
+            n_layers=2 if not self.attn_every else self.attn_every,
             d_model=d,
             n_heads=4,
             n_kv_heads=2 if self.n_kv_heads < self.n_heads else 4,
             head_dim=32,
             d_ff=max(128, d * 2),
             vocab_size=512,
+            frontend_tokens=min(self.frontend_tokens, 16),
+            encoder_layers=2 if self.encoder_layers else 0,
         )
         if self.moe is not None:
             # capacity_factor E/k ⇒ cap == T: drop-free routing, so
@@ -260,6 +291,8 @@ def _ensure_loaded() -> None:
         return
     import importlib
     for mod in ("qwen3_moe_235b_a22b", "smollm_360m", "qwen2_5_3b",
-                "mixtral_8x7b", "mamba2_2_7b", "llama2_70b"):
+                "mixtral_8x7b", "phi3_mini_3_8b", "internvl2_26b",
+                "mamba2_2_7b", "whisper_large_v3", "jamba_1_5_large_398b",
+                "qwen3_14b", "llama2_70b"):
         importlib.import_module(f"repro_torch.configs.{mod}")
     _LOADED = True

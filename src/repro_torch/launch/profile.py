@@ -1,18 +1,19 @@
 """Where a serving step's time goes on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile \
-        [--arch mamba2-2.7b | qwen3-moe-235b-a22b]
+        [--arch mamba2-2.7b | qwen3-moe-235b-a22b | qwen3-14b]
 
-smollm-360m (the default) and qwen3-moe-235b-a22b: prefill the
+smollm-360m (the default), qwen3-14b and qwen3-moe-235b-a22b: prefill the
 launcher's workload (8 requests of the generated trace, prompts capped
 at 1536 tokens) into a full decode batch at full width (random weights,
 seed 0), then, under ``torch.profiler``, run five decode steps and five
 256-token prefill chunks at offset 1280. qwen3-moe runs 4 of its 94
-layers (94 layers are 470 GB of bf16 weights; 4 are 22.4 GB), its
-weights drawn on the card. mamba2-2.7b: prefills the workload's first prompt
-to 1024 tokens at full width, then profiles five 512-token extends from
-that state (what ``StateCheckpointWorker`` runs per block) and five
-one-token decode steps. For each call it prints the host wall time
+layers (94 layers are 470 GB of bf16 weights; 4 are 22.4 GB), qwen3-14b
+all 40 (30.4 GB); both draw their weights on the card. mamba2-2.7b:
+prefills the workload's first prompt to 1024 tokens at full width, then
+profiles five 512-token extends from that state (what
+``StateCheckpointWorker`` runs per block) and five one-token decode
+steps. For each call it prints the host wall time
 (synchronised), the device busy time (the sum of the kernels' device
 time), the device's idle share, the kernel count, and the kernels that
 took the most device time. GPU only.
@@ -105,7 +106,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="smollm-360m",
                     choices=("smollm-360m", "mamba2-2.7b",
-                             "qwen3-moe-235b-a22b"))
+                             "qwen3-moe-235b-a22b", "qwen3-14b"))
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     cfg = get_config(args.arch)
@@ -114,9 +115,10 @@ def main(argv=None) -> int:
     if cfg.kind == "ssm":
         _profile_ssm(cfg, device)
         return 0
-    # a large model's draw stays on the card (the host copy of qwen3-moe's
-    # fp32 draw would be ~35 GB)
-    gen = torch.Generator(device=device if cfg.moe else "cpu").manual_seed(0)
+    # a large model's draw stays on the card (its host copy would hold
+    # tens of GB: ~35 for qwen3-moe's fp32 draw at 4 layers)
+    big = cfg.param_count() > 4e9
+    gen = torch.Generator(device=device if big else "cpu").manual_seed(0)
     params = init_params(cfg, gen, device)
     pool = HostKVPool()
     pp = DevicePagePool(cfg, n_pages=1 + 9 * (MAX_LEN // 64), page_tokens=64,

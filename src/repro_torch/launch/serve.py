@@ -6,21 +6,24 @@ pair on one GPU.
         [--ssd-blocks 64 --ssd-dir D [--ssd-mode overlap]] [--peer-ssd-dir P]
 
 The counterpart of ``python -m repro.launch.serve`` for what the port
-covers: the reduced model of ``--arch`` (a dense or MoE config of the
-registry: smollm-360m, qwen2.5-3b, llama2-70b, qwen3-moe-235b-a22b,
+covers: the reduced model of ``--arch`` (a uniform attention stack of
+the registry: smollm-360m, qwen2.5-3b, qwen3-14b, phi3-mini-3.8b,
+llama2-70b, internvl2-26b as a text-only stack, qwen3-moe-235b-a22b,
 mixtral-8x7b; a prompt longer than a windowed model's sliding window is
-refused), a ``HostKVPool`` (flat DRAM by default; with
-``--ssd-blocks`` a DRAM tier over an SSD tier, file-backed in
-``--ssd-dir`` and loaded per ``--ssd-mode``), chunked prefill
-(``prefill_chunk=256``) staged into a shared ``DevicePagePool`` (64-token
-pages), and paged continuous-batching decode, all driven by the
-``ServingLoop`` with admission backpressure and preemption (``--no-loop``
-keeps the phase-at-a-time driver). With ``--peer-ssd-dir``, blocks a
-PREVIOUS run demoted to its store become fetchable as a peer node's
-through a shared ``GlobalBlockDirectory`` (the global pool across
-launcher runs — same seed, same hash chains). Weights are random, from
-``--seed``. ``serve()`` is the body, for callers that bring their own
-config and device (the full-width smoke run on the GPU, the CPU tests).
+refused, and so are the models whose state the KV workers would drop:
+mamba2-2.7b, jamba-1.5-large-398b, whisper-large-v3), a ``HostKVPool``
+(flat DRAM by default; with ``--ssd-blocks`` a DRAM tier over an SSD
+tier, file-backed in ``--ssd-dir`` and loaded per ``--ssd-mode``),
+chunked prefill (``prefill_chunk=256``) staged into a shared
+``DevicePagePool`` (64-token pages), and paged continuous-batching
+decode, all driven by the ``ServingLoop`` with admission backpressure
+and preemption (``--no-loop`` keeps the phase-at-a-time driver). With
+``--peer-ssd-dir``, blocks a PREVIOUS run demoted to its store become
+fetchable as a peer node's through a shared ``GlobalBlockDirectory``
+(the global pool across launcher runs — same seed, same hash chains).
+Weights are random, from ``--seed``. ``serve()`` is the body, for
+callers that bring their own config and device (the full-width smoke
+run on the GPU, the CPU tests).
 """
 from __future__ import annotations
 
@@ -40,7 +43,8 @@ from repro_torch.core.directory import GlobalBlockDirectory
 from repro_torch.core.trace import TraceSpec, generate_trace, load_trace
 from repro_torch.data.pipeline import realize_request_tokens
 from repro_torch.models.transformer import init_params
-from repro_torch.serving.engine import DecodeWorker, HostKVPool, PrefillWorker
+from repro_torch.serving.engine import (DecodeWorker, HostKVPool,
+                                        PrefillWorker, kv_worker_refusal)
 from repro_torch.serving.loop import ServingLoop
 from repro_torch.serving.paged_cache import DevicePagePool
 from repro_torch.serving.request import ServingRequest
@@ -85,6 +89,9 @@ def serve(cfg: ModelConfig, device="cuda", *, params=None,
           log=print) -> dict:
     """Serve ``requests`` requests end to end; returns a summary dict
     (counts, times, per-request token streams, the tiers' counters)."""
+    reason = kv_worker_refusal(cfg)
+    if reason:
+        raise ValueError(f"serve() drives the KV serving workers: {reason}")
     device = resolve_device(device)
     if params is None:
         gen = torch.Generator().manual_seed(seed)
@@ -229,8 +236,11 @@ def serve(cfg: ModelConfig, device="cuda", *, params=None,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="smollm-360m",
-                    help="a registered dense or MoE config, served at its "
-                         "reduced size (e.g. qwen3-moe-235b-a22b)")
+                    help="a registered uniform attention stack, served at "
+                         "its reduced size: smollm-360m, qwen2.5-3b, "
+                         "qwen3-14b, phi3-mini-3.8b, llama2-70b, "
+                         "internvl2-26b (text only), qwen3-moe-235b-a22b, "
+                         "mixtral-8x7b")
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--trace", default=None)
     ap.add_argument("--max-batch", type=int, default=8)
@@ -278,7 +288,11 @@ def main(argv=None) -> int:
                          "or the dense per-slot arena (exactness oracle)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    serve(get_config(args.arch).reduced(), "cuda", requests=args.requests,
+    cfg = get_config(args.arch).reduced()
+    reason = kv_worker_refusal(cfg)
+    if reason:
+        ap.error(f"--arch {args.arch}: {reason}")
+    serve(cfg, "cuda", requests=args.requests,
           trace=args.trace, max_batch=args.max_batch, max_new=args.max_new,
           no_loop=args.no_loop, prefill_workers=args.prefill_workers,
           tbt_budget=args.tbt_budget, chunks_per_iter=args.chunks_per_iter,

@@ -1,7 +1,7 @@
 """Transformer building blocks in PyTorch (bf16 compute, fp32 reductions)
-— the counterparts of the reference's ``repro/models/layers.py`` for the
-dense and MoE serving paths (single device: the reference's expert- and
-tensor-parallel ``shard_map`` MoE paths are not ported).
+— the counterparts of the reference's ``repro/models/layers.py`` (single
+device: the reference's expert- and tensor-parallel ``shard_map`` MoE
+paths are not ported).
 
 Attention keeps the reference's numerics on its plain paths (``_attend``:
 fp32 logits, a -1e30 mask, fp32 softmax, probabilities cast to bf16
@@ -10,7 +10,9 @@ hand-written kernels: ``causal_attention`` to the chunked-prefill kernel
 and ``paged_attention_block`` to the paged decode kernel, each given the
 KV-headed cache plus the query-head → KV-head map, so the per-query-head
 KV expansion the reference does with ``jnp.take`` is never materialised
-on the card. ``decode_attention``, the dense per-slot oracle, stays plain.
+on the card. ``decode_attention``, the dense per-slot oracle, and the
+bidirectional attention of the encoder and of cross-attention stay plain,
+as in the reference.
 
 PyTorch runs eagerly, so a chunk's ``q_offset`` is a plain Python int and
 caches are updated in place where the reference rebinds functionally.
@@ -215,30 +217,52 @@ def decode_attention(q, k_cache, v_cache, cache_len, window: int = 0):
     return _attend(q, k_cache, v_cache, valid[:, None, None, :], scale)
 
 
-def _qkv(x, p, cfg: ModelConfig):
+def _qkv(x, p, cfg: ModelConfig, kv: bool = True):
+    """Norm and projections → (q, k, v); with ``kv`` False the query only
+    (k, v None: a cross-attention block's K/V come from the encoder)."""
     B, S, _ = x.shape
     Hp, KV, Dh = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = (h @ p["wq"]).reshape(B, S, Hp, Dh)
+    if cfg.attn_bias:
+        q = q + p["bq"].reshape(1, 1, Hp, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+    if not kv:
+        return q, None, None
     k = (h @ p["wk"]).reshape(B, S, KV, Dh)
     v = (h @ p["wv"]).reshape(B, S, KV, Dh)
     if cfg.attn_bias:
-        q = q + p["bq"].reshape(1, 1, Hp, Dh)
         k = k + p["bk"].reshape(1, 1, KV, Dh)
         v = v + p["bv"].reshape(1, 1, KV, Dh)
     if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
     return q, k, v
 
 
+def _attend_all(q, k, v, qh2kv):
+    """Bidirectional attention of q over every key (the encoder's
+    self-attention and the decoder's cross-attention): plain ``_attend``
+    with an all-true mask on every device, as in the reference, which
+    computes both outside any kernel."""
+    mask = torch.ones((1, 1, q.shape[1], k.shape[1]), dtype=torch.bool,
+                      device=q.device)
+    return _attend(q, _expand(k, qh2kv), _expand(v, qh2kv), mask,
+                   1.0 / (q.shape[-1] ** 0.5))
+
+
 def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
                     cache=None, cache_len=None, ring: bool = False,
-                    kv_out: bool = False,
+                    kv_out: bool = False, enc_kv=None, causal: bool = True,
                     window_override: Optional[int] = None):
-    """Self-attention sub-block: norm → qkv → rope → attend → out proj.
+    """Attention sub-block: norm → qkv → rope → attend → out proj.
 
     Returns (y, kv):
+      * cross-attention (``enc_kv`` = (k, v), (B, S_enc, KV, Dh), the
+        encoder's rope-free K/V): the query alone is projected, carries no
+        RoPE and attends every encoder position; kv is None;
+      * ``causal`` False (the encoder, no cache): RoPE at positions
+        ``q_offset + [0, S)`` and every position attends every other;
       * prefill (``cache`` None): the new (k, v) if ``kv_out`` else None;
       * extend/decode (``cache`` = (k_cache, v_cache), (B, S_cache, KV,
         Dh)): the S new tokens are written IN PLACE at ``cache_len`` — an
@@ -254,6 +278,10 @@ def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
     window = cfg.sliding_window if window_override is None else window_override
     qh2kv = None if _grouped(cfg) else qh2kv_map(cfg.n_heads, KV, Hp,
                                                  x.device)
+    if enc_kv is not None:
+        q, _, _ = _qkv(x, p, cfg, kv=False)
+        o = _attend_all(q, enc_kv[0], enc_kv[1], qh2kv)
+        return o.reshape(B, S, Hp * Dh) @ p["wo"], None
     q, k, v = _qkv(x, p, cfg)
     ar = torch.arange(S, device=x.device)
 
@@ -261,7 +289,10 @@ def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
         positions = q_offset + ar
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-        o = causal_attention(q, k, v, q_offset, window, qh2kv=qh2kv)
+        if causal:
+            o = causal_attention(q, k, v, q_offset, window, qh2kv=qh2kv)
+        else:
+            o = _attend_all(q, k, v, qh2kv)
         y = o.reshape(B, S, Hp * Dh) @ p["wo"]
         return y, ((k, v) if kv_out else None)
 
@@ -294,6 +325,11 @@ def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
         o = decode_attention(q, _expand(k_cache, qh2kv),
                              _expand(v_cache, qh2kv), pos + S, window)
     else:
+        if pos + S > k_cache.shape[1]:
+            # a slice past the end would take none of the new tokens (the
+            # reference's dynamic_update_slice clamps and overwrites)
+            raise ValueError(f"extend of {S} tokens at {pos} past the "
+                             f"{k_cache.shape[1]}-slot cache")
         k_cache[:, pos:pos + S] = k
         v_cache[:, pos:pos + S] = v
         o = causal_attention(q, k_cache, v_cache, pos, window, qh2kv=qh2kv)

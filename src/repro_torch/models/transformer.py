@@ -1,7 +1,12 @@
 """Model assembly in PyTorch — the counterpart of the reference's
-``repro/models/transformer.py`` for uniform dense and MoE stacks and pure
-SSM (Mamba2) stacks (the hybrid and encoder families are not ported
-yet).
+``repro/models/transformer.py`` for every family: uniform dense and MoE
+stacks, pure SSM (Mamba2) stacks, the hybrid period stack (jamba: one
+attention layer and ``attn_every - 1`` Mamba2 layers a period, an FFN
+after every mixer, MoE at odd in-period positions), the encoder-decoder
+(whisper: a bidirectional encoder over stub frames and a cross-attention
+after each decoder layer's self-attention, over K/V built once at
+prefill) and the patch frontend (internvl2: stub patch embeddings
+prepended to the embedded tokens).
 
 Parameters are a plain dict of tensors stacked on a leading layer axis,
 with the reference's keys and shapes, so ``bridge.params_from_jax`` maps
@@ -16,7 +21,8 @@ layers is a Python loop here. Forward modes:
                             continuation or a one-token step from the
                             carried state;
   * ``decode_step_paged`` — one continuous-batching token per slot over
-                            the shared paged KV store (attention only).
+                            the shared paged KV store (uniform attention
+                            stacks only).
 KV caches and page slabs are updated in place; an SSM state is replaced
 by the new one a step returns, as in the reference.
 """
@@ -45,8 +51,12 @@ class Caches(NamedTuple):
     #: tokens written so far: an int (uniform batch) or a (B,) int32
     #: tensor (continuous batching, every slot at its own depth)
     length: Union[int, torch.Tensor]
-    #: stacked (L, ...) Mamba2 state of an SSM stack, else None
+    #: stacked Mamba2 state: (L, ...) for an SSM stack, (periods,
+    #: attn_every - 1, ...) for a hybrid, else None
     ssm: Optional[MambaState] = None
+    #: the decoder's cross-attention K/V of an encoder-decoder model,
+    #: (L, B, S_enc, KV, Dh) each, else None
+    enc_kv: Optional[KVCache] = None
 
 
 # ---------------------------------------------------------------------------
@@ -58,10 +68,12 @@ def _norm(gen: torch.Generator, shape, scale: float) -> torch.Tensor:
                                 device=gen.device)).to(DTYPE)
 
 
-def _init_attn(gen, cfg: ModelConfig, L: int) -> dict:
+def _init_attn(gen, cfg: ModelConfig, L: int, cross: bool = False) -> dict:
+    """Attention projections; a cross-attention block (``cross``) has no
+    biases."""
     D, Hp, KV, Dh = cfg.d_model, cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim
     s_in = (2.0 / (D + Hp * Dh)) ** 0.5
-    wq = _norm(gen, (L, D, Hp * Dh), s_in)
+    wq = _norm_per_layer(gen, (L, D, Hp * Dh), s_in)
     # zero the padded query heads' projections (q = 0 there; the heads
     # still attend — uniformly, over KV head 0 — and pass through wo)
     if Hp != cfg.n_heads:
@@ -70,11 +82,11 @@ def _init_attn(gen, cfg: ModelConfig, L: int) -> dict:
     p = dict(
         ln=torch.ones((L, D), dtype=DTYPE, device=gen.device),
         wq=wq,
-        wk=_norm(gen, (L, D, KV * Dh), s_in),
-        wv=_norm(gen, (L, D, KV * Dh), s_in),
-        wo=_norm(gen, (L, Hp * Dh, D), s_in),
+        wk=_norm_per_layer(gen, (L, D, KV * Dh), s_in),
+        wv=_norm_per_layer(gen, (L, D, KV * Dh), s_in),
+        wo=_norm_per_layer(gen, (L, Hp * Dh, D), s_in),
     )
-    if cfg.attn_bias:
+    if cfg.attn_bias and not cross:
         p["bq"] = torch.zeros((L, Hp * Dh), dtype=DTYPE, device=gen.device)
         p["bk"] = torch.zeros((L, KV * Dh), dtype=DTYPE, device=gen.device)
         p["bv"] = torch.zeros((L, KV * Dh), dtype=DTYPE, device=gen.device)
@@ -89,15 +101,16 @@ def _init_mlp(gen, cfg: ModelConfig, L: int) -> dict:
     s = (2.0 / (D + F)) ** 0.5
     return dict(
         ln=torch.ones((L, D), dtype=DTYPE, device=gen.device),
-        w1=_norm(gen, (L, D, F), s),
-        w2=_norm(gen, (L, F, D), s),
-        w3=_norm(gen, (L, D, F), s),
+        w1=_norm_per_layer(gen, (L, D, F), s),
+        w2=_norm_per_layer(gen, (L, F, D), s),
+        w3=_norm_per_layer(gen, (L, D, F), s),
     )
 
 
 def _norm_per_layer(gen: torch.Generator, shape, scale: float):
-    """``_norm`` drawn one layer at a time: the fp32 draw of a whole
-    expert stack (qwen3-moe's w1 at 4 layers: 12.9 GB) never exists."""
+    """``_norm`` drawn one layer at a time: the fp32 draw of a whole stack
+    (qwen3-moe's expert w1 at 4 layers: 12.9 GB; internvl2's MLP w1 at 48
+    layers: 19.3 GB) never exists."""
     out = torch.empty(shape, dtype=DTYPE, device=gen.device)
     for l in range(shape[0]):
         out[l] = _norm(gen, shape[1:], scale)
@@ -138,14 +151,13 @@ def _init_mamba(gen, cfg: ModelConfig, L: int) -> dict:
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device="cuda") -> dict:
-    """Stacked parameter dict for a dense, MoE or SSM model: the
-    reference's shapes and scales (``_init_attn``/``_init_mlp``/
-    ``_init_moe``/``_init_mamba``), drawn from ``generator`` (on its own
-    device: a CUDA generator keeps a large model's draw off the host) and
-    moved to ``device``."""
+    """Stacked parameter dict with the reference's keys, shapes and
+    scales (``_init_attn``/``_init_mlp``/``_init_moe``/``_init_mamba``),
+    drawn from ``generator`` (on its own device: a CUDA generator keeps a
+    large model's draw off the host) and moved to ``device``. A hybrid's
+    stacks are (periods, per-period index, ...); an encoder-decoder adds
+    ``enc_attn``, ``enc_mlp``, ``enc_final_ln`` and ``cross_attn``."""
     device = resolve_device(device)
-    if cfg.kind not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(f"{cfg.kind} models are not ported yet")
     D, V, L = cfg.d_model, cfg.padded_vocab, cfg.n_layers
     params: dict = {
         "embed": _norm(generator, (V, D), D ** -0.5),
@@ -155,13 +167,38 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["lm_head"] = _norm(generator, (D, V), D ** -0.5)
     if cfg.kind == "ssm":
         params["mamba"] = _init_mamba(generator, cfg, L)
+    elif cfg.attn_every:
+        n_per = L // cfg.attn_every
+        inner = cfg.attn_every - 1          # Mamba2 layers a period
+        n_moe = cfg.attn_every // cfg.moe.every
+        n_dense = cfg.attn_every - n_moe
+        params["attn"] = _init_attn(generator, cfg, n_per)
+        params["mamba"] = _periods(
+            _init_mamba(generator, cfg, n_per * inner), n_per)
+        params["ffn_dense"] = _periods(
+            _init_mlp(generator, cfg, n_per * n_dense), n_per)
+        params["ffn_moe"] = _periods(
+            _init_moe(generator, cfg, n_per * n_moe), n_per)
     else:
         params["attn"] = _init_attn(generator, cfg, L)
         if _use_moe(cfg):
             params["moe"] = _init_moe(generator, cfg, L)
         else:
             params["mlp"] = _init_mlp(generator, cfg, L)
+    if cfg.encoder_layers:
+        Le = cfg.encoder_layers
+        params["enc_attn"] = _init_attn(generator, cfg, Le)
+        params["enc_mlp"] = _init_mlp(generator, cfg, Le)
+        params["enc_final_ln"] = torch.ones((D,), dtype=DTYPE,
+                                            device=generator.device)
+        params["cross_attn"] = _init_attn(generator, cfg, L, cross=True)
     return _to(params, device)
+
+
+def _periods(stack: dict, n_per: int) -> dict:
+    """A stack of ``n_per * k`` layers → (n_per, k, ...) per leaf."""
+    return {k: t.reshape((n_per, t.shape[0] // n_per) + t.shape[1:])
+            for k, t in stack.items()}
 
 
 def _use_moe(cfg: ModelConfig) -> bool:
@@ -184,29 +221,41 @@ def _layer(stack: dict, l: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
-                window: int = 0, device="cuda") -> Caches:
-    """Preallocated decode caches: stacked KV for an attention stack, a
-    zero stacked Mamba2 state for an SSM stack. ``window`` > 0 — and, as
-    in the reference, a windowed model's ``sliding_window`` when it is 0
-    — bounds the KV cache to that many slots (the ring buffer of
-    sliding-window decode)."""
+                enc_len: int = 0, window: int = 0, device="cuda") -> Caches:
+    """Preallocated decode caches: stacked KV of the attention layers, a
+    zero stacked Mamba2 state of an SSM stack or a hybrid ((periods,
+    attn_every - 1, ...)), and with ``enc_len`` an encoder-decoder's
+    zero cross-attention K/V. ``window`` > 0 — and, as in the reference,
+    a windowed model's ``sliding_window`` when it is 0 — bounds the KV
+    cache to that many slots (the ring buffer of sliding-window
+    decode)."""
     device = resolve_device(device)
-    if cfg.kind == "ssm":
+    KV, Dh = cfg.n_kv_heads, cfg.head_dim
+    kv = None
+    if cfg.attention_layers:
+        eff_window = window or cfg.sliding_window
+        S = min(max_len, eff_window) if eff_window else max_len
+        shape = (cfg.attention_layers, batch, S, KV, Dh)
+        kv = KVCache(k=torch.zeros(shape, dtype=DTYPE, device=device),
+                     v=torch.zeros(shape, dtype=DTYPE, device=device))
+    ssm = None
+    if cfg.ssm is not None and cfg.kind in ("ssm", "hybrid"):
         s = cfg.ssm
-        L = cfg.n_layers
+        lead = (cfg.n_layers // cfg.attn_every, cfg.attn_every - 1) \
+            if cfg.attn_every else (cfg.n_layers,)
         ssm = MambaState(
-            ssm=torch.zeros((L, batch, s.n_heads(cfg.d_model), s.head_dim,
-                             s.d_state), dtype=torch.float32, device=device),
-            conv=torch.zeros((L, batch, s.d_conv - 1,
-                              s.conv_channels(cfg.d_model)), dtype=DTYPE,
-                             device=device))
-        return Caches(kv=None, length=0, ssm=ssm)
-    eff_window = window or cfg.sliding_window
-    S = min(max_len, eff_window) if eff_window else max_len
-    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, cfg.head_dim)
-    return Caches(kv=KVCache(k=torch.zeros(shape, dtype=DTYPE, device=device),
-                             v=torch.zeros(shape, dtype=DTYPE, device=device)),
-                  length=0)
+            ssm=torch.zeros(lead + (batch, s.n_heads(cfg.d_model), s.head_dim,
+                                    s.d_state), dtype=torch.float32,
+                            device=device),
+            conv=torch.zeros(lead + (batch, s.d_conv - 1,
+                                     s.conv_channels(cfg.d_model)),
+                             dtype=DTYPE, device=device))
+    enc_kv = None
+    if cfg.encoder_layers and enc_len:
+        shape = (cfg.n_layers, batch, enc_len, KV, Dh)
+        enc_kv = KVCache(k=torch.zeros(shape, dtype=DTYPE, device=device),
+                         v=torch.zeros(shape, dtype=DTYPE, device=device))
+    return Caches(kv=kv, length=0, ssm=ssm, enc_kv=enc_kv)
 
 
 # ---------------------------------------------------------------------------
@@ -245,25 +294,67 @@ def _ffn(x, p, cfg: ModelConfig, use_moe: bool):
     return mlp_block(x, p, cfg), 0.0
 
 
+def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
+    """frames (B, F, D) stub embeddings → (B, F, D) encoder output: a
+    bidirectional attention + MLP block per encoder layer, then the
+    encoder's final norm."""
+    x = frames.to(DTYPE)
+    for l in range(cfg.encoder_layers):
+        y, _ = attention_block(x, _layer(params["enc_attn"], l), cfg,
+                               causal=False)
+        x = x + y
+        x = x + mlp_block(x, _layer(params["enc_mlp"], l), cfg)
+    return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
+
+
+def build_enc_kv(params, enc_out, cfg: ModelConfig) -> KVCache:
+    """Each decoder layer's cross-attention K/V of the encoder output
+    (B, F, D), rope-free: (L, B, F, KV, Dh) each."""
+    B, F, _ = enc_out.shape
+    KV, Dh = cfg.n_kv_heads, cfg.head_dim
+    p = params["cross_attn"]
+    return KVCache(
+        k=torch.stack([(enc_out @ w).reshape(B, F, KV, Dh) for w in p["wk"]]),
+        v=torch.stack([(enc_out @ w).reshape(B, F, KV, Dh) for w in p["wv"]]))
+
+
+def _self_attention(x, p_a, cfg: ModelConfig, l: int, *, mode: str, caches,
+                    q_offset: int, ring: bool, window_override):
+    """Attention layer ``l``'s self-attention: the prefill form (new KV
+    out) or the extend/decode form over ``caches.kv[l]`` at
+    ``caches.length``."""
+    if mode == "prefill":
+        return attention_block(x, p_a, cfg, q_offset=q_offset, kv_out=True,
+                               window_override=window_override)
+    return attention_block(x, p_a, cfg, cache=(caches.kv.k[l],
+                                               caches.kv.v[l]),
+                           cache_len=caches.length, ring=ring,
+                           window_override=window_override)
+
+
 def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
                    caches, q_offset: int, ring: bool, window_override):
-    """One attention + FFN (MLP or MoE) block per layer; returns (x, the
-    summed MoE aux loss, per-layer kv)."""
+    """One attention + FFN (MLP or MoE) block per layer, with a
+    cross-attention over ``caches.enc_kv`` after each self-attention of
+    an encoder-decoder; returns (x, the summed MoE aux loss, per-layer
+    kv)."""
     use_moe = _use_moe(cfg)
     p_f = params["moe"] if use_moe else params["mlp"]
+    cross = cfg.encoder_layers > 0
+    if cross and (caches is None or caches.enc_kv is None):
+        raise ValueError(f"{cfg.name} cross-attends its encoder: the caches "
+                         f"need enc_kv (prefill(frames=...) builds it)")
     kvs, aux = [], 0.0
     for l in range(cfg.n_layers):
-        p_a = _layer(params["attn"], l)
-        if mode == "prefill":
-            y, kv = attention_block(x, p_a, cfg, q_offset=q_offset,
-                                    kv_out=True,
-                                    window_override=window_override)
-        else:
-            y, kv = attention_block(
-                x, p_a, cfg, cache=(caches.kv.k[l], caches.kv.v[l]),
-                cache_len=caches.length, ring=ring,
-                window_override=window_override)
+        y, kv = _self_attention(x, _layer(params["attn"], l), cfg, l,
+                                mode=mode, caches=caches, q_offset=q_offset,
+                                ring=ring, window_override=window_override)
         x = x + y
+        if cross:
+            y, _ = attention_block(
+                x, _layer(params["cross_attn"], l), cfg,
+                enc_kv=(caches.enc_kv.k[l], caches.enc_kv.v[l]))
+            x = x + y
         y, a = _ffn(x, _layer(p_f, l), cfg, use_moe)
         x = x + y
         aux = aux + a
@@ -271,45 +362,115 @@ def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
     return x, aux, kvs
 
 
-def prefill(params, tokens, cfg: ModelConfig, *, q_offset: int = 0,
-            window_override=None):
-    """Full-sequence prefill of tokens (B, S). Returns (last-position
-    logits (B, V) fp32, Caches with exact-length KV)."""
-    x = _embed(params, tokens, cfg)
+def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
+                  q_offset: int, ring: bool, window_override):
+    """The jamba period stack: each period is [attention, Mamba2 ×
+    (attn_every - 1)], an FFN after every mixer — MoE at the in-period
+    positions ``pos % moe.every == moe.every - 1``, a dense MLP at the
+    others. In decode the period's attention layer reads ``caches.kv[p]``
+    and its Mamba2 layer j ``caches.ssm[p, j]``. Returns (x, the summed
+    MoE aux loss, per-period kv, the new (periods, attn_every - 1, ...)
+    MambaState)."""
+    period, every = cfg.attn_every, cfg.moe.every
+    kvs, ssms, convs, aux = [], [], [], 0.0
+    for per in range(cfg.n_layers // period):
+        p_m = _layer(params["mamba"], per)
+        p_fd = _layer(params["ffn_dense"], per)
+        p_fm = _layer(params["ffn_moe"], per)
+        i_d = i_m = 0
+        per_ssm, per_conv = [], []
+        for pos in range(period):
+            if pos == 0:
+                y, kv = _self_attention(
+                    x, _layer(params["attn"], per), cfg, per, mode=mode,
+                    caches=caches, q_offset=q_offset, ring=ring,
+                    window_override=window_override)
+                kvs.append(kv)
+            else:
+                st = None if caches is None or caches.ssm is None \
+                    else MambaState(ssm=caches.ssm.ssm[per, pos - 1],
+                                    conv=caches.ssm.conv[per, pos - 1])
+                y, new = mamba_block(x, _layer(p_m, pos - 1), cfg, state=st,
+                                     return_state=True)
+                per_ssm.append(new.ssm)
+                per_conv.append(new.conv)
+            x = x + y
+            if pos % every == every - 1:
+                y, a = moe_block(x, _layer(p_fm, i_m), cfg)
+                aux = aux + a
+                i_m += 1
+            else:
+                y = mlp_block(x, _layer(p_fd, i_d), cfg)
+                i_d += 1
+            x = x + y
+        ssms.append(torch.stack(per_ssm))
+        convs.append(torch.stack(per_conv))
+    return x, aux, kvs, MambaState(ssm=torch.stack(ssms),
+                                   conv=torch.stack(convs))
+
+
+def _run_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
+               q_offset: int = 0, ring: bool = False, window_override=None):
+    """The decoder stack of any family → (h, per-layer kv or None, the
+    new stacked MambaState or None)."""
     if cfg.kind == "ssm":
-        h, ssm = _ssm_stack(params, x, cfg, None)
-        h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-        logits = _logits_at(params, h[:, -1:, :], cfg)[:, 0]
-        return logits, Caches(kv=None, length=q_offset + tokens.shape[1],
-                              ssm=ssm)
-    h, _, kvs = _uniform_stack(params, x, cfg, mode="prefill", caches=None,
-                               q_offset=q_offset, ring=False,
+        h, ssm = _ssm_stack(params, x, cfg, caches)
+        return h, None, ssm
+    if cfg.attn_every:
+        h, _, kvs, ssm = _hybrid_stack(params, x, cfg, mode=mode,
+                                       caches=caches, q_offset=q_offset,
+                                       ring=ring,
+                                       window_override=window_override)
+        return h, kvs, ssm
+    h, _, kvs = _uniform_stack(params, x, cfg, mode=mode, caches=caches,
+                               q_offset=q_offset, ring=ring,
                                window_override=window_override)
+    return h, kvs, None
+
+
+def prefill(params, tokens, cfg: ModelConfig, *, frames=None, patches=None,
+            q_offset: int = 0, window_override=None):
+    """Full-sequence prefill of tokens (B, S). An encoder-decoder encodes
+    ``frames`` (B, F, D) first and builds the cross-attention K/V; the
+    patch frontend prepends ``patches`` (B, P, D) to the embedded tokens
+    (the length counts them). Returns (last-position logits (B, V) fp32,
+    Caches holding the exact-length KV, the final SSM state and the
+    encoder's K/V)."""
+    x = _embed(params, tokens, cfg)
+    enc_kv = None
+    if cfg.encoder_layers:
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: "
+                             f"prefill needs frames")
+        enc_kv = build_enc_kv(params, encode(params, frames, cfg), cfg)
+    elif cfg.frontend == "patch" and patches is not None:
+        x = torch.cat([patches.to(DTYPE), x], dim=1)
+    h, kvs, ssm = _run_stack(params, x, cfg, mode="prefill",
+                             caches=Caches(kv=None, length=0, enc_kv=enc_kv),
+                             q_offset=q_offset,
+                             window_override=window_override)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = _logits_at(params, h[:, -1:, :], cfg)[:, 0]
-    kv = KVCache(k=torch.stack([k for k, _ in kvs]),
-                 v=torch.stack([v for _, v in kvs]))
-    return logits, Caches(kv=kv, length=q_offset + tokens.shape[1])
+    kv = None if not kvs else KVCache(k=torch.stack([k for k, _ in kvs]),
+                                      v=torch.stack([v for _, v in kvs]))
+    return logits, Caches(kv=kv, length=q_offset + x.shape[1], ssm=ssm,
+                          enc_kv=enc_kv)
 
 
 def decode_step(params, tokens, caches: Caches, cfg: ModelConfig, *,
                 ring: bool = False, window_override=None):
     """tokens (B, S) against preallocated caches (KV written in place; an
-    SSM state continues from ``caches.ssm`` and is returned anew).
+    SSM or hybrid state continues from ``caches.ssm`` and is returned
+    anew; an encoder-decoder cross-attends ``caches.enc_kv``).
     ``ring``: the KV cache is a sliding-window ring buffer (S = 1).
     Returns (logits (B, S, V) fp32, caches with the length advanced)."""
     x = _embed(params, tokens, cfg)
-    ssm = caches.ssm
-    if cfg.kind == "ssm":
-        h, ssm = _ssm_stack(params, x, cfg, caches)
-    else:
-        h, _, _ = _uniform_stack(params, x, cfg, mode="decode",
-                                 caches=caches, q_offset=0, ring=ring,
-                                 window_override=window_override)
+    h, _, ssm = _run_stack(params, x, cfg, mode="decode", caches=caches,
+                           ring=ring, window_override=window_override)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = _logits_at(params, h, cfg)
-    return logits, Caches(kv=caches.kv, length=caches.length + tokens.shape[1],
-                          ssm=ssm)
+    return logits, caches._replace(length=caches.length + tokens.shape[1],
+                                   ssm=ssm if ssm is not None else caches.ssm)
 
 
 def decode_step_paged(params, tokens, k_pages, v_pages, block_table,
@@ -319,7 +480,12 @@ def decode_step_paged(params, tokens, k_pages, v_pages, block_table,
     tokens (B, 1); k/v_pages (L, P, page, KV, Dh), written in place;
     block_table (B, max_pages) int32 (0-padded with the null page);
     seq_lens (B,) int32 tokens already written per slot. Returns
-    (logits (B, 1, V) fp32, k_pages, v_pages)."""
+    (logits (B, 1, V) fp32, k_pages, v_pages). Uniform attention stacks
+    only: a hybrid, SSM or encoder-decoder stack decodes with
+    ``decode_step``."""
+    if cfg.attention_layers != cfg.n_layers or cfg.encoder_layers:
+        raise ValueError(f"paged decode covers uniform attention stacks; "
+                         f"{cfg.name} ({cfg.kind}) decodes with decode_step")
     use_moe = _use_moe(cfg)
     p_f = params["moe"] if use_moe else params["mlp"]
     x = _embed(params, tokens, cfg)

@@ -633,10 +633,34 @@ class PrefillResult:
 
 def paged_supported(cfg: ModelConfig) -> bool:
     """The paged decode substrate covers uniform attention-only stacks;
-    an SSM stack keeps its recurrent state. Drivers use this to decide
-    whether to build a ``DevicePagePool`` at all (staging into a pool no
-    decode worker will ever adopt from just leaks pages)."""
-    return cfg.attention_layers == cfg.n_layers
+    hybrid, SSM and encoder-decoder stacks keep their own caches. Drivers
+    use this to decide whether to build a ``DevicePagePool`` at all
+    (staging into a pool no decode worker will ever adopt from just leaks
+    pages)."""
+    return cfg.attention_layers == cfg.n_layers and not cfg.encoder_layers
+
+
+def kv_worker_refusal(cfg: ModelConfig) -> str:
+    """Why the KV serving workers (``PrefillWorker``, ``DecodeWorker``)
+    cannot serve ``cfg`` — empty when they can — naming the entry point
+    to use instead. The reference's workers take these models and lose
+    state silently: its dense join copies KV only (a hybrid's Mamba2
+    state stays zero), and its token-only prefill gives an
+    encoder-decoder no encoder output at all."""
+    if cfg.kind == "ssm":
+        return (f"{cfg.name} is an SSM model whose decode state is its "
+                f"recurrent state — serve it through StateCheckpointWorker "
+                f"and decode_step")
+    if cfg.ssm is not None:
+        return (f"{cfg.name} is a hybrid whose decode state is its KV and "
+                f"its Mamba2 states together, which a KV join would drop — "
+                f"run models.transformer.prefill and decode_step")
+    if cfg.encoder_layers:
+        return (f"{cfg.name} is an encoder-decoder model whose decoder "
+                f"cross-attends its encoder's output, which a token-only "
+                f"prefill never computes — run "
+                f"models.transformer.prefill(frames=...) and decode_step")
+    return ""
 
 
 def stage_run(pool: Optional[DevicePagePool], hash_ids: list[int], k_full,
@@ -758,12 +782,10 @@ class PrefillWorker:
     def __init__(self, params, cfg: ModelConfig, pool: HostKVPool, *,
                  prefill_chunk: int = 1024, ssd_mode: str = "overlap",
                  page_pool: Optional[DevicePagePool] = None) -> None:
-        if cfg.attention_layers != cfg.n_layers:
-            raise ValueError(
-                f"PrefillWorker's KV path serves uniform attention stacks; "
-                f"{cfg.name} ({cfg.kind}) has {cfg.attention_layers} of "
-                f"{cfg.n_layers} attention layers — an SSM model prefills "
-                f"through StateCheckpointWorker")
+        reason = kv_worker_refusal(cfg)
+        if reason:
+            raise ValueError(f"PrefillWorker's KV path serves uniform "
+                             f"attention stacks: {reason}")
         if ssd_mode not in ("blocking", "overlap"):
             raise ValueError(f"unknown ssd_mode {ssd_mode!r}")
         self.params = params
@@ -1143,14 +1165,13 @@ class DecodeWorker:
                 f"reference's window-sized arena silently clamps writes "
                 f"past the window, so the port refuses it — decode on the "
                 f"paged substrate")
-        if cfg.kind == "ssm":
+        reason = kv_worker_refusal(cfg)
+        if reason:
             # the reference's dense join copies KV only and would leave a
-            # joined slot's SSM state at zero; refuse rather than decode
+            # joined slot's SSM state at zero, and an encoder-decoder's
+            # slot without cross-attention K/V; refuse rather than decode
             # from an empty state
-            raise ValueError(
-                f"DecodeWorker joins KV caches; {cfg.name} is an SSM model "
-                f"whose decode state is its recurrent state — decode with "
-                f"decode_step from StateCheckpointWorker's caches")
+            raise ValueError(f"DecodeWorker joins KV caches: {reason}")
         self.params = params
         self.cfg = cfg
         self.device = params["embed"].device

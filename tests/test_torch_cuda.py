@@ -269,6 +269,7 @@ SSD_CUDA_CASES = [  # b, s, h, p, n, chunk, with_h0
     (2, 64, 5, 16, 128, 32, False),
     (1, 256, 32, 16, 16, 32, True),      # mamba2-2.7b.reduced()'s mixer
     (1, 40, 2, 24, 64, 40, True),        # p not a multiple of 16
+    (1, 512, 8, 64, 64, 256, True),      # jamba-1.5's mixer per head (n 64)
 ]
 
 
@@ -528,7 +529,8 @@ def test_ssd_kernel_chunk_lengths_strided_views(cuda, chunk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [(1, 512, 4, 64, 128, 256, True),
-                                  (2, 130, 3, 24, 16, 65, True)])
+                                  (2, 130, 3, 24, 16, 65, True),
+                                  (1, 512, 8, 64, 64, 256, True)])
 def test_ssd_kernel_passes_match_the_plain_passes(cuda, case):
     """Each of the four passes' outputs against its plain pass on the same
     inputs: C·Bᵀ (lower triangle), cum and S_c, h_in, then y and hT."""
@@ -541,7 +543,10 @@ def test_ssd_kernel_passes_match_the_plain_passes(cuda, case):
     cum, states = chunk_state(x, dt, A, B, chunk)
     h_in, h_T = state_pass(states, cum, h0)
     torch.cuda.synchronize()
-    _ssd_close((got["cb"] * tri,), (cb * tri,))
+    # only cb's lower triangle is written: select it (the unwritten
+    # upper triangle may hold a NaN, and NaN x 0 is NaN)
+    _ssd_close((torch.where(tri, got["cb"], 0.0),),
+               (torch.where(tri, cb, 0.0),))
     _ssd_close((got["cum"], got["states"]), (cum, states))
     _ssd_close((got["h_in"],), (h_in,))
     _ssd_close((y, hT), (chunk_scan(x, dt, C, cb, cum, h_in), h_T))
@@ -600,3 +605,31 @@ def test_tiered_prefill_sets_the_store_bytes_into_the_arena(cuda, tmp_path,
         cfg.n_layers * (pw.counters["chunks"] - chunks0)
     assert pool.store.read_failures == 0
     pool.close()
+
+
+@pytest.mark.cuda
+def test_head_dim_96_is_refused_on_the_card(cuda):
+    """phi3-mini-3.8b's head_dim 96 is taken by neither attention kernel:
+    both entry points raise ``ValueError`` on CUDA tensors (no fallback to
+    the plain versions), and so does a model of that head_dim on the
+    card."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import init_params, prefill
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (1, 64, 4, 96), cuda)
+    k = _randn(rng, (1, 64, 4, 96), cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        flash_prefill_attention(q, k, k)
+    pages = _randn(rng, (3, 64, 4, 96), cuda)
+    tbl, lens = _paged_table(rng, [10], 3, 64, 1, cuda)
+    with pytest.raises(ValueError, match="96"):
+        paged_decode_attention(q[:, 0], pages, pages, tbl, lens)
+    full = get_config("phi3-mini-3.8b")
+    assert full.head_dim == 96
+    cfg = dataclasses.replace(full.reduced(), head_dim=full.head_dim)
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        prefill(params, torch.zeros((1, 64), dtype=torch.int64,
+                                    device=cuda), cfg)
