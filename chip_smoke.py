@@ -109,13 +109,32 @@ Phases, each printed as it runs; any failure exits non-zero:
      hybrid stack at reduced width (one full-width period, 90 GB of
      bf16, exceeds the card): prefill(), an extend of the whole prompt
      and 16 steps, the kernel path under the plain run's MoE routing
-     held at every position.
+     held at every position;
+ 14. the multi-device serving paths with every mesh position on the
+     card (it has one GPU; ``make_decode_mesh`` refuses to stack
+     positions, so the meshes are built from explicit device arrays):
+     (a) ``paged_decode_attention_sharded`` on a (2, 2) mesh at
+     llama2-70b's decode shape (64 query heads over 8 KV, head_dim 128),
+     bitwise the unsharded kernel with its split count pinned, within
+     2e-2 of the plain version, timed; (b) llama2-70b at full width,
+     depth cut to 8 of 80 layers: PrefillWorker, the banked page pool and
+     DecodeWorker on meshes (1,1), (2,1), (1,2), (2,2) — three prompts
+     sharing one 512-token block, one fanned out to two slots, 16 new
+     tokens each — every mesh's streams and logits held against the
+     unmeshed run by phase 5's rule, COW and leak checks, step times,
+     peak memory; the launcher's body on ``make_decode_mesh(1, 1)``
+     serving phase 5's workload; the refusal of ``make_decode_mesh(2,
+     2)`` on a one-GPU host; (c) CPP over 4 stages of 2 layers, one
+     8,192-token prompt in 1,024-token chunks: 11 microsteps, 64
+     flash_prefill launches, logits within 4 ulps of ``cpp_reference``
+     and KV within 2e-2 of its scale, both wall times.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -1992,6 +2011,256 @@ def e2e_jamba(torch, device="cuda", prompt_len=200, steps=16):
                              "disagree")
     return dict(launches=launches, err=err, spread=spread)
 
+# ---------------------------------------------------------------------------
+# phase 14: the multi-device serving paths, every position on one card
+# ---------------------------------------------------------------------------
+
+def card_mesh(torch, shape, axes, device="cuda"):
+    """A mesh whose every position names ``device`` (the card has one
+    GPU; ``make_decode_mesh`` would refuse to stack positions)."""
+    import numpy as np
+    from repro_torch.launch.mesh import Mesh
+    n = int(np.prod(shape))
+    return Mesh(np.asarray([torch.device(device)] * n,
+                           dtype=object).reshape(shape), axes)
+
+
+def llama_cut(torch, device="cuda"):
+    """llama2-70b at full width, depth cut to 8 of 80 layers (80 are
+    ~141 GB of bf16); ``device="cpu"``: the reduced width, its heads
+    made grouped GQA (16 over 4) so they stripe over a model axis."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    cfg = get_config("llama2-70b")
+    if device != "cuda":
+        cfg = dataclasses.replace(cfg.reduced(), n_heads=16, n_kv_heads=4)
+    cfg = dataclasses.replace(cfg, n_layers=8)
+    return cfg, draw_params(torch, cfg, device)
+
+
+def check_sharded_op(torch, timer) -> dict:
+    """(a): ``paged_decode_attention_sharded`` on a (2, 2) mesh over the
+    card at llama2-70b's decode shape: bitwise the unsharded kernel with
+    its split count pinned, within 2e-2 of the plain version; timed
+    beside the unsharded kernel."""
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.kernels.paged_attention.ops import (
+        grouped_map, paged_decode_attention_sharded)
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    lens = [1, 2048, 1536, 64, 65, 700, 1537, 333]
+    q, kp, vp, table, lens_t, _ = paged_case(
+        torch, B=8, H=64, KV=8, D=128, page=64, max_pages=32, P=257,
+        lens=lens, qh2kv=None, seed=14)
+    mk = grouped_map(64, 8, q.device)
+    mesh = card_mesh(torch, (2, 2), ("data", "model"))
+    whole = paged_attention(q, kp, vp, table, lens_t, mk)
+    splits = paged_attention.last_splits
+    got = paged_decode_attention_sharded(q, kp, vp, table, lens_t, mesh=mesh,
+                                         n_splits=splits)
+    own = paged_decode_attention_sharded(q, kp, vp, table, lens_t, mesh=mesh)
+    shard_splits = paged_attention.last_splits
+    ref = paged_attention_ref(q, kp, vp, table, lens_t)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(got, whole))
+    err = (got.float() - ref.float()).abs().max().item()
+    err_own = (own.float() - ref.float()).abs().max().item()
+    ms = timer.ms(lambda: paged_decode_attention_sharded(
+        q, kp, vp, table, lens_t, mesh=mesh))
+    whole_ms = timer.ms(lambda: paged_attention(q, kp, vp, table, lens_t, mk))
+    log(f"sharded op (2x2 on the card, B=8 H=64 KV=8 D=128, lens {lens}): "
+        f"pinned to the unsharded {splits} splits bitwise == unsharded "
+        f"kernel: {bitwise}; max_abs_err vs plain {err:.3e} (each shard's "
+        f"own choice, {shard_splits} splits: {err_own:.3e}; tol {TOL}); "
+        f"sharded op {ms:.4f} ms (4 launches + stripe copies) vs the "
+        f"unsharded kernel {whole_ms:.4f} ms")
+    if not bitwise or max(err, err_own) > TOL:
+        raise AssertionError("the sharded paged op disagrees")
+    return dict(ms=ms, whole_ms=whole_ms, err=err, splits=splits)
+
+
+def mesh_engine_run(torch, params, cfg, prompts, dm, max_new, device):
+    """Prefill -> banked pool -> DecodeWorker on mesh ``dm`` (None:
+    unmeshed). Returns streams, per-request logits rows, step times and
+    the launches of the run."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.serving.engine import (DecodeWorker, HostKVPool,
+                                            PrefillWorker)
+    from repro_torch.serving.paged_cache import DevicePagePool
+    from repro_torch.serving.request import ServingRequest
+    mesh = None if dm is None else card_mesh(torch, dm, ("data", "model"),
+                                             device)
+    pp = DevicePagePool(cfg, n_pages=80, mesh=mesh, device=device)
+    pool = HostKVPool()
+    pw = PrefillWorker(params, cfg, pool, prefill_chunk=256, page_pool=pp)
+    dw = DecodeWorker(params, cfg, max_batch=4, max_len=1024, page_pool=pp)
+    rows: dict = {}
+    call = dw._paged_call
+
+    def recorded(*a):
+        lg = call(*a)
+        for i, s in enumerate(dw.slots):
+            if s is not None:
+                rows.setdefault(s.req_id, []).append(lg[i, -1].float())
+        return lg
+
+    dw._paged_call = recorded
+    paged_attention.launches = 0
+    flash_prefill.launches = 0
+    press = [pw(t) for t in prompts]
+    outs = {}
+    # the fan-out first: one result in two slots (shared tail -> COW)
+    for rid, i in [(2, 2), (3, 2), (0, 0), (1, 1)]:
+        dw.join(ServingRequest(req_id=rid, tokens=None, max_new=max_new),
+                press[i])
+        outs[rid] = [press[i].first_token]
+    steps = []
+    while dw.n_active:
+        t0 = time.monotonic()
+        got = dw.step()                 # ends in a device-to-host copy
+        steps.append(time.monotonic() - t0)
+        for rid, tok, _ in got:
+            outs[rid].append(tok)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_prefill": flash_prefill.launches}
+    st = pp.stats()
+    pp.check_leaks()
+    pool.close()
+    n_pos = 1 if dm is None else dm[0] * dm[1]
+    if device == "cuda" and (
+            launches["paged_attention"]
+            != n_pos * cfg.n_layers * dw.counters["steps"]
+            or not launches["flash_prefill"]):
+        raise AssertionError(f"mesh {dm}: launches {launches} do not match "
+                             f"{n_pos} positions x {cfg.n_layers} layers x "
+                             f"{dw.counters['steps']} steps")
+    if st["cow_copies"] < 1:
+        raise AssertionError(f"mesh {dm}: no copy-on-write ran")
+    return dict(outs=outs, rows={r: torch.stack(v) for r, v in rows.items()},
+                steps=steps, launches=launches, decode=dw.stats(), pages=st)
+
+
+def e2e_mesh(torch, params, cfg, device="cuda") -> dict:
+    """(b): the engine on meshes (1,1), (2,1), (1,2), (2,2) over the
+    card, each held against the unmeshed run by phase 5's rule; the
+    launcher's body on ``make_decode_mesh(1, 1)``; the refusal of a
+    2x2 mesh on a one-GPU host."""
+    import numpy as np
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.paged_attention.kernel import paged_attention
+    from repro_torch.launch.mesh import make_decode_mesh
+    from repro_torch.launch.serve import serve
+    rng = np.random.default_rng(14)
+    common = rng.integers(0, cfg.vocab_size, 512)     # one shared block
+    prompts = [np.concatenate([common, rng.integers(0, cfg.vocab_size,
+                                                    88 + 37 * r)])
+               for r in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30
+    base = mesh_engine_run(torch, params, cfg, prompts, None, 16, device)
+    out = {"unmeshed": base}
+    for dm in [(1, 1), (2, 1), (1, 2), (2, 2)]:
+        r = mesh_engine_run(torch, params, cfg, prompts, dm, 16, device)
+        name = f"{dm[0]}x{dm[1]}"
+        same = r["outs"] == base["outs"]
+        err = max((r["rows"][k] - base["rows"][k]).abs().max().item()
+                  for k in base["rows"])
+        scale = max(v.abs().max().item() for v in base["rows"].values())
+        tol = bf16_ulps(4, scale)
+        log(f"mesh {name}: streams == unmeshed: {same}; logits max_abs_err "
+            f"{err:.4f} (max |logit| {scale:.3f}; tol {tol:.4f} = 4 bf16 "
+            f"ulps); zero-copy/staged joins {r['decode']['zero_copy_joins']}"
+            f"/{r['decode']['staged_joins']}, COW {r['pages']['cow_copies']}"
+            f"; launches {r['launches']}; decode step median "
+            f"{1e3 * float(np.median(r['steps'][1:])):.2f} ms (unmeshed "
+            f"{1e3 * float(np.median(base['steps'][1:])):.2f} ms)")
+        if not same or err > tol:
+            raise AssertionError(f"mesh {name}: streams differ from the "
+                                 f"unmeshed run")
+        out[name] = r
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"mesh runs: max_memory_allocated {peak:.2f} GiB, {before:.2f} GiB "
+        f"of it allocated before the first run (the weights)")
+    paged_attention.launches = 0
+    flash_prefill.launches = 0
+    s = serve(cfg, device, params=params, requests=12, max_batch=8,
+              max_new=16, mesh=make_decode_mesh(1, 1, device=device),
+              log=log)
+    torch.cuda.synchronize()
+    launches = {"paged_attention": paged_attention.launches,
+                "flash_prefill": flash_prefill.launches}
+    log(f"serve --mesh 1x1: {s['completed']}/{s['submitted']} requests, "
+        f"TTFT p50 {s['ttft_p50_s'] * 1e3:.2f} ms, TBT p50 "
+        f"{s['tbt_p50_s'] * 1e3:.2f} ms p99 {s['tbt_p99_s'] * 1e3:.2f} ms; "
+        f"launches {launches} ({cfg.n_layers} x {s['paged_calls']} paged "
+        f"calls, {cfg.n_layers} x {s['prefill_chunks']} chunks)")
+    if s["submitted"] != 8 or s["completed"] != 8:
+        raise AssertionError("serve --mesh 1x1: not every request completed")
+    if device == "cuda" and (
+            launches["paged_attention"] != cfg.n_layers * s["paged_calls"]
+            or launches["flash_prefill"]
+            != cfg.n_layers * s["prefill_chunks"]):
+        raise AssertionError("serve --mesh 1x1: launches do not match")
+    if torch.cuda.device_count() < 4:
+        try:
+            make_decode_mesh(2, 2)
+        except RuntimeError as e:
+            log(f"make_decode_mesh(2, 2) on this host: {e}")
+        else:
+            raise AssertionError("make_decode_mesh(2, 2) stacked positions")
+    out.update(serve=s, serve_launches=launches, peak_gib=peak)
+    return out
+
+
+def e2e_cpp(torch, params, cfg, device="cuda", prompt_len=8192,
+            chunk=1024) -> dict:
+    """(c): CPP over 4 stages of 2 layers on the card, one 8,192-token
+    prompt in 1,024-token chunks, against ``cpp_reference`` (the full
+    prefill)."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.serving.cpp import cpp_prefill, cpp_reference
+    g = torch.Generator().manual_seed(14)
+    toks = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                         generator=g).to(device)
+    mesh = card_mesh(torch, (4,), ("stage",), device)
+    cpp_prefill(params, toks[:, :2 * chunk], cfg, mesh, prefill_chunk=chunk)
+    cpp_reference(params, toks[:, :2 * chunk], cfg)      # warm both paths
+    torch.cuda.synchronize()
+    flash_prefill.launches = 0
+    t0 = time.monotonic()
+    lc, (kc, vc) = cpp_prefill(params, toks, cfg, mesh, prefill_chunk=chunk)
+    torch.cuda.synchronize()
+    cpp_s = time.monotonic() - t0
+    launches = flash_prefill.launches
+    micro = len(cpp_prefill.last_schedule)
+    t0 = time.monotonic()
+    lr, (kr, vr) = cpp_reference(params, toks, cfg)
+    torch.cuda.synchronize()
+    ref_s = time.monotonic() - t0
+    C, X = prompt_len // chunk, 4
+    err = (lc - lr).abs().max().item()
+    scale = lr.abs().max().item()
+    tol = bf16_ulps(4, scale)
+    kerr = max((torch.cat(a).float() - b.float()).abs().max().item()
+               / b.abs().max().item() for a, b in ((kc, kr), (vc, vr)))
+    log(f"cpp: {X} stages x {cfg.n_layers // X} layers, a {prompt_len}-token "
+        f"prompt in {C} chunks of {chunk}: {micro} microsteps, "
+        f"flash_prefill launches {launches} (= {cfg.n_layers} layers x {C} "
+        f"chunks); wall {cpp_s * 1e3:.1f} ms against the full prefill's "
+        f"{ref_s * 1e3:.1f} ms; logits max_abs_err {err:.4f} (max |logit| "
+        f"{scale:.3f}; tol {tol:.4f} = 4 bf16 ulps), KV max_abs_err "
+        f"{kerr:.4f} of its scale (tol {TOL})")
+    if micro != C + X - 1 or (device == "cuda"
+                              and launches != cfg.n_layers * C):
+        raise AssertionError("cpp: wrong schedule or launches")
+    if not bool(torch.isfinite(lc).all()) or err > tol or kerr > TOL:
+        raise AssertionError("cpp disagrees with the full prefill")
+    return dict(launches=launches, microsteps=micro, cpp_s=cpp_s,
+                ref_s=ref_s, err=err, kv_err=kerr)
+
+
 def main() -> int:
     try:
         import torch
@@ -2119,6 +2388,24 @@ def main() -> int:
         f"internvl2 flash_prefill {vl['launches']}, qwen3-14b "
         f"{qw['launches']}, jamba {jb['launches']}; phase 13 took "
         f"{time.monotonic() - t13:.1f} s")
+
+    phase("14 the multi-device serving paths: the (data, model) decode "
+          "mesh and CPP, every position on the card")
+    gc.collect()                # earlier phases' reference cycles
+    torch.cuda.empty_cache()
+    t14 = time.monotonic()
+    op14 = check_sharded_op(torch, timer)
+    cfg14, params14 = llama_cut(torch)
+    mesh14 = e2e_mesh(torch, params14, cfg14)
+    cpp14 = e2e_cpp(torch, params14, cfg14)
+    del params14
+    log(f"phase 14 launches: mesh runs " + ", ".join(
+        f"{k} {v['launches']}" for k, v in mesh14.items()
+        if isinstance(v, dict) and "launches" in v)
+        + f"; serve --mesh 1x1 {mesh14['serve_launches']}; cpp flash_prefill "
+        f"{cpp14['launches']}; the sharded op {op14['ms']:.4f} ms against "
+        f"the unsharded kernel's {op14['whole_ms']:.4f} ms; phase 14 took "
+        f"{time.monotonic() - t14:.1f} s")
 
     kernels = [
         dict(name="paged_attention", route="cuda",

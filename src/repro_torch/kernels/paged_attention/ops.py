@@ -5,6 +5,7 @@ raises) — there is no fallback between the two."""
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -29,8 +30,11 @@ def grouped_map(H: int, KV: int, device) -> torch.Tensor:
 
 
 def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
-                           qh2kv=None, window: int = 0) -> torch.Tensor:
-    """q (B, H, D) over one layer's paged KV → (B, H, D)."""
+                           qh2kv=None, window: int = 0,
+                           n_splits: Optional[int] = None) -> torch.Tensor:
+    """q (B, H, D) over one layer's paged KV → (B, H, D). ``n_splits``
+    forces the kernel's split over tokens (CUDA only: the plain version
+    does not split)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_table,
                                    seq_lens, qh2kv=qh2kv, window=window)
@@ -40,7 +44,49 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     if qh2kv is None:
         qh2kv = grouped_map(q.shape[1], k_pages.shape[2], q.device)
     return paged_attention(q, k_pages, v_pages, block_table, seq_lens,
-                           qh2kv, window=window)
+                           qh2kv, window=window, n_splits=n_splits)
+
+
+def paged_decode_attention_sharded(q, k_pages, v_pages, block_table,
+                                   seq_lens, *, mesh, window: int = 0,
+                                   n_splits: Optional[int] = None
+                                   ) -> torch.Tensor:
+    """Mesh entry: one layer's paged decode attention over a (data,
+    model) mesh — batch rows split over ``data``, KV-head stripes (and
+    the grouped query heads that attend them) over ``model``. Each
+    position runs the unchanged ``paged_decode_attention`` (the kernel on
+    CUDA) on its rows and stripe, on its own device; the outputs
+    reassemble to the global (B, H, D) on q's device. Attention is
+    row- and head-local, so with the unsharded call's ``n_splits`` the
+    result is bitwise ``paged_decode_attention`` on the whole arrays.
+    Grouped GQA only. At this op-level entry the page store is shared by
+    every data shard (one bank, global page ids); the engine's
+    ``DevicePagePool(mesh=...)`` banks pages per data shard instead."""
+    d = int(mesh.shape.get("data", 1))
+    m = int(mesh.shape.get("model", 1))
+    B, H, _ = q.shape
+    KV = k_pages.shape[2]
+    assert H % KV == 0 and KV % m == 0, \
+        f"sharded paged attention is grouped-GQA only (H={H}, KV={KV}, m={m})"
+    assert B % d == 0, f"{B} rows do not split over data={d}"
+    bl, kv_loc = B // d, KV // m
+    q_loc = kv_loc * (H // KV)
+    rows = []
+    for di in range(d):
+        r = slice(di * bl, (di + 1) * bl)
+        heads = []
+        for mi in range(m):
+            dev = mesh.devices[di, mi]
+            kv = slice(mi * kv_loc, (mi + 1) * kv_loc)
+            o = paged_decode_attention(
+                q[r, mi * q_loc:(mi + 1) * q_loc].to(dev).contiguous(),
+                k_pages[:, :, kv].to(dev).contiguous(),
+                v_pages[:, :, kv].to(dev).contiguous(),
+                block_table[r].to(dev).contiguous(), seq_lens[r].to(dev),
+                window=window, n_splits=n_splits)
+            heads.append(o.to(q.device))
+        rows.append(torch.cat(heads, dim=1))
+    return torch.cat(rows, dim=0)
 
 
 def paged_decode_attention_layers(qs, k_pages, v_pages, block_table,

@@ -4,6 +4,7 @@ pair on one GPU.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --requests 16 [--trace trace.jsonl] \
         [--ssd-blocks 64 --ssd-dir D [--ssd-mode overlap]] [--peer-ssd-dir P]
+        [--mesh DxM]
 
 The counterpart of ``python -m repro.launch.serve`` for what the port
 covers: the reduced model of ``--arch`` (a uniform attention stack of
@@ -21,6 +22,10 @@ and preemption (``--no-loop`` keeps the phase-at-a-time driver). With
 ``--peer-ssd-dir``, blocks a PREVIOUS run demoted to its store become
 fetchable as a peer node's through a shared ``GlobalBlockDirectory``
 (the global pool across launcher runs — same seed, same hash chains).
+With ``--mesh DxM`` the paged decode engine shards over a (data, model)
+mesh of the first D·M GPUs: decode slots and page-pool banks split over
+the data axis, KV-head stripes over the model axis (for M > 1 the
+reduced arch is adjusted to grouped GQA, with a printed note).
 Weights are random, from ``--seed``. ``serve()`` is the body, for
 callers that bring their own config and device (the full-width smoke
 run on the GPU, the CPU tests).
@@ -28,6 +33,7 @@ run on the GPU, the CPU tests).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 import threading
 import time
@@ -42,7 +48,8 @@ from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.core.directory import GlobalBlockDirectory
 from repro_torch.core.trace import TraceSpec, generate_trace, load_trace
 from repro_torch.data.pipeline import realize_request_tokens
-from repro_torch.models.transformer import init_params
+from repro_torch.launch.mesh import make_decode_mesh, parse_mesh_arg
+from repro_torch.models.transformer import init_params, paged_shard_reason
 from repro_torch.serving.engine import (DecodeWorker, HostKVPool,
                                         PrefillWorker, kv_worker_refusal)
 from repro_torch.serving.loop import ServingLoop
@@ -85,13 +92,19 @@ def serve(cfg: ModelConfig, device="cuda", *, params=None,
           pool_blocks: int = 4096, width_buckets: int = 1,
           decode_substrate: str = "paged", ssd_blocks: int = 0,
           ssd_dir: Optional[str] = None, ssd_mode: str = "overlap",
-          peer_ssd_dir: Optional[str] = None, seed: int = 0,
+          peer_ssd_dir: Optional[str] = None, seed: int = 0, mesh=None,
           log=print) -> dict:
     """Serve ``requests`` requests end to end; returns a summary dict
-    (counts, times, per-request token streams, the tiers' counters)."""
+    (counts, times, per-request token streams, the tiers' counters).
+    ``mesh``: a (data, model) ``launch.mesh.Mesh`` the paged decode step
+    shards over (prefill runs on ``device``)."""
     reason = kv_worker_refusal(cfg)
     if reason:
         raise ValueError(f"serve() drives the KV serving workers: {reason}")
+    if mesh is not None and decode_substrate != "paged":
+        raise ValueError("a mesh shards the PAGED decode engine; drop "
+                         "decode_substrate='dense'")
+    mesh_d = 1 if mesh is None else int(mesh.shape.get("data", 1))
     device = resolve_device(device)
     if params is None:
         gen = torch.Generator().manual_seed(seed)
@@ -116,8 +129,8 @@ def serve(cfg: ModelConfig, device="cuda", *, params=None,
         if decode_substrate == "paged":
             per_seq = MAX_LEN // 64
             page_pool = DevicePagePool(
-                cfg, n_pages=1 + (max_batch + 1) * per_seq, page_tokens=64,
-                device=device)
+                cfg, n_pages=1 + (max_batch // mesh_d + 1) * per_seq,
+                page_tokens=64, device=device, mesh=mesh)
         pws = [PrefillWorker(params, cfg, pool, prefill_chunk=256,
                              ssd_mode=ssd_mode, page_pool=page_pool)]
         dw = DecodeWorker(params, cfg, max_batch=max_batch, max_len=MAX_LEN,
@@ -204,6 +217,12 @@ def serve(cfg: ModelConfig, device="cuda", *, params=None,
         if page_pool is not None:
             ps = page_pool.stats()
             ds = dw.stats()
+            if mesh is not None:
+                log(f"mesh {mesh_d}x{page_pool.n_model}: "
+                    f"{page_pool.n_banks} page banks "
+                    f"× {page_pool.bank_pages} pages (capacity "
+                    f"{ps['capacity']} logical pages), "
+                    f"{dw.slots_per_bank} slots per data shard")
             log(f"paged substrate: {page_pool.used_pages}/{page_pool.n_pages} "
                 f"pages held, {ps['pages_written']} written, "
                 f"{ps['shared_adoptions']} shared-prefix adoptions, "
@@ -231,6 +250,37 @@ def serve(cfg: ModelConfig, device="cuda", *, params=None,
                 f"fallbacks {summary['fallback_reasons']}); directory "
                 f"{summary['directory']}")
         return summary
+
+
+def mesh_from_args(ap: argparse.ArgumentParser, args, cfg: ModelConfig,
+                   max_batch: Optional[int] = None):
+    """``--mesh DxM`` → (cfg, decode mesh or None), with the reference
+    launchers' checks and messages: the paged substrate only; for a
+    model axis > 1 the reduced arch adjusted to grouped GQA (16 query
+    heads over max(4, M) KV heads) when its own heads cannot stripe;
+    ``max_batch`` (when given) divisible by the data axis."""
+    if not args.mesh:
+        return cfg, None
+    if args.decode_substrate != "paged":
+        ap.error("--mesh shards the PAGED decode engine; drop "
+                 "--decode-substrate dense")
+    mesh_d, mesh_m = parse_mesh_arg(args.mesh)
+    if mesh_m > 1 and paged_shard_reason(cfg, mesh_m, mesh_d):
+        kv = max(4, mesh_m)
+        if 16 % kv or kv % mesh_m:
+            ap.error(f"--mesh model axis {mesh_m} has no grouped-GQA "
+                     f"head layout")
+        print(f"--mesh {args.mesh}: adjusting the reduced arch to "
+              f"grouped GQA (n_heads=16, n_kv_heads={kv}) so KV heads "
+              f"stripe over the model axis")
+        cfg = dataclasses.replace(cfg, n_heads=16, n_kv_heads=kv)
+    reason = paged_shard_reason(cfg, mesh_m, mesh_d)
+    if reason:
+        ap.error(f"--mesh {args.mesh}: {reason}")
+    if max_batch is not None and max_batch % mesh_d:
+        ap.error(f"--max-batch {max_batch} must divide over the "
+                 f"mesh data axis ({mesh_d})")
+    return cfg, make_decode_mesh(mesh_d, mesh_m)
 
 
 def main(argv=None) -> int:
@@ -280,8 +330,18 @@ def main(argv=None) -> int:
                          "previous run): its blocks join a shared "
                          "GlobalBlockDirectory and local misses resolve to "
                          "cross-node fetches")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="shard the paged decode engine over a "
+                         "(data, model) device mesh, e.g. 2x2: decode "
+                         "slots and page-pool banks split over the data "
+                         "axis, KV-head stripes over the model axis. "
+                         "Needs data*model GPUs and, for model>1, a "
+                         "grouped-GQA head layout (the arch's heads are "
+                         "adjusted with a printed note if required)")
     ap.add_argument("--width-buckets", type=int, default=1,
-                    help="per-step block-table width buckets")
+                    help="per-step block-table width buckets (>1 runs "
+                         "shallow slots on narrower tables instead of "
+                         "padding to the deepest; single-device only)")
     ap.add_argument("--decode-substrate", default="paged",
                     choices=("paged", "dense"),
                     help="decode KV substrate: block-table pages (default) "
@@ -292,7 +352,8 @@ def main(argv=None) -> int:
     reason = kv_worker_refusal(cfg)
     if reason:
         ap.error(f"--arch {args.arch}: {reason}")
-    serve(cfg, "cuda", requests=args.requests,
+    cfg, mesh = mesh_from_args(ap, args, cfg, args.max_batch)
+    serve(cfg, "cuda", mesh=mesh, requests=args.requests,
           trace=args.trace, max_batch=args.max_batch, max_new=args.max_new,
           no_loop=args.no_loop, prefill_workers=args.prefill_workers,
           tbt_budget=args.tbt_budget, chunks_per_iter=args.chunks_per_iter,

@@ -37,8 +37,11 @@ equals the trace's.
 The command line serves ``smollm-360m.reduced()`` on the GPU, with random
 weights from ``--seed``, as the reference does; ``serve_cluster()`` is the
 body, for callers that bring their own config, device, hardware model and
-clock (the full-width smoke run, the CPU tests). ``--mesh`` (sharded
-paged decode) is not ported yet.
+clock (the full-width smoke run, the CPU tests). ``--mesh DxM`` shards the
+decode workers' paged step over a (data, model) mesh of the first D·M
+GPUs: the one page pool's banks and the slots split over the data axis,
+KV-head stripes over the model axis (``serve_cluster(..., mesh=)`` takes
+any ``launch.mesh.Mesh``, CPU meshes included).
 """
 from __future__ import annotations
 
@@ -69,6 +72,7 @@ from repro_torch.core.messenger import Messenger
 from repro_torch.core.policies import list_policies
 from repro_torch.core.trace import BLOCK_TOKENS, TraceSpec, generate_trace
 from repro_torch.data.pipeline import realize_request_tokens
+from repro_torch.launch.serve import mesh_from_args
 from repro_torch.models.transformer import init_params
 from repro_torch.serving.engine import (DecodeWorker, HostKVPool,
                                         PrefillWorker, connect_pools,
@@ -393,14 +397,15 @@ def serve_cluster(cfg: ModelConfig, device="cuda", *, params=None,
                   processes: int = 0, chaos: str = "none",
                   chaos_delay: float = 0.08,
                   serve_stall: Optional[float] = None, seed: int = 0,
-                  log=print) -> dict:
+                  mesh=None, log=print) -> dict:
     """Run one lane of the cluster and return its summary dict.
 
     ``hardware``/``n_chips`` build the Conductor's ``InstanceSpec``
     (default: one H100 node); ``clock`` is what the Conductor reads
     ``now`` from. ``params`` defaults to ``seeded_params(cfg, device,
     seed)``; the ``processes`` lane always uses those (its workers build
-    their own)."""
+    their own). ``mesh``: the (data, model) mesh the decode workers'
+    paged step shards over (the in-process lanes)."""
     device = resolve_device(device)
     if processes:
         return _serve_processes(
@@ -436,10 +441,18 @@ def serve_cluster(cfg: ModelConfig, device="cuda", *, params=None,
         page_pool = None
         if decode_substrate == "paged" and paged_supported(cfg):
             per_seq = (max_len + page_tokens - 1) // page_tokens
+            # mesh: n_pages is the PER-BANK budget (capacity scales ×data)
+            mesh_d = 1 if mesh is None else int(mesh.shape.get("data", 1))
             n_pages = device_pages or \
-                1 + (N_DECODE * max_batch + N_PREFILL) * per_seq
+                1 + ((N_DECODE * max_batch) // mesh_d + N_PREFILL) * per_seq
             page_pool = DevicePagePool(cfg, n_pages=n_pages,
-                                       page_tokens=page_tokens, device=device)
+                                       page_tokens=page_tokens, device=device,
+                                       mesh=mesh)
+            if mesh is not None:
+                log(f"decode mesh {mesh_d}x{mesh.shape.get('model', 1)}: "
+                    f"{page_pool.n_banks} page banks × "
+                    f"{page_pool.bank_pages} pages, KV heads / "
+                    f"{page_pool.n_model} model shards")
         pws = [PrefillWorker(params, cfg, pools[i], prefill_chunk=256,
                              ssd_mode=ssd_mode, page_pool=page_pool)
                for i in range(N_PREFILL)]
@@ -702,7 +715,7 @@ def _report_tiers(summary, conductor, pws, pools, directory, page_pool, *,
 # ---------------------------------------------------------------------------
 
 def build_parser() -> argparse.ArgumentParser:
-    """The reference's flags and defaults; ``--mesh`` is refused."""
+    """The reference's flags and defaults."""
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch.launch.serve_cluster",
         description="disaggregated serving cluster (Conductor, prefill and "
@@ -737,7 +750,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "slots), or the dense per-slot arena (the "
                          "bit-exactness oracle)")
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="sharded paged decode: not ported yet")
+                    help="shard the paged decode engine over a (data, "
+                         "model) device mesh (e.g. 2x2): slots + page "
+                         "banks over data, KV-head stripes over model. "
+                         "Needs D*M GPUs")
     ap.add_argument("--device-pages", type=int, default=0,
                     help="device page-pool size (0 = sized from the decode "
                          "workers' slot budget)")
@@ -781,17 +797,17 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh: sharded paged decode is not ported yet "
-                 "(ROADMAP.md queue 1, item 4)")
     if args.worker_node is not None:
         if args.serve_stall is None:
             args.serve_stall = 0.0
         return _worker_main(args)
     if args.global_pool and not args.ssd_blocks:
         ap.error("--global-pool needs an SSD tier (--ssd-blocks > 0)")
+    if args.mesh and args.decode_substrate != "paged":
+        ap.error("--mesh shards the PAGED decode substrate")
+    cfg, mesh = mesh_from_args(ap, args, get_config("smollm-360m").reduced())
     s = serve_cluster(
-        get_config("smollm-360m").reduced(), "cuda",
+        cfg, "cuda", mesh=mesh,
         requests=args.requests, max_new=args.max_new,
         dram_blocks=args.dram_blocks, ssd_blocks=args.ssd_blocks,
         ssd_dir=args.ssd_dir, ssd_mode=args.ssd_mode,

@@ -1,7 +1,8 @@
 """Transformer building blocks in PyTorch (bf16 compute, fp32 reductions)
-— the counterparts of the reference's ``repro/models/layers.py`` (single
-device: the reference's expert- and tensor-parallel ``shard_map`` MoE
-paths are not ported).
+— the counterparts of the reference's ``repro/models/layers.py`` (the
+reference's expert- and tensor-parallel ``shard_map`` MoE paths are not
+ported; the paged attention block's KV-head stripes over a mesh's model
+axis are, as ``PagedShard``).
 
 Attention keeps the reference's numerics on its plain paths (``_attend``:
 fp32 logits, a -1e30 mask, fp32 softmax, probabilities cast to bf16
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -337,9 +339,45 @@ def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
     return y, (k_cache, v_cache)
 
 
+@dataclass(frozen=True)
+class PagedShard:
+    """One data shard's model axis inside ``decode_step_paged_sharded``:
+    for each KV-head stripe (model position, in head order), its device
+    and that device's copies of the shard's bank-local block table and
+    lengths. ``n_model == 1`` on the data shard's own device is the
+    single-device step."""
+    devices: tuple
+    block_tables: tuple
+    seq_lens: tuple
+
+    @property
+    def n_model(self) -> int:
+        return len(self.devices)
+
+
+def _scatter_attend(q, k, v, k_pages, v_pages, block_table, pos, qh2kv,
+                    window: int):
+    """Write each slot's new (k, v) row (B, KV, Dh) into its tail page
+    (inactive slots write the null page 0, which is never read), then
+    attend q (B, H, Dh) through the block table → (B, H, Dh)."""
+    B = q.shape[0]
+    pt = k_pages.shape[1]
+    pidx = torch.clamp(pos.long() // pt, 0, block_table.shape[1] - 1)
+    pids = block_table[torch.arange(B, device=q.device), pidx].long()
+    offs = pos.long() % pt
+    k_pages[pids, offs] = k
+    v_pages[pids, offs] = v
+    lens = (pos + 1).to(torch.int32)
+    attend = paged_attention_ref if q.is_cuda and _FORCE_PLAIN \
+        else paged_decode_attention
+    return attend(q, k_pages, v_pages, block_table, lens, qh2kv=qh2kv,
+                  window=window)
+
+
 def paged_attention_block(x, p, cfg: ModelConfig, *, k_pages, v_pages,
                           block_table, seq_lens,
-                          window_override: Optional[int] = None):
+                          window_override: Optional[int] = None,
+                          shard: Optional[PagedShard] = None):
     """Decode attention sub-block over one layer's PAGED KV store:
     norm → qkv → rope at each slot's depth → scatter the new token's K/V
     into the slot's tail page → attend through the block table.
@@ -350,6 +388,17 @@ def paged_attention_block(x, p, cfg: ModelConfig, *, k_pages, v_pages,
     every active slot's tail page exclusively owned before the step
     (copy-on-write), and inactive slots (length 0, table row 0) write the
     null page 0, which is never read. Returns y (B, 1, D).
+
+    ``shard``: KV heads are striped over the data shard's model
+    positions, and k/v_pages are per-stripe slabs (P, page, KV/m, Dh), one
+    per position in head order, each on its position's device (which
+    takes the block table and lengths from ``shard``). The projections
+    compute the FULL head set on x's device, so every per-head value is
+    the single-device one; each stripe (KV/m KV heads and their g·KV/m
+    query heads, grouped GQA only) is written and attended on its own
+    device; the stripes' outputs concatenate on the head axis ahead of
+    the output projection — the exact recombination, never a partial-sum
+    reduce.
     """
     B, S, _ = x.shape
     assert S == 1, "paged decode is one token per slot per step"
@@ -362,19 +411,26 @@ def paged_attention_block(x, p, cfg: ModelConfig, *, k_pages, v_pages,
     positions = pos.long()[:, None]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-
-    pt = k_pages.shape[1]
-    pidx = torch.clamp(pos.long() // pt, 0, block_table.shape[1] - 1)
-    pids = block_table[torch.arange(B, device=x.device), pidx].long()
-    offs = pos.long() % pt
-    k_pages[pids, offs] = k[:, 0]
-    v_pages[pids, offs] = v[:, 0]
-
-    lens = (pos + 1).to(torch.int32)
-    attend = paged_attention_ref if x.is_cuda and _FORCE_PLAIN \
-        else paged_decode_attention
-    o = attend(q[:, 0], k_pages, v_pages, block_table, lens, qh2kv=qh2kv,
-               window=window)
+    if shard is None:
+        o = _scatter_attend(q[:, 0], k[:, 0], v[:, 0], k_pages, v_pages,
+                            block_table, pos, qh2kv, window)
+    else:
+        m = shard.n_model
+        if m > 1:
+            assert qh2kv is None and KV % m == 0, \
+                "model-parallel KV heads require grouped GQA with KV % m == 0"
+        kv_loc = KV // m
+        q_loc = Hp // m
+        outs = []
+        for mi, dev in enumerate(shard.devices):
+            qs = q[:, 0, mi * q_loc:(mi + 1) * q_loc].to(dev).contiguous()
+            ks = k[:, 0, mi * kv_loc:(mi + 1) * kv_loc].to(dev)
+            vs = v[:, 0, mi * kv_loc:(mi + 1) * kv_loc].to(dev)
+            outs.append(_scatter_attend(
+                qs, ks, vs, k_pages[mi], v_pages[mi], shard.block_tables[mi],
+                shard.seq_lens[mi], None if qh2kv is None else qh2kv.to(dev),
+                window))
+        o = torch.cat([t.to(x.device) for t in outs], dim=1)
     return o.reshape(B, S, Hp * Dh) @ p["wo"]
 
 

@@ -22,7 +22,9 @@ layers is a Python loop here. Forward modes:
                             carried state;
   * ``decode_step_paged`` — one continuous-batching token per slot over
                             the shared paged KV store (uniform attention
-                            stacks only).
+                            stacks only);
+  * ``decode_step_paged_sharded`` — the same over a (data, model) mesh
+                            of a banked page store (dense-MLP stacks).
 KV caches and page slabs are updated in place; an SSM state is replaced
 by the new one a step returns, as in the reference.
 """
@@ -34,9 +36,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (DTYPE, attention_block, mlp_block,
-                                       moe_block, paged_attention_block,
-                                       rms_norm)
+from repro_torch.models.layers import (DTYPE, PagedShard, attention_block,
+                                       mlp_block, moe_block,
+                                       paged_attention_block, rms_norm)
 from repro_torch.models.mamba import MambaState, mamba_block
 
 
@@ -474,7 +476,8 @@ def decode_step(params, tokens, caches: Caches, cfg: ModelConfig, *,
 
 
 def decode_step_paged(params, tokens, k_pages, v_pages, block_table,
-                      seq_lens, cfg: ModelConfig, *, window_override=None):
+                      seq_lens, cfg: ModelConfig, *, window_override=None,
+                      shard: Optional[PagedShard] = None):
     """One continuous-batching decode iteration over the PAGED store.
 
     tokens (B, 1); k/v_pages (L, P, page, KV, Dh), written in place;
@@ -482,7 +485,9 @@ def decode_step_paged(params, tokens, k_pages, v_pages, block_table,
     seq_lens (B,) int32 tokens already written per slot. Returns
     (logits (B, 1, V) fp32, k_pages, v_pages). Uniform attention stacks
     only: a hybrid, SSM or encoder-decoder stack decodes with
-    ``decode_step``."""
+    ``decode_step``. With ``shard`` (``decode_step_paged_sharded``),
+    k/v_pages are the data shard's per-stripe slabs, one (L, P, page,
+    KV/m, Dh) per model position."""
     if cfg.attention_layers != cfg.n_layers or cfg.encoder_layers:
         raise ValueError(f"paged decode covers uniform attention stacks; "
                          f"{cfg.name} ({cfg.kind}) decodes with decode_step")
@@ -490,11 +495,91 @@ def decode_step_paged(params, tokens, k_pages, v_pages, block_table,
     p_f = params["moe"] if use_moe else params["mlp"]
     x = _embed(params, tokens, cfg)
     for l in range(cfg.n_layers):
+        if shard is None:
+            kp, vp = k_pages[l], v_pages[l]
+        else:
+            kp, vp = [s[l] for s in k_pages], [s[l] for s in v_pages]
         x = x + paged_attention_block(
-            x, _layer(params["attn"], l), cfg, k_pages=k_pages[l],
-            v_pages=v_pages[l], block_table=block_table, seq_lens=seq_lens,
-            window_override=window_override)
+            x, _layer(params["attn"], l), cfg, k_pages=kp, v_pages=vp,
+            block_table=block_table, seq_lens=seq_lens,
+            window_override=window_override, shard=shard)
         x = x + _ffn(x, _layer(p_f, l), cfg, use_moe)[0]
     h = rms_norm(x, params["final_ln"], cfg.norm_eps)
     return _logits_at(params, h, cfg), k_pages, v_pages
 
+
+def paged_supported_cfg(cfg: ModelConfig) -> bool:
+    return cfg.attention_layers == cfg.n_layers and not cfg.encoder_layers
+
+
+def paged_shard_reason(cfg: ModelConfig, model_shards: int,
+                       data_shards: int = 1) -> str:
+    """Why the sharded paged decode step can NOT cover ``cfg`` on a
+    (data, model) mesh — empty string when it can. KV heads stripe over
+    the model axis only for grouped GQA (contiguous query-head groups per
+    KV head; the padded ``qh2kv`` remap scatters query heads across KV
+    heads, so a head stripe is not self-contained). The reference's rules
+    and strings."""
+    if not paged_supported_cfg(cfg):
+        return "paged decode covers uniform attention stacks only"
+    if cfg.moe is not None and cfg.moe.every == 1:
+        return ("MoE layers route through their own shard_map dispatch; "
+                "the sharded paged step covers dense-MLP stacks")
+    if model_shards > 1:
+        Hp, KV = cfg.padded_heads, cfg.n_kv_heads
+        if not (Hp == cfg.n_heads and Hp % KV == 0):
+            return (f"model-parallel KV heads need grouped GQA "
+                    f"(padded_heads == n_heads, divisible groups); "
+                    f"{cfg.name} pads {cfg.n_heads}→{Hp} query heads "
+                    f"over {KV} KV heads")
+        if KV % model_shards != 0:
+            return (f"n_kv_heads={KV} not divisible by model axis "
+                    f"{model_shards}")
+    del data_shards   # any data axis works: slots shard row-wise
+    return ""
+
+
+def decode_step_paged_sharded(params, tokens, k_pages, v_pages, block_table,
+                              seq_lens, cfg: ModelConfig, mesh, *,
+                              window_override=None):
+    """``decode_step_paged`` over a (data, model) mesh, one controller:
+    decode slots data-parallel (data shard i takes rows [i·B/d, (i+1)·B/d)
+    of tokens, table and lengths; every per-slot op is row-independent),
+    KV heads model-parallel (``paged_attention_block``'s ``shard``
+    branch: each stripe written and attended on its own position's
+    device, combined by an exact head concatenation).
+
+    params: the weights once per distinct mesh device
+    (``launch.mesh.replicate_params``); a data shard computes on its
+    first model position's device. k/v_pages: [data][model] nested
+    sequences of (L, P_bank, page, KV/m, Dh) slabs (``DevicePagePool``'s
+    ``slabs``). block_table (B, W) holds BANK-LOCAL page ids (each data
+    shard's rows index its own bank; the pool converts global → local
+    host-side), seq_lens (B,). Returns (logits (B, 1, V) fp32 in row
+    order on the mesh's first device, k_pages, v_pages)."""
+    m = int(mesh.shape.get("model", 1))
+    d = int(mesh.shape.get("data", 1))
+    reason = paged_shard_reason(cfg, m, d)
+    if reason:
+        raise ValueError(f"cannot shard paged decode over {d}x{m}: {reason}")
+    B = tokens.shape[0]
+    if B % d:
+        raise ValueError(f"{B} slots do not split over data={d}")
+    bl = B // d
+    logits = []
+    for di in range(d):
+        r = slice(di * bl, (di + 1) * bl)
+        devs = tuple(mesh.devices[di, mi] for mi in range(m))
+        tables = {dev: (block_table[r].to(dev), seq_lens[r].to(dev))
+                  for dev in dict.fromkeys(devs)}
+        shard = PagedShard(devices=devs,
+                           block_tables=tuple(tables[v][0] for v in devs),
+                           seq_lens=tuple(tables[v][1] for v in devs))
+        lead = devs[0]
+        lg, _, _ = decode_step_paged(
+            params[lead], tokens[r].to(lead), k_pages[di], v_pages[di],
+            tables[lead][0], tables[lead][1], cfg,
+            window_override=window_override, shard=shard)
+        logits.append(lg)
+    out = mesh.devices[0, 0]
+    return torch.cat([lg.to(out) for lg in logits]), k_pages, v_pages

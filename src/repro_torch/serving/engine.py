@@ -20,7 +20,9 @@ at block boundaries (``StateCheckpointWorker``); the KV workers refuse
 SSM models.
 
 Host KV bytes and state checkpoints are CPU tensors; device work runs on
-the device the parameters live on. Not ported yet: sharded decode.
+the device the parameters live on; a ``DecodeWorker`` over a banked
+``DevicePagePool(mesh=...)`` runs its paged step on every position of a
+(data, model) mesh (``decode_step_paged_sharded``).
 """
 from __future__ import annotations
 
@@ -37,9 +39,12 @@ import torch
 from repro_torch.configs.base import CacheTierSpec, ModelConfig
 from repro_torch.core.cache import BlockMeta, CachePool, StateCache
 from repro_torch.core.trace import BLOCK_TOKENS
+from repro_torch.launch.mesh import replicate_params
 from repro_torch.models.mamba import MambaState
 from repro_torch.models.transformer import (Caches, decode_step,
-                                            decode_step_paged, init_caches,
+                                            decode_step_paged,
+                                            decode_step_paged_sharded,
+                                            init_caches, paged_shard_reason,
                                             prefill)
 from repro_torch.serving.layerwise import overlap_split
 from repro_torch.serving.paged_cache import DevicePagePool
@@ -664,24 +669,29 @@ def kv_worker_refusal(cfg: ModelConfig) -> str:
 
 
 def stage_run(pool: Optional[DevicePagePool], hash_ids: list[int], k_full,
-              v_full, S: int) -> Optional[list[int]]:
+              v_full, S: int, bank: Optional[int] = None
+              ) -> Optional[list[int]]:
     """Stage a request's KV into a page run (§3 step 2: fresh pages
     written layer-stacked; step 1: registered prefix runs ADOPTED — the
     physical pages are shared, no bytes move). Full 512-token blocks
     register under their chain hash; the partial tail gets private pages.
+    On a banked (mesh) pool the whole run lives in ONE data-shard bank —
+    ``bank=None`` picks the bank with the deepest registered prefix.
     The caller owns one reference per returned page. Returns None
     (nothing held) if the pool can't fit the run even after evicting
     registry-only runs."""
     if pool is None:
         return None
+    if bank is None:
+        bank = pool.best_stage_bank(hash_ids)
     B = BLOCK_TOKENS
     n_full = len(hash_ids)
     held: list[int] = []
     try:
-        adopted, pages = pool.adopt_chain(hash_ids)
+        adopted, pages = pool.adopt_chain(hash_ids, bank=bank)
         held = list(pages)
         for i in range(adopted, n_full):
-            run = pool.alloc(pool.pages_per_block)
+            run = pool.alloc(pool.pages_per_block, bank=bank)
             held += run
             pool.write_run(run, k_full[:, i * B:(i + 1) * B],
                            v_full[:, i * B:(i + 1) * B])
@@ -689,7 +699,7 @@ def stage_run(pool: Optional[DevicePagePool], hash_ids: list[int], k_full,
             pages += run
         tail = S - n_full * B
         if tail > 0:
-            run = pool.alloc(pool.pages_for(tail))
+            run = pool.alloc(pool.pages_for(tail), bank=bank)
             held += run
             pool.write_run(run, k_full[:, n_full * B:S],
                            v_full[:, n_full * B:S])
@@ -1146,12 +1156,18 @@ class DecodeWorker:
       sliced to the deepest active slot, padded to a power of two).
     * ``substrate="dense"``: an (L, B, max_len) arena — the exactness
       oracle.
+
+    ``mesh`` (or a ``page_pool`` built with one) shards the paged step
+    over a (data, model) mesh: the slots split into one contiguous row
+    group per data shard, each adopting and growing pages in its own
+    bank of the pool, and KV heads stripe over the model axis.
     """
 
     def __init__(self, params, cfg: ModelConfig, *, max_batch: int,
                  max_len: int, substrate: str = "paged",
                  page_pool: Optional[DevicePagePool] = None,
-                 page_tokens: int = 64, width_buckets: int = 1) -> None:
+                 page_tokens: int = 64, width_buckets: int = 1,
+                 mesh=None) -> None:
         if substrate not in ("paged", "dense"):
             raise ValueError(f"unknown decode substrate {substrate!r}")
         if substrate == "dense" and cfg.sliding_window \
@@ -1185,15 +1201,43 @@ class DecodeWorker:
         self.counters = dict(zero_copy_joins=0, staged_joins=0, steps=0,
                              preemptions=0, resumed_joins=0,
                              bucket_substeps=0, paged_calls=0)
+        self.mesh = None
         if substrate == "paged":
+            if page_pool is not None:
+                if mesh is not None and mesh is not page_pool.mesh:
+                    raise ValueError(
+                        "mesh= disagrees with page_pool.mesh — the pool's "
+                        "banking fixes the decode mesh; pass one of them")
+                mesh = page_pool.mesh
+            d = 1 if mesh is None else int(mesh.shape.get("data", 1))
+            if max_batch % d:
+                raise ValueError(
+                    f"max_batch={max_batch} must divide over the mesh's "
+                    f"data axis ({d}) — slots partition into per-shard "
+                    f"row groups")
+            if mesh is not None:
+                m = int(mesh.shape.get("model", 1))
+                reason = paged_shard_reason(cfg, m, d)
+                if reason:
+                    raise ValueError(
+                        f"cannot shard paged decode over {d}x{m}: {reason}")
             if page_pool is None:
-                # standalone sizing: every slot at full depth + one extra
-                # sequence of staging headroom
+                # standalone sizing (per bank): every slot of the bank at
+                # full depth + one extra sequence of staging headroom
                 per_seq = (max_len + page_tokens - 1) // page_tokens
                 page_pool = DevicePagePool(
-                    cfg, n_pages=1 + (max_batch + 1) * per_seq,
-                    page_tokens=page_tokens, device=self.device)
+                    cfg, n_pages=1 + (max_batch // d + 1) * per_seq,
+                    page_tokens=page_tokens, device=self.device, mesh=mesh)
             self.page_pool = page_pool
+            self.mesh = mesh
+            self.slots_per_bank = max_batch // page_pool.n_banks
+            if self.width_buckets > 1 and mesh is not None:
+                raise ValueError(
+                    "width_buckets>1 sub-batches the step, which breaks "
+                    "the mesh's even data-axis row split — pick one")
+            # the weights once per distinct mesh device
+            self._replicas = None if mesh is None \
+                else replicate_params(params, mesh)
             pt = page_pool.page_tokens
             self.max_pages = (max_len + pt - 1) // pt
             self.block_table = np.zeros((max_batch, self.max_pages), np.int32)
@@ -1229,12 +1273,40 @@ class DecodeWorker:
         return need
 
     # ---- paged-substrate plumbing --------------------------------------
-    def _adopt_pages(self, pres: PrefillResult) -> list[int]:
+    def _slot_bank(self, slot: int) -> int:
+        """Data-shard bank of a batch slot: slots partition into
+        contiguous per-bank row groups, so the sharded step's row split
+        lands each group on the shard holding its pages."""
+        return slot // self.slots_per_bank
+
+    def _pick_slot(self, pref_bank: Optional[int]) -> int:
+        """Free slot for a join: the staged run's own bank when it has
+        room (zero-copy adoption needs slot bank == page bank), else the
+        bank with the most free slots (load-balances the data shards)."""
+        free_by_bank: dict[int, int] = {}
+        for i, s in enumerate(self.slots):
+            if s is None:
+                free_by_bank.setdefault(self._slot_bank(i), i)
+        if pref_bank is not None and pref_bank in free_by_bank:
+            return free_by_bank[pref_bank]
+        counts = {b: sum(1 for i, s in enumerate(self.slots)
+                         if s is None and self._slot_bank(i) == b)
+                  for b in free_by_bank}
+        bank = max(counts, key=lambda b: (counts[b], -b))
+        return free_by_bank[bank]
+
+    def _adopt_pages(self, pres: PrefillResult, bank: int = 0) -> list[int]:
         """Take a reference on the request's page run: zero-copy when the
-        prefill staged into OUR pool (the first join consumes the staging
-        reference; later joins share the run), else stage a copy."""
+        prefill staged into OUR pool's target bank (the first join
+        consumes the staging reference; later joins share the run), else
+        stage a copy into ``bank``. A run staged into a DIFFERENT bank is
+        re-staged (the slot's data shard attends only its own bank) and
+        this join consumes the staging reference."""
         pp = self.page_pool
-        if pres.pages is not None and pres.page_pool is pp:
+        same_bank = (pres.pages is not None and pres.page_pool is pp
+                     and (not pres.pages
+                          or pp.bank_of(pres.pages[0]) == bank))
+        if same_bank:
             pages = list(pres.pages)
             if pres._pages_adopted:
                 # late share: verify no page was freed and recycled since
@@ -1249,9 +1321,12 @@ class DecodeWorker:
             self.counters["zero_copy_joins"] += 1
             return pages
         hash_ids = pres.hash_ids if pres.hash_ids is not None else []
-        pages = stage_run(pp, hash_ids, pres.kv_k, pres.kv_v, pres.prompt_len)
+        pages = stage_run(pp, hash_ids, pres.kv_k, pres.kv_v,
+                          pres.prompt_len, bank=bank)
         if pages is None:
             raise MemoryError("device page pool cannot hold the request")
+        if pres.page_pool is pp:
+            pres.release_pages()    # cross-bank copy consumes the staging ref
         self.counters["staged_joins"] += 1
         return pages
 
@@ -1272,7 +1347,13 @@ class DecodeWorker:
             raise RuntimeError(
                 f"decode batch full: all {self.max_batch} slots occupied — "
                 f"check has_free_slot before join")
-        slot = self.slots.index(None)
+        if self.substrate == "paged" and self.page_pool.n_banks > 1:
+            pref = None
+            if pres.pages and pres.page_pool is self.page_pool:
+                pref = self.page_pool.bank_of(pres.pages[0])
+            slot = self._pick_slot(pref)
+        else:
+            slot = self.slots.index(None)
         L = pres.prompt_len
         n_emit = 0
         if resume_emitted is not None:
@@ -1289,7 +1370,7 @@ class DecodeWorker:
                 f"({self.max_len}) — the slot would outgrow its KV capacity "
                 f"mid-decode")
         if self.substrate == "paged":
-            pages = self._adopt_pages(pres)
+            pages = self._adopt_pages(pres, bank=self._slot_bank(slot))
             assert len(pages) <= self.max_pages, \
                 f"prompt needs {len(pages)} pages > max_len's {self.max_pages}"
             self.block_table[slot, :len(pages)] = pages
@@ -1353,7 +1434,7 @@ class DecodeWorker:
                     f"slot {i} outgrew its block table (len "
                     f"{int(self.seq_lens[i])} of max_len {self.max_len})")
             if pidx == int(self.n_pages_slot[i]):
-                (pg,) = pp.alloc(1)
+                (pg,) = pp.alloc(1, bank=self._slot_bank(i))
                 self.block_table[i, pidx] = pg
                 self.n_pages_slot[i] += 1
             else:
@@ -1365,14 +1446,26 @@ class DecodeWorker:
     def _paged_call(self, tokens, tbl: np.ndarray, lens: np.ndarray):
         """One paged step on a SNAPSHOT of the host tables: the copies
         keep later host mutation (growth, COW, length bumps) away from a
-        step still reading them (``torch.from_numpy`` aliases)."""
+        step still reading them (``torch.from_numpy`` aliases). On a mesh
+        the step takes BANK-LOCAL page ids: each data shard indexes its
+        own bank's slabs."""
         pp = self.page_pool
+        if self.mesh is not None:
+            tbl = tbl % pp.bank_pages
         tbl_d = torch.from_numpy(np.array(tbl, np.int32)).to(self.device)
         lens_d = torch.from_numpy(np.array(lens, np.int32)).to(self.device)
-        logits, _, _ = decode_step_paged(self.params, tokens, pp.k_pages,
-                                         pp.v_pages, tbl_d, lens_d, self.cfg)
+        if self.mesh is None:
+            logits, _, _ = decode_step_paged(
+                self.params, tokens, pp.k_pages, pp.v_pages, tbl_d, lens_d,
+                self.cfg)
+        else:
+            slabs = pp.slabs
+            logits, _, _ = decode_step_paged_sharded(
+                self._replicas, tokens, [[k for k, _ in row] for row in slabs],
+                [[v for _, v in row] for row in slabs], tbl_d, lens_d,
+                self.cfg, self.mesh)
         self.counters["paged_calls"] += 1
-        return logits
+        return logits.to(self.device)
 
     def _step_full(self, active: list[int]) -> torch.Tensor:
         """Single-width full-batch step; per-slot next tokens (B,)."""

@@ -328,9 +328,15 @@ def test_processes_lane_bit_exact(tmp_path):
 
 
 def test_cli_refuses_mesh_and_flat_global_pool(capsys):
+    # --mesh is ported: what stays refused is a mesh over the dense
+    # substrate and a model axis with no grouped-GQA head layout
     with pytest.raises(SystemExit):
-        cluster_main(["--mesh", "2x2"])
-    assert "ROADMAP.md queue 1, item 4" in capsys.readouterr().err
+        cluster_main(["--mesh", "2x2", "--decode-substrate", "dense"])
+    assert "--mesh shards the PAGED decode substrate" \
+        in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cluster_main(["--mesh", "1x3"])
+    assert "has no grouped-GQA head layout" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         cluster_main(["--global-pool"])
     assert "--ssd-blocks" in capsys.readouterr().err

@@ -633,3 +633,129 @@ def test_head_dim_96_is_refused_on_the_card(cuda):
     with pytest.raises(ValueError, match="head_dim 96"):
         prefill(params, torch.zeros((1, 64), dtype=torch.int64,
                                     device=cuda), cfg)
+
+
+# ---------------------------------------------------------------------------
+# the multi-device serving paths, every mesh position on the one card
+# ---------------------------------------------------------------------------
+
+def _card_mesh(cuda, shape, axes):
+    from repro_torch.launch.mesh import Mesh
+    n = int(np.prod(shape))
+    return Mesh(np.asarray([cuda] * n, dtype=object).reshape(shape), axes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dm", [(1, 1), (2, 1), (1, 2), (2, 2)])
+def test_sharded_op_on_the_card_is_the_unsharded_kernel(cuda, dm):
+    """Every shard runs the kernel on its rows and head stripe: with the
+    unsharded call's split count pinned the result is bitwise the
+    unsharded kernel's, and within 2e-2 of the plain version."""
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_decode_attention_sharded)
+    rng = np.random.default_rng(4)
+    B, H, KV, D, page, maxp = 8, 64, 8, 128, 64, 16
+    P = B * maxp + 1
+    q = _randn(rng, (B, H, D), cuda)
+    kp = _randn(rng, (P, page, KV, D), cuda)
+    vp = _randn(rng, (P, page, KV, D), cuda)
+    tbl = torch.from_numpy(1 + rng.permutation(P - 1)[:B * maxp].reshape(
+        B, maxp).astype(np.int32)).to(cuda)
+    lens = torch.tensor([1, 1024, 700, 65, 333, 1000, 64, 513],
+                        dtype=torch.int32, device=cuda)
+    whole = paged_decode_attention(q, kp, vp, tbl, lens)
+    splits = paged_attention.last_splits
+    before = paged_attention.launches
+    got = paged_decode_attention_sharded(q, kp, vp, tbl, lens,
+                                         mesh=_card_mesh(cuda, dm,
+                                                         ("data", "model")),
+                                         n_splits=splits)
+    torch.cuda.synchronize()
+    assert paged_attention.launches == before + dm[0] * dm[1]
+    assert torch.equal(got, whole)
+    _close(got, paged_attention_ref(q, kp, vp, tbl, lens))
+
+
+@pytest.mark.cuda
+def test_mesh_engine_on_the_card(cuda):
+    """Prefill, the banked pool and the sharded decode step over meshes
+    (1,1), (2,1), (1,2), (2,2) on the card: every stream the unmeshed
+    run's, the pool leak-free, the kernel launched once per position per
+    layer per step."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.engine import (DecodeWorker, HostKVPool,
+                                            PrefillWorker)
+    from repro_torch.serving.paged_cache import DevicePagePool
+    from repro_torch.serving.request import ServingRequest
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              n_heads=16, n_kv_heads=4)
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    rng = np.random.default_rng(7)
+    common = rng.integers(0, cfg.vocab_size, 512)
+    prompts = [np.concatenate([common, rng.integers(0, cfg.vocab_size,
+                                                    88 + 37 * r)])
+               for r in range(3)]
+
+    def run(dm):
+        mesh = None if dm is None else _card_mesh(cuda, dm,
+                                                  ("data", "model"))
+        pp = DevicePagePool(cfg, n_pages=64, mesh=mesh, device=cuda)
+        pool = HostKVPool()
+        pw = PrefillWorker(params, cfg, pool, prefill_chunk=256,
+                           page_pool=pp)
+        dw = DecodeWorker(params, cfg, max_batch=4, max_len=1024,
+                          page_pool=pp)
+        press = [pw(t) for t in prompts]
+        outs = {}
+        for rid, i in [(2, 2), (3, 2), (0, 0), (1, 1)]:
+            dw.join(ServingRequest(req_id=rid, tokens=None, max_new=6),
+                    press[i])
+            outs[rid] = [press[i].first_token]
+        before = paged_attention.launches
+        while dw.n_active:
+            for rid, tok, _ in dw.step():
+                outs[rid].append(tok)
+        n = 1 if dm is None else dm[0] * dm[1]
+        assert paged_attention.launches - before \
+            == n * cfg.n_layers * dw.counters["steps"]
+        assert pp.stats()["cow_copies"] >= 1
+        pp.check_leaks()
+        pool.close()
+        return outs
+
+    base = run(None)
+    for dm in [(1, 1), (2, 1), (1, 2), (2, 2)]:
+        assert run(dm) == base, dm
+
+
+@pytest.mark.cuda
+def test_cpp_on_the_card(cuda):
+    """CPP over 4 stages on the card: one chunked-prefill launch per
+    (layer, chunk), logits within 4 bf16 ulps of the full prefill's and
+    KV within 2e-2 of its scale."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving.cpp import cpp_prefill, cpp_reference
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              n_layers=4)
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 256),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    before = flash_prefill.launches
+    lc, (kc, vc) = cpp_prefill(params, toks, cfg,
+                               _card_mesh(cuda, (4,), ("stage",)),
+                               prefill_chunk=64)
+    assert flash_prefill.launches - before == cfg.n_layers * 4
+    lr, (kr, vr) = cpp_reference(params, toks, cfg)
+    torch.cuda.synchronize()
+    scale = lr.abs().max().item()
+    ulp = 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert (lc - lr).abs().max().item() <= 4 * ulp
+    for got, ref in ((torch.cat(kc), kr), (torch.cat(vc), vr)):
+        assert (got.float() - ref.float()).abs().max().item() \
+            <= TOL * ref.abs().max().item()
