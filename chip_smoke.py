@@ -128,6 +128,20 @@ Phases, each printed as it runs; any failure exits non-zero:
      8,192-token prompt in 1,024-token chunks: 11 microsteps, 64
      flash_prefill launches, logits within 4 ulps of ``cpp_reference``
      and KV within 2e-2 of its scale, both wall times.
+ 15. training on the card, which launches none of the kernels (they
+     are forward-only; every kernel's launch count is held at zero):
+     (a) one train step's loss and gradients of smollm-360m.reduced() on
+     the card against the CPU's, same weights and batch; (b) ``python -m
+     repro_torch.launch.train --arch smollm-360m --steps 60 --batch 8
+     --seq 512`` (full width and depth, AdamW, remat), the loss falling,
+     tok/s, the model-FLOP share and peak memory; (c)
+     ``launch/train_e2e.py``'s smollm-100m, 300 steps with checkpoints
+     at 100/200/300 and a 20-step resume that continues the curve, the
+     checkpoint read back bit for bit; (d) llama2-70b at full width, 4 of
+     80 layers, Adafactor, remat, 3 steps of one 4096-token sequence;
+     (e) one profiled train step of (b)'s model: device-busy time, idle
+     share, kernels a step, the largest items, the plain attention's
+     share.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -2261,6 +2275,243 @@ def e2e_cpp(torch, params, cfg, device="cuda", prompt_len=8192,
                 ref_s=ref_s, err=err, kv_err=kerr)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: training on the card
+# ---------------------------------------------------------------------------
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention, paged_attention_layers)
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+    return {f.__name__: f.launches for f in (
+        paged_attention, paged_attention_layers, flash_prefill, ssd_scan)}
+
+
+def zero_kernel_counts() -> None:
+    from repro_torch.kernels.flash_prefill.kernel import flash_prefill
+    from repro_torch.kernels.paged_attention.kernel import (
+        paged_attention, paged_attention_layers)
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan
+    for f in (paged_attention, paged_attention_layers, flash_prefill,
+              ssd_scan):
+        f.launches = 0
+
+
+def no_kernel_launched(what: str) -> None:
+    counts = kernel_counts()
+    if any(counts.values()):
+        raise AssertionError(f"{what} launched a forward-only kernel: "
+                             f"{counts}")
+
+
+def train_card_vs_cpu(torch, device="cuda") -> dict:
+    """(a): one train step's loss and gradients of smollm-360m.reduced()
+    on the card against the same step on the CPU, same weights and
+    batch: the loss within 2e-3 relative, each gradient leaf within 2e-2
+    of its largest magnitude, no kernel launched."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, batch_spec_for
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.loop import batch_to
+    from repro_torch.training.optim import tree_leaves, tree_map
+    cfg = get_config("smollm-360m").reduced()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to(device), cpu)
+    nb = SyntheticLM(batch_spec_for(cfg, 4, 256), seed=0).batch(0)
+    l_card, g_card = loss_and_grads(card, batch_to(nb, device), cfg)
+    l_cpu, g_cpu = loss_and_grads(cpu, batch_to(nb, "cpu"), cfg)
+    rel = abs(float(l_card) - float(l_cpu)) / abs(float(l_cpu))
+    worst = max(float((a.cpu().float() - b.float()).abs().max()
+                      / b.float().abs().max().clamp(min=1e-30))
+                for a, b in zip(tree_leaves(g_card), tree_leaves(g_cpu)))
+    log(f"(a) {cfg.name}, 4 x 256 tokens: loss card {float(l_card):.5f} cpu "
+        f"{float(l_cpu):.5f} (rel {rel:.2e}, tol 2e-3); gradients: worst "
+        f"leaf {worst:.3e} of its max-abs (tol {TOL})")
+    no_kernel_launched("(a)")
+    if not math.isfinite(float(l_card)) or rel > 2e-3 or worst > TOL:
+        raise AssertionError("(a) the card's train step disagrees with "
+                             "the CPU's")
+    return dict(loss_rel=rel, grad_err=worst)
+
+
+def train_smollm(torch, device="cuda") -> tuple:
+    """(b): ``python -m repro_torch.launch.train --arch smollm-360m
+    --steps 60 --batch 8 --seq 512`` (full width and depth, AdamW, remat
+    on) through the launcher's body; every loss finite and the mean of
+    the last 10 below that of the first 10."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch import train as train_launcher
+    from repro_torch.models.transformer import param_count_exact
+    cfg = get_config("smollm-360m")
+    assert cfg.remat and cfg.optimizer == "adamw"
+    torch.cuda.reset_peak_memory_stats()
+    res = train_launcher.run(["--arch", "smollm-360m", "--steps", "60",
+                              "--batch", "8", "--seq", "512",
+                              "--device", device])
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first, last = (sum(res.losses[:10]) / 10, sum(res.losses[-10:]) / 10)
+    n = param_count_exact(res.params)
+    steady = sorted(res.step_s[5:])[len(res.step_s[5:]) // 2]
+    log(f"(b) {cfg.name}: {n / 1e6:.1f}M parameters, 60 steps of 8 x 512 "
+        f"tokens; loss {res.losses[0]:.3f} -> {res.losses[-1]:.3f} (first "
+        f"10 mean {first:.3f}, last 10 mean {last:.3f}); {res.wall_s:.1f} s "
+        f"in all, {res.tokens_per_s:.0f} tok/s over the run; median step "
+        f"after the fifth {steady * 1e3:.1f} ms = {4096 / steady:.0f} tok/s; "
+        f"model-FLOP share (6 N tokens / time / 989 TFLOP/s) "
+        f"{6 * n * 4096 / steady / BF16_FLOP_S:.3f}; peak memory "
+        f"{peak:.2f} GB")
+    no_kernel_launched("(b)")
+    if not all(math.isfinite(x) for x in res.losses) or not last < first:
+        raise AssertionError("(b) smollm-360m's training did not descend")
+    return cfg, res, dict(peak_gb=peak, params=n, step_ms=steady * 1e3,
+                          tok_s=4096 / steady, first=first, last=last,
+                          run_tok_s=res.tokens_per_s)
+
+
+def train_e2e_card(torch, device="cuda") -> dict:
+    """(c): ``launch/train_e2e.py``'s smollm-100m, 300 steps of 4 x 256
+    tokens with checkpoints at 100, 200 and 300, then the 20-step resume:
+    it starts at step 300 with the saved optimizer step, its first loss
+    lies within the last 10 pre-save losses' range of their mean, and
+    the step-300 checkpoint reads back bit for bit."""
+    import shutil
+    from repro_torch.launch import train_e2e
+    from repro_torch.training.checkpoint import load_checkpoint
+    from repro_torch.training.optim import tree_leaves
+    d = os.path.join(ROOT, "build", "train-e2e")
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        res, res2 = train_e2e.run(steps=300, batch=4, seq=256, ckpt=d,
+                                  device=device)
+        saved = sorted(f for f in os.listdir(d) if f.endswith(".npz"))
+        back = load_checkpoint(d, res.params, res.opt_state)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    p, st, step = back
+    exact = step == 300 and all(
+        torch.equal(a, b) for a, b in zip(
+            list(tree_leaves(p)) + list(tree_leaves(st.m))
+            + list(tree_leaves(st.v)) + [st.step],
+            list(tree_leaves(res.params)) + list(tree_leaves(res.opt_state.m))
+            + list(tree_leaves(res.opt_state.v)) + [res.opt_state.step]))
+    last10 = res.losses[-10:]
+    mean, spread = sum(last10) / 10, max(last10) - min(last10)
+    steady = sorted(res.step_s[5:])[len(res.step_s[5:]) // 2]
+    log(f"(c) smollm-100m: loss {sum(res.losses[:10]) / 10:.3f} -> "
+        f"{mean:.3f} (first/last 10 means), {res.tokens_per_s:.0f} tok/s "
+        f"over the run, median step {steady * 1e3:.1f} ms; checkpoints "
+        f"{saved}; resumed at step {int(res2.opt_state.step) - res2.steps} "
+        f"(optimizer step {int(res2.opt_state.step)} after {res2.steps}), "
+        f"first loss {res2.losses[0]:.4f} against the last 10's mean "
+        f"{mean:.4f} +- range {spread:.4f}; checkpoint read back bit for "
+        f"bit: {exact}")
+    no_kernel_launched("(c)")
+    if saved != [f"ckpt_{s:08d}.npz" for s in (100, 200, 300)] \
+            or int(res2.opt_state.step) != 320 or not exact \
+            or abs(res2.losses[0] - mean) > spread:
+        raise AssertionError("(c) the checkpoint and resume failed")
+    return dict(first=sum(res.losses[:10]) / 10, last=mean,
+                resumed=res2.losses[0], spread=spread,
+                tok_s=res.tokens_per_s, step_ms=steady * 1e3)
+
+
+def train_llama_adafactor(torch, device="cuda") -> dict:
+    """(d): llama2-70b at full width, 4 of 80 layers (80 are ~69 B
+    parameters; 4 are 3.95 B, ~7.9 GB each of bf16 params, grads and
+    Adafactor m), one 4096-token sequence (the reference's train_4k
+    length), remat on, 3 steps: every loss finite, every leaf's first
+    moment non-zero, every leaf drawn at random changed in bf16 (the
+    norm weights start at 1.0, where one bf16 ulp is 0.0078 and 3
+    warm-up steps at lr ≤ 4e-5 move them by ~1e-5), every matrix leaf's
+    second moment factored."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import init_params, param_count_exact
+    from repro_torch.training.loop import train
+    from repro_torch.training.optim import tree_leaves
+    cfg = dataclasses.replace(get_config("llama2-70b"), n_layers=4)
+    assert cfg.optimizer == "adafactor" and cfg.remat
+    torch.cuda.reset_peak_memory_stats()
+    res = train(cfg, steps=3, batch=1, seq=4096, seed=0, log_every=1,
+                device=device)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    st = res.opt_state
+    n = param_count_exact(res.params)
+    init = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                       device)
+    leaves = list(zip(tree_leaves(init), tree_leaves(res.params),
+                      tree_leaves(st.m), tree_leaves(st.v)))
+    random = [(a, b) for a, b, _, _ in leaves
+              if float(a.float().std()) > 0]
+    moved = all(not torch.equal(a, b) for a, b in random)
+    constant_moved = sum(not torch.equal(a, b) for a, b, _, _ in leaves) \
+        - sum(not torch.equal(a, b) for a, b in random)
+    m_live = all(bool(m.float().abs().max() > 0) for _, _, m, _ in leaves)
+    factored = all(isinstance(v, tuple) == (p.dim() >= 2)
+                   for p, _, _, v in leaves)
+    del init
+    log(f"(d) llama2-70b, 4 of 80 layers ({n / 1e9:.3f} B parameters), "
+        f"Adafactor, remat, 1 x 4096 tokens: losses "
+        f"{[round(x, 4) for x in res.losses]}, step times "
+        f"{[round(x, 3) for x in res.step_s]} s, peak memory {peak:.2f} GB; "
+        f"{len(random)} random leaves all moved: {moved}; constant (norm) "
+        f"leaves moved: {constant_moved} of {len(leaves) - len(random)}; "
+        f"every m non-zero: {m_live}; matrix leaves' v factored: {factored}")
+    no_kernel_launched("(d)")
+    if not all(math.isfinite(x) for x in res.losses) or not moved \
+            or not m_live or not factored:
+        raise AssertionError("(d) the Adafactor steps failed a gate")
+    return dict(params=n, step_s=res.step_s, peak_gb=peak,
+                losses=res.losses)
+
+
+def profile_train(torch, cfg, res, device="cuda") -> dict:
+    """(e): one train step of (b)'s model under ``torch.profiler``
+    (``python -m repro_torch.launch.profile --train``'s report) on (b)'s
+    trained weights, and the plain attention's share of it."""
+    from repro_torch.data.pipeline import SyntheticLM, batch_spec_for
+    from repro_torch.launch.profile import profile_train_step
+    from repro_torch.models.transformer import param_count_exact
+    from repro_torch.training.loop import batch_to
+    batch = batch_to(SyntheticLM(batch_spec_for(cfg, 8, 512)).batch(0),
+                     device)
+    r = profile_train_step(cfg, res.params, res.opt_state, batch)
+    wall_s = r["wall_us"] / 1e6
+    n = param_count_exact(res.params)
+    r.update(tok_s=4096 / wall_s,
+             mfu=6 * n * 4096 / wall_s / BF16_FLOP_S,
+             idle=1 - r["busy_us"] / r["wall_us"])
+    log(f"(e) one step: wall {wall_s * 1e3:.1f} ms = {r['tok_s']:.0f} tok/s, "
+        f"model-FLOP share {r['mfu']:.3f}; device busy "
+        f"{r['busy_us'] / 1e3:.1f} ms, idle share {r['idle']:.3f}, "
+        f"{r['launches']:.0f} kernels a step; plain attention "
+        f"{r['attention_share']:.3f} of the busy time")
+    no_kernel_launched("(e)")
+    return r
+
+
+def e2e_training(torch, device="cuda") -> dict:
+    """Phase 15: (a)-(e), every kernel's launch count held at zero."""
+    zero_kernel_counts()
+    t0 = time.monotonic()
+    out = dict(card_vs_cpu=train_card_vs_cpu(torch, device))
+    cfg, res, out["smollm"] = train_smollm(torch, device)
+    out["profile"] = profile_train(torch, cfg, res, device)
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["e2e"] = train_e2e_card(torch, device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["llama"] = train_llama_adafactor(torch, device)
+    no_kernel_launched("phase 15")
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2406,6 +2657,14 @@ def main() -> int:
         f"{cpp14['launches']}; the sharded op {op14['ms']:.4f} ms against "
         f"the unsharded kernel's {op14['whole_ms']:.4f} ms; phase 14 took "
         f"{time.monotonic() - t14:.1f} s")
+
+    phase("15 training on the card: card vs CPU, smollm-360m, "
+          "train_e2e's smollm-100m, llama2-70b Adafactor, a profiled step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t15 = e2e_training(torch)
+    log(f"phase 15: no kernel launched in any train step "
+        f"({kernel_counts()}); phase 15 took {t15['seconds']:.1f} s")
 
     kernels = [
         dict(name="paged_attention", route="cuda",

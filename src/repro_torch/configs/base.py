@@ -1,6 +1,6 @@
 """Model configuration for the PyTorch port (own copy of the reference's
-``repro/configs/base.py``: every family's fields and derived counts; the
-training fields ``optimizer`` and ``remat`` come with training).
+``repro/configs/base.py``: every family's fields and derived counts,
+and the training fields ``optimizer`` and ``remat``).
 
 Derived quantities, as in the reference:
   * ``padded_heads`` — query heads padded up to a multiple of 16
@@ -153,6 +153,10 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     max_decode_len: int = 0  # architectural cap on decoder length (whisper)
+    optimizer: str = "adamw"  # adamw | adafactor (huge archs)
+    #: recompute each layer's activations in the backward pass
+    #: (``torch.utils.checkpoint``; the reference's ``jax.checkpoint``)
+    remat: bool = True
     source: str = ""
 
     @property
@@ -232,7 +236,8 @@ class ModelConfig:
         (padded to 16), head_dim 32, vocab 512; 2 encoder layers and at
         most 16 frontend tokens; MoE shrinks to 4 experts, top-2,
         d_ff_expert 128 at capacity factor 2.0; an SSM mixer to d_state
-        16, head_dim 16, chunk 32; a sliding window to 64."""
+        16, head_dim 16, chunk 32; a sliding window to 64; no remat and
+        AdamW."""
         d = min(self.d_model, 256)
         kw: dict = dict(
             name=self.name + "-reduced",
@@ -245,6 +250,8 @@ class ModelConfig:
             vocab_size=512,
             frontend_tokens=min(self.frontend_tokens, 16),
             encoder_layers=2 if self.encoder_layers else 0,
+            remat=False,
+            optimizer="adamw",
         )
         if self.moe is not None:
             # capacity_factor E/k ⇒ cap == T: drop-free routing, so

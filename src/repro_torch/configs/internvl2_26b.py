@@ -15,5 +15,6 @@ CONFIG = register(ModelConfig(
     frontend="patch",
     frontend_tokens=256,  # ViT patch embeddings per image (stub)
     rope_theta=1e6,
+    optimizer="adafactor",
     source="arXiv:2404.16821 (assignment: 48L d6144 48H kv8, ViT stub)",
 ))

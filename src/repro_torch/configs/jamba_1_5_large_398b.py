@@ -17,5 +17,6 @@ CONFIG = register(ModelConfig(
                   parallelism="ep", every=2),
     ssm=SSMConfig(d_state=64, d_conv=4, expand=2, head_dim=64),
     rope_theta=1e6,
+    optimizer="adafactor",
     source="arXiv:2403.19887 (assignment: 72L d8192 64H kv8 1:7 16e top-2)",
 ))

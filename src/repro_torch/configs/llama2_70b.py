@@ -13,5 +13,6 @@ CONFIG = register(ModelConfig(
     d_ff=28672,
     vocab_size=32000,
     rope_theta=1e4,
+    optimizer="adafactor",
     source="arXiv:2307.09288 (Mooncake §8.1 dummy model)",
 ))

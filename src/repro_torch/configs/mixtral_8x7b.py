@@ -14,5 +14,6 @@ CONFIG = register(ModelConfig(
     moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=14336, parallelism="tp"),
     sliding_window=4096,
     rope_theta=1e6,
+    optimizer="adafactor",
     source="arXiv:2401.04088 (assignment: 32L d4096 32H kv8 8e top-2 SWA)",
 ))

@@ -14,5 +14,6 @@ CONFIG = register(ModelConfig(
     moe=MoEConfig(n_experts=128, top_k=8, d_ff_expert=1536, parallelism="ep"),
     qk_norm=True,
     rope_theta=1e6,
+    optimizer="adafactor",
     source="hf:Qwen/Qwen3-30B-A3B (assignment: 94L d4096 64H kv4 128e top-8)",
 ))

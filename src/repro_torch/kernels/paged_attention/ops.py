@@ -1,7 +1,9 @@
 """Public ops: paged decode attention, one layer or all layers of a
 stacked store in one launch. A CPU tensor takes the plain PyTorch
 version; a CUDA tensor launches the hand-written kernel (or the wrapper
-raises) — there is no fallback between the two."""
+raises) — there is no fallback between the two. An input that requires
+grad, with grad mode on, raises on either device (forward only:
+``kernels.refuse_grad``)."""
 from __future__ import annotations
 
 import functools
@@ -9,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import refuse_grad
 from repro_torch.kernels.paged_attention.kernel import (paged_attention,
                                                         paged_attention_layers)
 from repro_torch.kernels.paged_attention.ref import (
@@ -35,6 +38,7 @@ def paged_decode_attention(q, k_pages, v_pages, block_table, seq_lens, *,
     """q (B, H, D) over one layer's paged KV → (B, H, D). ``n_splits``
     forces the kernel's split over tokens (CUDA only: the plain version
     does not split)."""
+    refuse_grad("paged_decode_attention", q, k_pages, v_pages)
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_table,
                                    seq_lens, qh2kv=qh2kv, window=window)
@@ -62,6 +66,7 @@ def paged_decode_attention_sharded(q, k_pages, v_pages, block_table,
     Grouped GQA only. At this op-level entry the page store is shared by
     every data shard (one bank, global page ids); the engine's
     ``DevicePagePool(mesh=...)`` banks pages per data shard instead."""
+    refuse_grad("paged_decode_attention_sharded", q, k_pages, v_pages)
     d = int(mesh.shape.get("data", 1))
     m = int(mesh.shape.get("model", 1))
     B, H, _ = q.shape
@@ -95,6 +100,7 @@ def paged_decode_attention_layers(qs, k_pages, v_pages, block_table,
     """qs (L, B, H, D) over the stacked (L, P, page, KV, D) store →
     (L, B, H, D); on CUDA one kernel launch covers every layer (the
     microbench / layer-parallel entry)."""
+    refuse_grad("paged_decode_attention_layers", qs, k_pages, v_pages)
     if qs.device.type == "cpu":
         return paged_attention_layers_ref(qs, k_pages, v_pages, block_table,
                                           seq_lens, qh2kv=qh2kv,

@@ -17,6 +17,13 @@ steps. For each call it prints the host wall time
 (synchronised), the device busy time (the sum of the kernels' device
 time), the device's idle share, the kernel count, and the kernels that
 took the most device time. GPU only.
+
+``--train``: one training step of ``--arch`` (smollm-360m by default, at
+full width and depth, AdamW, remat as the config has it) on a batch of
+8 × 512 tokens of ``SyntheticLM``, profiled the same way, and the plain
+attention's share of the step: its forward and backward at the step's
+per-layer shapes (plus the forward again under remat), timed alone with
+CUDA events, times the layer count.
 """
 from __future__ import annotations
 
@@ -31,12 +38,17 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import get_config
+from repro_torch.data.pipeline import SyntheticLM, batch_spec_for
 from repro_torch.launch.serve import MAX_LEN, make_payloads
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models.layers import _grouped, chunked_attention, qh2kv_map
 from repro_torch.models.transformer import (decode_step, init_caches,
                                             init_params, prefill)
 from repro_torch.serving.engine import DecodeWorker, HostKVPool, PrefillWorker
 from repro_torch.serving.paged_cache import DevicePagePool
 from repro_torch.serving.request import ServingRequest
+from repro_torch.training.loop import batch_to
+from repro_torch.training.optim import make_optimizer
 
 STEPS = 5      # profiled calls of each kind
 TOP = 12       # kernels listed per kind
@@ -102,16 +114,99 @@ def _profile_ssm(cfg, device) -> None:
             STEPS, TOP)
 
 
+def _event_ms(fn, n: int) -> float:
+    """Mean CUDA-event time of ``fn`` over ``n`` calls, after one warm
+    call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def attention_ms(cfg, batch: int, seq: int, device) -> dict:
+    """The plain causal attention of one training step at ``cfg``'s
+    per-layer shapes: forward and backward (and, under remat, the
+    recomputed forward) of ``chunked_attention``, timed alone, times the
+    attention layer count."""
+    g = torch.Generator(device=device).manual_seed(0)
+    Hp, KV, Dh = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim
+    qh2kv = None if _grouped(cfg) else qh2kv_map(cfg.n_heads, KV, Hp, device)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=device).bfloat16() \
+            .requires_grad_(True)
+
+    q, k, v = rand(batch, seq, Hp, Dh), rand(batch, seq, KV, Dh), \
+        rand(batch, seq, KV, Dh)
+    d_o = torch.randn((batch, seq, Hp, Dh), generator=g,
+                      device=device).bfloat16()
+
+    def fwd():
+        with torch.no_grad():
+            chunked_attention(q, k, v, 0, cfg.sliding_window, qh2kv=qh2kv)
+
+    def fwd_bwd():
+        o = chunked_attention(q, k, v, 0, cfg.sliding_window, qh2kv=qh2kv)
+        torch.autograd.grad(o, (q, k, v), d_o)
+
+    f_ms, fb_ms = _event_ms(fwd, STEPS), _event_ms(fwd_bwd, STEPS)
+    per_layer = fb_ms + (f_ms if cfg.remat else 0.0)
+    return dict(forward_ms=f_ms, forward_backward_ms=fb_ms,
+                step_ms=per_layer * cfg.attention_layers)
+
+
+def profile_train_step(cfg, params, opt_state, batch: dict, *,
+                       n: int = 3, top: int = TOP) -> dict:
+    """``_report`` of one train step (``make_train_step(cfg)``) on
+    ``batch``, plus ``attention_ms`` at its shapes; returns the wall and
+    device-busy µs, kernels per step, the attention's ms and its share
+    of the device-busy time."""
+    step = make_train_step(cfg)
+    r = _report("train step", lambda: step(params, opt_state, batch),
+                n, top)
+    B, S = batch["tokens"].shape
+    attn = attention_ms(cfg, B, S, batch["tokens"].device)
+    r.update(attention=attn,
+             attention_share=attn["step_ms"] * 1e3 / r["busy_us"])
+    print(f"  plain attention: {attn['forward_backward_ms']:.3f} ms forward "
+          f"+ backward a layer ({attn['forward_ms']:.3f} ms forward), "
+          f"{attn['step_ms']:.2f} ms a step: {r['attention_share']:.3f} of "
+          f"the step's device-busy time")
+    return r
+
+
+def _profile_train(cfg, device) -> None:
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    init, _ = make_optimizer(cfg.optimizer)
+    batch = batch_to(SyntheticLM(batch_spec_for(cfg, 8, 512)).batch(0),
+                     device)
+    print(f"{cfg.name} ({cfg.n_layers} layers, {cfg.optimizer}, remat "
+          f"{cfg.remat}): one train step of 8 x 512 tokens; "
+          f"{torch.cuda.get_device_name(0)}")
+    profile_train_step(cfg, params, init(params), batch)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="smollm-360m",
                     choices=("smollm-360m", "mamba2-2.7b",
                              "qwen3-moe-235b-a22b", "qwen3-14b"))
+    ap.add_argument("--train", action="store_true",
+                    help="profile a training step instead of serving")
     args = ap.parse_args(argv)
     device = resolve_device("cuda")
     cfg = get_config(args.arch)
     cfg = dataclasses.replace(cfg, n_layers=DEPTH.get(args.arch,
                                                       cfg.n_layers))
+    if args.train:
+        _profile_train(cfg, device)
+        return 0
     if cfg.kind == "ssm":
         _profile_ssm(cfg, device)
         return 0

@@ -178,12 +178,22 @@ def causal_attention(q, k, v, q_offset: int, window: int = 0,
     q (B, Sq, H, D) at absolute positions q_offset + [0, Sq); k, v
     (B, Sk, KV, D) at positions [0, Sk), Sk ≥ q_offset + Sq, with KV = H
     (expanded), KV | H (grouped) or any KV with ``qh2kv`` (H,).
-    CUDA: the chunked-prefill kernel. CPU: ``_attend`` over query chunks.
+    CUDA: the chunked-prefill kernel. CPU: ``chunked_attention``.
     """
-    q_offset = int(q_offset)
     if q.is_cuda and not _FORCE_PLAIN:
-        return flash_prefill_attention(q, k, v, q_offset=q_offset,
+        return flash_prefill_attention(q, k, v, q_offset=int(q_offset),
                                        window=window, qh2kv=qh2kv)
+    return chunked_attention(q, k, v, q_offset, window, chunk_q, qh2kv=qh2kv)
+
+
+def chunked_attention(q, k, v, q_offset: int, window: int = 0,
+                      chunk_q: int = ATTN_CHUNK_Q, *, qh2kv=None):
+    """``causal_attention``'s plain version, on every device: ``_attend``
+    over query chunks of ``chunk_q`` rows, each against every key with
+    its causal (and window) mask — the reference's ``causal_attention``.
+    Built of differentiable ops, it is also the training forward's
+    attention (the kernels are forward-only)."""
+    q_offset = int(q_offset)
     k, v = _expand(k, qh2kv), _expand(v, qh2kv)
     B, Sq, H, D = q.shape
     Sk = k.shape[1]
@@ -256,7 +266,8 @@ def _attend_all(q, k, v, qh2kv):
 def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
                     cache=None, cache_len=None, ring: bool = False,
                     kv_out: bool = False, enc_kv=None, causal: bool = True,
-                    window_override: Optional[int] = None):
+                    window_override: Optional[int] = None,
+                    train: bool = False):
     """Attention sub-block: norm → qkv → rope → attend → out proj.
 
     Returns (y, kv):
@@ -266,6 +277,9 @@ def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
       * ``causal`` False (the encoder, no cache): RoPE at positions
         ``q_offset + [0, S)`` and every position attends every other;
       * prefill (``cache`` None): the new (k, v) if ``kv_out`` else None;
+        with ``train`` (the training forward) the causal attention is
+        ``chunked_attention`` on every device, so gradients flow through
+        it;
       * extend/decode (``cache`` = (k_cache, v_cache), (B, S_cache, KV,
         Dh)): the S new tokens are written IN PLACE at ``cache_len`` — an
         int (uniform batch: chunked prefill, the causal kernel's runtime
@@ -292,7 +306,8 @@ def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
         if causal:
-            o = causal_attention(q, k, v, q_offset, window, qh2kv=qh2kv)
+            attend = chunked_attention if train else causal_attention
+            o = attend(q, k, v, q_offset, window, qh2kv=qh2kv)
         else:
             o = _attend_all(q, k, v, qh2kv)
         y = o.reshape(B, S, Hp * Dh) @ p["wo"]
@@ -502,13 +517,14 @@ def _moe_dispatch_compute(xf, router_w, w1, w2, w3, top_k: int,
                           capacity: int):
     """Capacity-routed MoE on a flat token slab (T, D) → (y, aux). Kept
     rows are written to their unique slots by index (dropped ones to the
-    overflow row, discarded); a dropped choice reads the zero row back."""
+    overflow row, discarded); a dropped choice reads the zero row back.
+    The writes are out of place, so autograd takes them as they are."""
     T, D = xf.shape
     E = router_w.shape[-1]
     gates, idx, aux = _route(xf, router_w, top_k)
     slot = _dispatch_indices(idx, E, capacity)                # (T*k,)
-    buf = xf.new_zeros((E * capacity + 1, D))
-    buf[slot] = xf.repeat_interleave(top_k, dim=0)
+    buf = xf.new_zeros((E * capacity + 1, D)).index_put(
+        (slot,), xf.repeat_interleave(top_k, dim=0))
     out = _expert_ffn(buf[:-1].view(E, capacity, D), w1, w2, w3)
     out_flat = torch.cat([out.reshape(E * capacity, D), xf.new_zeros((1, D))])
     y = out_flat[slot].view(T, top_k, D)

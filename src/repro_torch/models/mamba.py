@@ -4,7 +4,8 @@ of the reference's ``repro/models/mamba.py``. [arXiv:2405.21060]
 Prefill and multi-token extends run the chunked SSD scan: on CUDA
 tensors the hand-written kernel (``kernels/ssd_scan``), on CPU tensors
 its plain version ``ssd_chunked`` (also forced on the card inside
-``layers.plain_attention()``, for comparison only). A single-token step
+``layers.plain_attention()``, for comparison only, and taken on every
+device by the training forward). A single-token step
 against a state is the plain recurrence ``ssd_decode``, as in the
 reference, which has no kernel for it. Single B/C group.
 """
@@ -58,11 +59,14 @@ def _causal_conv(x, w, prev: Optional[torch.Tensor] = None):
 
 
 def mamba_block(x, p, cfg: ModelConfig, *, state: Optional[MambaState] = None,
-                return_state: bool = False):
+                return_state: bool = False, train: bool = False):
     """Mamba2 mixer block (pre-norm; the caller adds the residual).
 
     x: (B, S, D). With ``state`` this is a decode step (S == 1) or a chunk
     continuation; returns (y, new_state) — else (y, final_state or None).
+    ``train`` (the training forward): the scan is ``ssd_chunked`` on
+    every device, the reference's own training math, which autograd
+    differentiates (the kernel is forward-only).
     """
     s_cfg = cfg.ssm
     B_, S, D = x.shape
@@ -100,8 +104,8 @@ def mamba_block(x, p, cfg: ModelConfig, *, state: Optional[MambaState] = None,
             Cp = F.pad(Cc, (0, 0, 0, pad))
         else:
             xh_p, dt_p, Bp, Cp = xh, dt, Bc, Cc
-        scan = ssd_chunked if x.is_cuda and layers._FORCE_PLAIN \
-            else ssd_scan_op
+        plain = train or (x.is_cuda and layers._FORCE_PLAIN)
+        scan = ssd_chunked if plain else ssd_scan_op
         y, new_ssm = scan(xh_p, dt_p, A, Bp, Cp, chunk=chunk, h0=ssm0)
         y = y[:, :S]
 

@@ -12,6 +12,12 @@ Parameters are a plain dict of tensors stacked on a leading layer axis,
 with the reference's keys and shapes, so ``bridge.params_from_jax`` maps
 one onto the other leaf by leaf. The reference's ``lax.scan`` over
 layers is a Python loop here. Forward modes:
+  * ``loss_fn``           — the training forward: no caches, the chunked
+                            cross-entropy plus the MoE aux loss; every
+                            attention and scan a differentiable plain op
+                            (the kernels are forward-only, as the
+                            reference's Pallas kernels have no VJP), each
+                            layer rematerialised under ``cfg.remat``;
   * ``prefill``           — full sequence, last-position logits + KV;
   * ``decode_step``       — a few tokens against preallocated linear
                             caches (chunked-prefill extend at an int
@@ -33,6 +39,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -40,6 +47,10 @@ from repro_torch.models.layers import (DTYPE, PagedShard, attention_block,
                                        mlp_block, moe_block,
                                        paged_attention_block, rms_norm)
 from repro_torch.models.mamba import MambaState, mamba_block
+
+# Sequence-chunk length of the chunked cross-entropy (bounds the fp32
+# logits to (B, CE_CHUNK, V) instead of (B, S, V)).
+CE_CHUNK = 512
 
 
 class KVCache(NamedTuple):
@@ -197,6 +208,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return _to(params, device)
 
 
+def param_count_exact(params) -> int:
+    """The number of parameters: every leaf's elements."""
+    if isinstance(params, dict):
+        return sum(param_count_exact(v) for v in params.values())
+    return params.numel()
+
+
 def _periods(stack: dict, n_per: int) -> dict:
     """A stack of ``n_per * k`` layers → (n_per, k, ...) per leaf."""
     return {k: t.reshape((n_per, t.shape[0] // n_per) + t.shape[1:])
@@ -274,18 +292,38 @@ def _logits_at(params, h_last, cfg: ModelConfig) -> torch.Tensor:
     return (h_last @ w).float()
 
 
-def _ssm_stack(params, x, cfg: ModelConfig, caches):
+def _remat(fn, cfg: ModelConfig, train: bool):
+    """``fn`` (one layer or one hybrid period), recomputed in the backward
+    pass under ``torch.utils.checkpoint`` when a remat config trains —
+    where the reference wraps its scan body in ``jax.checkpoint``."""
+    if not (train and cfg.remat):
+        return fn
+    # no layer draws random numbers: nothing to stash for the recompute
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
+def _ssm_stack(params, x, cfg: ModelConfig, caches, mode: str):
     """One Mamba2 block per layer, from ``caches.ssm`` if given; returns
-    (x, the new stacked MambaState)."""
-    ssms, convs = [], []
-    for l in range(cfg.n_layers):
+    (x, the new stacked MambaState; None in train mode)."""
+    train = mode == "train"
+
+    def block(x, l):
         st = None if caches is None or caches.ssm is None else MambaState(
             ssm=caches.ssm.ssm[l], conv=caches.ssm.conv[l])
         y, new = mamba_block(x, _layer(params["mamba"], l), cfg, state=st,
-                             return_state=True)
-        x = x + y
-        ssms.append(new.ssm)
-        convs.append(new.conv)
+                             return_state=not train, train=train)
+        return x + y, new
+
+    block = _remat(block, cfg, train)
+    ssms, convs = [], []
+    for l in range(cfg.n_layers):
+        x, new = block(x, l)
+        if new is not None:
+            ssms.append(new.ssm)
+            convs.append(new.conv)
+    if train:
+        return x, None
     return x, MambaState(ssm=torch.stack(ssms), conv=torch.stack(convs))
 
 
@@ -296,16 +334,23 @@ def _ffn(x, p, cfg: ModelConfig, use_moe: bool):
     return mlp_block(x, p, cfg), 0.0
 
 
-def encode(params, frames, cfg: ModelConfig) -> torch.Tensor:
+def encode(params, frames, cfg: ModelConfig, *,
+           train: bool = False) -> torch.Tensor:
     """frames (B, F, D) stub embeddings → (B, F, D) encoder output: a
     bidirectional attention + MLP block per encoder layer, then the
-    encoder's final norm."""
-    x = frames.to(DTYPE)
-    for l in range(cfg.encoder_layers):
+    encoder's final norm. ``train``: each layer is rematerialised in a
+    remat config's backward pass."""
+
+    def block(x, l):
         y, _ = attention_block(x, _layer(params["enc_attn"], l), cfg,
                                causal=False)
         x = x + y
-        x = x + mlp_block(x, _layer(params["enc_mlp"], l), cfg)
+        return x + mlp_block(x, _layer(params["enc_mlp"], l), cfg)
+
+    block = _remat(block, cfg, train)
+    x = frames.to(DTYPE)
+    for l in range(cfg.encoder_layers):
+        x = block(x, l)
     return rms_norm(x, params["enc_final_ln"], cfg.norm_eps)
 
 
@@ -322,9 +367,13 @@ def build_enc_kv(params, enc_out, cfg: ModelConfig) -> KVCache:
 
 def _self_attention(x, p_a, cfg: ModelConfig, l: int, *, mode: str, caches,
                     q_offset: int, ring: bool, window_override):
-    """Attention layer ``l``'s self-attention: the prefill form (new KV
+    """Attention layer ``l``'s self-attention: the training form (the
+    differentiable plain attention, no KV out), the prefill form (new KV
     out) or the extend/decode form over ``caches.kv[l]`` at
     ``caches.length``."""
+    if mode == "train":
+        return attention_block(x, p_a, cfg, q_offset=q_offset,
+                               window_override=window_override, train=True)
     if mode == "prefill":
         return attention_block(x, p_a, cfg, q_offset=q_offset, kv_out=True,
                                window_override=window_override)
@@ -346,8 +395,8 @@ def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
     if cross and (caches is None or caches.enc_kv is None):
         raise ValueError(f"{cfg.name} cross-attends its encoder: the caches "
                          f"need enc_kv (prefill(frames=...) builds it)")
-    kvs, aux = [], 0.0
-    for l in range(cfg.n_layers):
+
+    def block(x, aux, l):
         y, kv = _self_attention(x, _layer(params["attn"], l), cfg, l,
                                 mode=mode, caches=caches, q_offset=q_offset,
                                 ring=ring, window_override=window_override)
@@ -358,8 +407,12 @@ def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
                 enc_kv=(caches.enc_kv.k[l], caches.enc_kv.v[l]))
             x = x + y
         y, a = _ffn(x, _layer(p_f, l), cfg, use_moe)
-        x = x + y
-        aux = aux + a
+        return x + y, aux + a, kv
+
+    block = _remat(block, cfg, mode == "train")
+    kvs, aux = [], 0.0
+    for l in range(cfg.n_layers):
+        x, aux, kv = block(x, aux, l)
         kvs.append(kv)
     return x, aux, kvs
 
@@ -372,30 +425,31 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
     others. In decode the period's attention layer reads ``caches.kv[p]``
     and its Mamba2 layer j ``caches.ssm[p, j]``. Returns (x, the summed
     MoE aux loss, per-period kv, the new (periods, attn_every - 1, ...)
-    MambaState)."""
+    MambaState; None in train mode)."""
     period, every = cfg.attn_every, cfg.moe.every
-    kvs, ssms, convs, aux = [], [], [], 0.0
-    for per in range(cfg.n_layers // period):
+    train = mode == "train"
+
+    def period_block(x, aux, per):
         p_m = _layer(params["mamba"], per)
         p_fd = _layer(params["ffn_dense"], per)
         p_fm = _layer(params["ffn_moe"], per)
         i_d = i_m = 0
-        per_ssm, per_conv = [], []
+        kv, per_ssm, per_conv = None, [], []
         for pos in range(period):
             if pos == 0:
                 y, kv = _self_attention(
                     x, _layer(params["attn"], per), cfg, per, mode=mode,
                     caches=caches, q_offset=q_offset, ring=ring,
                     window_override=window_override)
-                kvs.append(kv)
             else:
                 st = None if caches is None or caches.ssm is None \
                     else MambaState(ssm=caches.ssm.ssm[per, pos - 1],
                                     conv=caches.ssm.conv[per, pos - 1])
                 y, new = mamba_block(x, _layer(p_m, pos - 1), cfg, state=st,
-                                     return_state=True)
-                per_ssm.append(new.ssm)
-                per_conv.append(new.conv)
+                                     return_state=not train, train=train)
+                if new is not None:
+                    per_ssm.append(new.ssm)
+                    per_conv.append(new.conv)
             x = x + y
             if pos % every == every - 1:
                 y, a = moe_block(x, _layer(p_fm, i_m), cfg)
@@ -405,29 +459,94 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                 y = mlp_block(x, _layer(p_fd, i_d), cfg)
                 i_d += 1
             x = x + y
-        ssms.append(torch.stack(per_ssm))
-        convs.append(torch.stack(per_conv))
+        state = None if train else MambaState(ssm=torch.stack(per_ssm),
+                                              conv=torch.stack(per_conv))
+        return x, aux, kv, state
+
+    period_block = _remat(period_block, cfg, train)
+    kvs, ssms, convs, aux = [], [], [], 0.0
+    for per in range(cfg.n_layers // period):
+        x, aux, kv, state = period_block(x, aux, per)
+        kvs.append(kv)
+        if state is not None:
+            ssms.append(state.ssm)
+            convs.append(state.conv)
+    if train:
+        return x, aux, kvs, None
     return x, aux, kvs, MambaState(ssm=torch.stack(ssms),
                                    conv=torch.stack(convs))
 
 
 def _run_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                q_offset: int = 0, ring: bool = False, window_override=None):
-    """The decoder stack of any family → (h, per-layer kv or None, the
-    new stacked MambaState or None)."""
+    """The decoder stack of any family → (h, the summed MoE aux loss,
+    per-layer kv or None, the new stacked MambaState or None). ``mode``
+    "train" returns no caches (kv and state None)."""
     if cfg.kind == "ssm":
-        h, ssm = _ssm_stack(params, x, cfg, caches)
-        return h, None, ssm
+        h, ssm = _ssm_stack(params, x, cfg, caches, mode)
+        return h, 0.0, None, ssm
     if cfg.attn_every:
-        h, _, kvs, ssm = _hybrid_stack(params, x, cfg, mode=mode,
-                                       caches=caches, q_offset=q_offset,
-                                       ring=ring,
-                                       window_override=window_override)
-        return h, kvs, ssm
-    h, _, kvs = _uniform_stack(params, x, cfg, mode=mode, caches=caches,
-                               q_offset=q_offset, ring=ring,
-                               window_override=window_override)
-    return h, kvs, None
+        h, aux, kvs, ssm = _hybrid_stack(params, x, cfg, mode=mode,
+                                         caches=caches, q_offset=q_offset,
+                                         ring=ring,
+                                         window_override=window_override)
+    else:
+        h, aux, kvs = _uniform_stack(params, x, cfg, mode=mode,
+                                     caches=caches, q_offset=q_offset,
+                                     ring=ring,
+                                     window_override=window_override)
+        ssm = None
+    return h, aux, (None if mode == "train" else kvs), ssm
+
+
+def _unembed_chunked(params, h, labels, cfg: ModelConfig) -> torch.Tensor:
+    """Chunked cross-entropy: the mean over unmasked positions (label
+    < 0 is masked) of -log softmax(h @ w)[label], over ``CE_CHUNK``-token
+    slices, so the (B, S, V) fp32 logits never exist at once. As in the
+    reference, S splits into ``max(S // CE_CHUNK, 1)`` equal slices and a
+    remainder past them is left out."""
+    B, S, _ = h.shape
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    V = cfg.padded_vocab
+    n = max(S // CE_CHUNK, 1)
+    C = S // n
+    tot = cnt = 0.0
+    for i in range(n):
+        hc, lc = h[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
+        logits = (hc @ w).float()                              # (B, C, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            lc.clamp(0, V - 1).long()[..., None])[..., 0]
+        mask = (lc >= 0).float()
+        tot = tot + torch.sum((logz - gold) * mask)
+        cnt = cnt + torch.sum(mask)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Training loss: the chunked next-token cross-entropy plus 0.01 ×
+    the summed MoE load-balance aux loss. ``batch``: tokens and labels
+    (B, S) integer tensors, and an encoder-decoder's ``frames`` or the
+    patch frontend's ``patches`` (B, F, d_model). The forward runs in
+    train mode: every attention and scan is a differentiable plain op,
+    no kernel is launched, and a remat config recomputes each layer in
+    the backward pass."""
+    x = _embed(params, batch["tokens"], cfg)
+    labels = batch["labels"]
+    caches = None
+    if cfg.encoder_layers:       # whisper: encode stub frames, cross-attend
+        enc_out = encode(params, batch["frames"], cfg, train=True)
+        caches = Caches(kv=None, length=0,
+                        enc_kv=build_enc_kv(params, enc_out, cfg))
+    elif cfg.frontend == "patch":    # vlm: prepend the patch embeddings
+        patches = batch["patches"].to(DTYPE)
+        x = torch.cat([patches, x], dim=1)
+        pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    h, aux, _, _ = _run_stack(params, x, cfg, mode="train", caches=caches)
+    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+    return _unembed_chunked(params, h, labels, cfg) + 0.01 * aux
 
 
 def prefill(params, tokens, cfg: ModelConfig, *, frames=None, patches=None,
@@ -447,10 +566,11 @@ def prefill(params, tokens, cfg: ModelConfig, *, frames=None, patches=None,
         enc_kv = build_enc_kv(params, encode(params, frames, cfg), cfg)
     elif cfg.frontend == "patch" and patches is not None:
         x = torch.cat([patches.to(DTYPE), x], dim=1)
-    h, kvs, ssm = _run_stack(params, x, cfg, mode="prefill",
-                             caches=Caches(kv=None, length=0, enc_kv=enc_kv),
-                             q_offset=q_offset,
-                             window_override=window_override)
+    h, _, kvs, ssm = _run_stack(params, x, cfg, mode="prefill",
+                                caches=Caches(kv=None, length=0,
+                                              enc_kv=enc_kv),
+                                q_offset=q_offset,
+                                window_override=window_override)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = _logits_at(params, h[:, -1:, :], cfg)[:, 0]
     kv = None if not kvs else KVCache(k=torch.stack([k for k, _ in kvs]),
@@ -467,8 +587,8 @@ def decode_step(params, tokens, caches: Caches, cfg: ModelConfig, *,
     ``ring``: the KV cache is a sliding-window ring buffer (S = 1).
     Returns (logits (B, S, V) fp32, caches with the length advanced)."""
     x = _embed(params, tokens, cfg)
-    h, _, ssm = _run_stack(params, x, cfg, mode="decode", caches=caches,
-                           ring=ring, window_override=window_override)
+    h, _, _, ssm = _run_stack(params, x, cfg, mode="decode", caches=caches,
+                              ring=ring, window_override=window_override)
     h = rms_norm(h, params["final_ln"], cfg.norm_eps)
     logits = _logits_at(params, h, cfg)
     return logits, caches._replace(length=caches.length + tokens.shape[1],

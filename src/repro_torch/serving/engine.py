@@ -1255,6 +1255,10 @@ class DecodeWorker:
         return sum(s is not None for s in self.slots)
 
     @property
+    def free_slots(self) -> int:
+        return sum(s is None for s in self.slots)
+
+    @property
     def has_free_slot(self) -> bool:
         return any(s is None for s in self.slots)
 

@@ -1,5 +1,16 @@
-"""The engine's shared paged device KV store — the counterpart of the
-reference's ``DevicePagePool`` (``repro/serving/paged_cache.py``).
+"""Paged device KV caches — the counterparts of the reference's
+``repro/serving/paged_cache.py``. Two tiers of API, as there:
+
+* the functional ``PagedKVCache`` helpers (``init_paged_cache``,
+  ``alloc_pages``, ``assign_seq``, ``grow_seq``, ``free_seq``,
+  ``write_kv``, ``gather_kv``): a self-contained paged cache whose block
+  table and pages move together. The host-side table helpers return a
+  new cache with new tables and the same page tensors, as the
+  reference's do; ``write_kv`` checks every page it would touch before
+  writing, then writes the pages IN PLACE (the reference rebinds a
+  functional update), so a write that raises leaves every page as it
+  was;
+* ``DevicePagePool``, the engine's substrate (below).
 
 One page store per process (the stand-in for a node's HBM), shared by
 every ``PrefillWorker`` (writes fresh pages, §3 step 2) and the
@@ -31,6 +42,7 @@ every ``PrefillWorker`` (writes fresh pages, §3 step 2) and the
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
@@ -40,6 +52,155 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.trace import BLOCK_TOKENS
 from repro_torch.models.layers import DTYPE
+
+
+@dataclass
+class PagedKVCache:
+    k_pages: torch.Tensor       # (L, P, page, KV, Dh)
+    v_pages: torch.Tensor
+    block_table: torch.Tensor   # (B, max_pages) int32, on the pages' device
+    seq_lens: torch.Tensor      # (B,) int32
+    page_tokens: int
+    free: list = field(default_factory=list)   # host-side free page ids
+
+    @property
+    def n_layers(self) -> int:
+        return self.k_pages.shape[0]
+
+    @property
+    def n_pages(self) -> int:
+        return self.k_pages.shape[1]
+
+    @property
+    def max_pages_per_seq(self) -> int:
+        return self.block_table.shape[1]
+
+    def _with(self, table: np.ndarray, lens: np.ndarray) -> "PagedKVCache":
+        dev = self.k_pages.device
+        return PagedKVCache(self.k_pages, self.v_pages,
+                            torch.from_numpy(table).to(dev),
+                            torch.from_numpy(lens).to(dev),
+                            self.page_tokens, self.free)
+
+
+def init_paged_cache(cfg: ModelConfig, *, batch: int, n_pages: int,
+                     page_tokens: int = 64, max_seq: int = 32768,
+                     device="cuda") -> PagedKVCache:
+    """Zero pages for every attention layer; page 0 is the null page
+    (never allocated: tables pad with it)."""
+    device = resolve_device(device)
+    La = cfg.attention_layers
+    KV, Dh = cfg.n_kv_heads, cfg.head_dim
+    max_pages = (max_seq + page_tokens - 1) // page_tokens
+    shape = (La, n_pages, page_tokens, KV, Dh)
+    return PagedKVCache(
+        k_pages=torch.zeros(shape, dtype=DTYPE, device=device),
+        v_pages=torch.zeros(shape, dtype=DTYPE, device=device),
+        block_table=torch.zeros((batch, max_pages), dtype=torch.int32,
+                                device=device),
+        seq_lens=torch.zeros((batch,), dtype=torch.int32, device=device),
+        page_tokens=page_tokens,
+        free=list(range(n_pages - 1, 0, -1)),  # page 0 = null page
+    )
+
+
+def _tables(cache: PagedKVCache):
+    """Host copies of the block table and lengths."""
+    return (cache.block_table.cpu().numpy().copy(),
+            cache.seq_lens.cpu().numpy().copy())
+
+
+def alloc_pages(cache: PagedKVCache, n: int) -> list[int]:
+    if len(cache.free) < n:
+        raise MemoryError(f"paged cache OOM: want {n}, free {len(cache.free)}")
+    return [cache.free.pop() for _ in range(n)]
+
+
+def free_seq(cache: PagedKVCache, slot: int) -> PagedKVCache:
+    """Release all pages of a batch slot back to the free list."""
+    table, lens = _tables(cache)
+    n_used = int(np.ceil(lens[slot] / cache.page_tokens))
+    cache.free.extend(int(p) for p in table[slot, :n_used] if p != 0)
+    table[slot] = 0
+    lens[slot] = 0
+    return cache._with(table, lens)
+
+
+def assign_seq(cache: PagedKVCache, slot: int, n_tokens: int) -> PagedKVCache:
+    """Allocate pages for a new sequence of ``n_tokens`` in ``slot``."""
+    n = (n_tokens + cache.page_tokens - 1) // cache.page_tokens
+    pages = alloc_pages(cache, n)
+    table, lens = _tables(cache)
+    table[slot, :n] = pages
+    table[slot, n:] = 0
+    lens[slot] = n_tokens
+    return cache._with(table, lens)
+
+
+def grow_seq(cache: PagedKVCache, slot: int, extra: int = 1) -> PagedKVCache:
+    """Extend a sequence; allocates a fresh page at a page boundary."""
+    table, lens = _tables(cache)
+    old, new = int(lens[slot]), int(lens[slot]) + extra
+    n_old = (old + cache.page_tokens - 1) // cache.page_tokens
+    n_new = (new + cache.page_tokens - 1) // cache.page_tokens
+    if n_new > n_old:
+        table[slot, n_old:n_new] = alloc_pages(cache, n_new - n_old)
+    lens[slot] = new
+    return cache._with(table, lens)
+
+
+def write_kv(cache: PagedKVCache, slot: int, start: int,
+             k_new: torch.Tensor, v_new: torch.Tensor) -> PagedKVCache:
+    """Write (L, S, KV, Dh) new KV of one sequence into its pages,
+    starting at token offset ``start``, in place.
+
+    A write that runs past the slot's assigned pages (page-table entry 0,
+    the reserved null page) or past the table raises before any page is
+    written: callers must ``assign_seq``/``grow_seq`` first."""
+    pt = cache.page_tokens
+    table = cache.block_table.cpu().numpy()
+    S = k_new.shape[1]
+    runs = []                    # (page id, offset, source slice)
+    tok = start
+    while tok < start + S:
+        page_idx = tok // pt
+        off = tok % pt
+        n = min(pt - off, start + S - tok)   # stop at the page boundary
+        if page_idx >= table.shape[1]:
+            raise IndexError(
+                f"write_kv overruns the block table: token {tok} needs page "
+                f"index {page_idx} but the table holds {table.shape[1]} "
+                f"pages per sequence (grow max_seq or shorten the write)")
+        pid = int(table[slot, page_idx])
+        if pid == 0:
+            raise IndexError(
+                f"write_kv into unassigned page: slot {slot} token {tok} "
+                f"maps to table entry {page_idx} = 0 (the null page) — "
+                f"assign_seq/grow_seq the sequence before writing")
+        runs.append((pid, off, slice(tok - start, tok - start + n)))
+        tok += n
+    for pid, off, src in runs:
+        n = src.stop - src.start
+        cache.k_pages[:, pid, off:off + n] = k_new[:, src]
+        cache.v_pages[:, pid, off:off + n] = v_new[:, src]
+    return cache
+
+
+def gather_kv(cache: PagedKVCache, max_tokens: int):
+    """Per-sequence contiguous KV (L, B, max_tokens, KV, Dh) gathered from
+    the pages through the block table (the plain paged read; the decode
+    kernel fuses this gather with attention). A ``max_tokens`` that is
+    not a multiple of ``page_tokens`` rounds up to whole pages and the
+    surplus tail is sliced off."""
+    pt = cache.page_tokens
+    n = (max_tokens + pt - 1) // pt
+    tbl = cache.block_table[:, :n].long()              # (B, n)
+    k = cache.k_pages[:, tbl]                          # (L, B, n, pt, KV, Dh)
+    v = cache.v_pages[:, tbl]
+    L, B = k.shape[0], k.shape[1]
+    k = k.reshape(L, B, n * pt, *k.shape[4:])[:, :, :max_tokens]
+    v = v.reshape(L, B, n * pt, *v.shape[4:])[:, :, :max_tokens]
+    return k, v
 
 
 class DevicePagePool:

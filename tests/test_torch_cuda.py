@@ -759,3 +759,56 @@ def test_cpp_on_the_card(cuda):
     for got, ref in ((torch.cat(kc), kr), (torch.cat(vc), vr)):
         assert (got.float() - ref.float()).abs().max().item() \
             <= TOL * ref.abs().max().item()
+
+
+def _launch_counts():
+    return (paged_attention.launches, paged_attention_layers.launches,
+            flash_prefill.launches, ssd_scan.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["smollm-360m", "jamba-1.5-large-398b"])
+def test_train_step_launches_no_kernel(cuda, name):
+    """A train step on the card (forward, backward, update) runs the
+    differentiable plain attention and SSD scan: no kernel's launch count
+    moves, while a prefill of the same weights does launch (the counts
+    are live), and the step's loss is finite and its params move."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, batch_spec_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_params, prefill
+    from repro_torch.training import make_optimizer
+    from repro_torch.training.loop import batch_to
+    from repro_torch.training.optim import tree_leaves
+    cfg = get_config(name).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    batch = batch_to(SyntheticLM(batch_spec_for(cfg, 2, 128)).batch(0), cuda)
+    init, _ = make_optimizer(cfg.optimizer)
+    before = _launch_counts()
+    loss, new, _ = make_train_step(cfg)(params, init(params), batch)
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    assert torch.isfinite(loss)
+    assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(params),
+                                                     tree_leaves(new)))
+    prefill(params, batch["tokens"], cfg)
+    torch.cuda.synchronize()
+    assert _launch_counts() != before
+
+
+@pytest.mark.cuda
+def test_kernel_ops_refuse_autograd_on_the_card(cuda):
+    """An input that requires grad, with grad mode on, raises before the
+    kernel launches; under ``torch.no_grad()`` the kernel runs."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 64, 4, 64, generator=g).bfloat16().to(cuda)
+    k = torch.randn(1, 64, 2, 64, generator=g).bfloat16().to(cuda)
+    v = torch.randn(1, 64, 2, 64, generator=g).bfloat16().to(cuda)
+    q.requires_grad_(True)
+    before = flash_prefill.launches
+    with pytest.raises(RuntimeError, match="forward-only"):
+        flash_prefill_attention(q, k, v)
+    assert flash_prefill.launches == before
+    with torch.no_grad():
+        flash_prefill_attention(q, k, v)
+    assert flash_prefill.launches == before + 1

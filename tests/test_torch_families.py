@@ -146,7 +146,7 @@ def test_config_properties_hold_in_the_port(name):
 def _fields(cfg, like=None) -> dict:
     """A config's fields as a dict, nested MoE/SSM configs included;
     with ``like``, only the fields the port's own config has (the
-    reference's training fields and ``n_groups`` are not ported)."""
+    reference's ``n_groups`` is not ported)."""
     like = cfg if like is None else like
     out = {}
     for f in dataclasses.fields(like):
