@@ -8,7 +8,7 @@ Phases, each printed as it runs; any failure exits non-zero:
   2. the build of every hand-written kernel (one nvcc per source, all at
      once) and what ptxas reports for each kernel (registers, static
      shared memory, spills), with the paged kernel's dynamic shared
-     memory per head_dim;
+     memory per head_dim (32, 64, 96, 128);
   3. the paged decode kernel against its plain PyTorch version and its
      plain split decomposition on the card at the serving path's shapes
      (smollm-360m: B=8 slots, 16 padded query heads over 5 KV heads,
@@ -142,6 +142,19 @@ Phases, each printed as it runs; any failure exits non-zero:
      (e) one profiled train step of (b)'s model: device-busy time, idle
      share, kernels a step, the largest items, the plain attention's
      share.
+ 16. head dim 96 and the last dense configs: (a) both attention kernels
+     at D=96 against their plain versions — paged at phi3-mini's decode
+     (8 slots, 32 query heads over 32 KV heads, the launcher's depths, a
+     poisoned null page; timed beside its bound, plain version and SDPA),
+     forced splits 1/2/4/8 with 1- and 65-token slots, 16 over 4 with a
+     map, a 300-token window, the layers entry over 32 layers (bitwise
+     per layer, timed); prefill at Sq 256 over 1536 keys at offsets 1280
+     (timed) and 0, a ragged 131-token tail, five forced key splits, a
+     window; (b) phi3-mini-3.8b and (c) qwen2.5-3b (QKV bias) at full
+     width and depth served by the launcher's body with phase 5's
+     workload, launches = layers x calls, one request teacher-forced; (d)
+     the sharded op on the (2, 2) mesh at D=96, bitwise the unsharded
+     kernel.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -1854,16 +1867,18 @@ def e2e_internvl2(torch, device="cuda", steps=16, prompt_len=256):
     return dict(launches=launches, err=err, peak_gib=peak)
 
 
-def e2e_qwen3_14b(torch, device="cuda"):
-    """(d): qwen3-14b at full width and depth served by the launcher's
-    body (phase 5's workload), its launches counted, one request
-    teacher-forced through the kernel and plain paths."""
+def serve_dense(torch, arch, device="cuda"):
+    """``arch`` at full width and depth (``.reduced()`` off the card)
+    served by the launcher's body with phase 5's workload, both kernels'
+    launches counted from zero (= layers x paged calls and layers x
+    prefill chunks, both non-zero), one request teacher-forced through
+    the kernel and plain paths within 4 bf16 ulps (phase 5's rule)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_prefill.kernel import flash_prefill
     from repro_torch.kernels.paged_attention.kernel import paged_attention
     from repro_torch.launch.serve import serve
     from repro_torch.models.layers import plain_attention
-    cfg = get_config("qwen3-14b")
+    cfg = get_config(arch)
     if device != "cuda":
         cfg = cfg.reduced()
     params = draw_params(torch, cfg, device)
@@ -1876,30 +1891,39 @@ def e2e_qwen3_14b(torch, device="cuda"):
     launches = {"paged_attention": paged_attention.launches,
                 "flash_prefill": flash_prefill.launches}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"qwen3-14b e2e: {s['completed']}/{s['submitted']} requests "
+    log(f"{arch} e2e: {s['completed']}/{s['submitted']} requests "
         f"completed, {s['new_tokens']} tokens in {s['seconds']:.3f} s, decode "
         f"{s['decode_tok_s']:.2f} tok/s, TTFT p50 {s['ttft_p50_s'] * 1e3:.2f} "
         f"ms, TBT p50 {s['tbt_p50_s'] * 1e3:.2f} ms p99 "
         f"{s['tbt_p99_s'] * 1e3:.2f} ms; max_memory_allocated {peak:.2f} GiB")
-    log(f"qwen3-14b e2e launches: paged_attention "
+    log(f"{arch} e2e launches: paged_attention "
         f"{launches['paged_attention']} (= {cfg.n_layers} x "
         f"{s['paged_calls']} paged step calls), flash_prefill "
         f"{launches['flash_prefill']} (= {cfg.n_layers} x "
         f"{s['prefill_chunks']} prefill chunks)")
     if s["submitted"] != 8 or s["completed"] != s["submitted"]:
-        raise AssertionError("qwen3-14b: not every request completed")
+        raise AssertionError(f"{arch}: not every request completed")
     if device == "cuda" and (
             launches["paged_attention"] != cfg.n_layers * s["paged_calls"]
             or launches["flash_prefill"]
             != cfg.n_layers * s["prefill_chunks"]
             or not (launches["paged_attention"]
                     and launches["flash_prefill"])):
-        raise AssertionError("qwen3-14b: launches do not match layers x "
-                             "calls")
+        raise AssertionError(f"{arch}: launches do not match layers x "
+                             f"calls")
+    # the greedy sampler ranges over the padded vocabulary, as the
+    # reference's does (``argmax`` over the unembedding's padded_vocab
+    # columns, random weights in the padding rows too): phi3-mini's 32,064
+    # pad to 32,256, qwen2.5-3b's and qwen3-14b's 151,936 to 152,064
+    pad_ids = 0
     for rid, toks, mn, _ in s["payloads"]:
         out = s["outputs"][rid]
-        if len(out) != mn or not all(0 <= t < cfg.vocab_size for t in out):
-            raise AssertionError(f"qwen3-14b request {rid}: bad stream {out}")
+        if len(out) != mn or not all(0 <= t < cfg.padded_vocab for t in out):
+            raise AssertionError(f"{arch} request {rid}: bad stream {out}")
+        pad_ids += sum(t >= cfg.vocab_size for t in out)
+    log(f"{arch}: {pad_ids} of {s['new_tokens']} served tokens are padding "
+        f"ids (>= vocab_size {cfg.vocab_size}, < padded_vocab "
+        f"{cfg.padded_vocab})")
     rid, prompt, _, _ = s["payloads"][0]
     stream = s["outputs"][rid]
     lk = teacher_forced(torch, params, cfg, prompt, stream)
@@ -1907,10 +1931,10 @@ def e2e_qwen3_14b(torch, device="cuda"):
         lp = teacher_forced(torch, params, cfg, prompt, stream)
     torch.cuda.synchronize()
     served = lk.argmax(-1).cpu().tolist() == stream
-    log(f"qwen3-14b teacher forcing (request {rid}, prompt {len(prompt)}): "
+    log(f"{arch} teacher forcing (request {rid}, prompt {len(prompt)}): "
         f"kernel argmax == served stream: {served}")
-    hold_rows(torch, "qwen3-14b teacher forcing", lk, lp)
-    return dict(launches=launches, summary=s, peak_gib=peak)
+    err = hold_rows(torch, f"{arch} teacher forcing", lk, lp)
+    return dict(launches=launches, summary=s, peak_gib=peak, err=err)
 
 
 class kernels_as_plain_versions:
@@ -2053,20 +2077,22 @@ def llama_cut(torch, device="cuda"):
     return cfg, draw_params(torch, cfg, device)
 
 
-def check_sharded_op(torch, timer) -> dict:
+def check_sharded_op(torch, timer, *, H=64, KV=8, D=128, seed=14,
+                     lens=(1, 2048, 1536, 64, 65, 700, 1537, 333)) -> dict:
     """(a): ``paged_decode_attention_sharded`` on a (2, 2) mesh over the
-    card at llama2-70b's decode shape: bitwise the unsharded kernel with
-    its split count pinned, within 2e-2 of the plain version; timed
-    beside the unsharded kernel."""
+    card at llama2-70b's decode shape (or H query heads over KV at head
+    dim D): bitwise the unsharded kernel with its split count pinned,
+    within 2e-2 of the plain version; timed beside the unsharded
+    kernel."""
     from repro_torch.kernels.paged_attention.kernel import paged_attention
     from repro_torch.kernels.paged_attention.ops import (
         grouped_map, paged_decode_attention_sharded)
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    lens = [1, 2048, 1536, 64, 65, 700, 1537, 333]
+    lens = list(lens)
     q, kp, vp, table, lens_t, _ = paged_case(
-        torch, B=8, H=64, KV=8, D=128, page=64, max_pages=32, P=257,
-        lens=lens, qh2kv=None, seed=14)
-    mk = grouped_map(64, 8, q.device)
+        torch, B=8, H=H, KV=KV, D=D, page=64, max_pages=32, P=257,
+        lens=lens, qh2kv=None, seed=seed)
+    mk = grouped_map(H, KV, q.device)
     mesh = card_mesh(torch, (2, 2), ("data", "model"))
     whole = paged_attention(q, kp, vp, table, lens_t, mk)
     splits = paged_attention.last_splits
@@ -2082,8 +2108,8 @@ def check_sharded_op(torch, timer) -> dict:
     ms = timer.ms(lambda: paged_decode_attention_sharded(
         q, kp, vp, table, lens_t, mesh=mesh))
     whole_ms = timer.ms(lambda: paged_attention(q, kp, vp, table, lens_t, mk))
-    log(f"sharded op (2x2 on the card, B=8 H=64 KV=8 D=128, lens {lens}): "
-        f"pinned to the unsharded {splits} splits bitwise == unsharded "
+    log(f"sharded op (2x2 on the card, B=8 H={H} KV={KV} D={D}, lens "
+        f"{lens}): pinned to the unsharded {splits} splits bitwise == unsharded "
         f"kernel: {bitwise}; max_abs_err vs plain {err:.3e} (each shard's "
         f"own choice, {shard_splits} splits: {err_own:.3e}; tol {TOL}); "
         f"sharded op {ms:.4f} ms (4 launches + stripe copies) vs the "
@@ -2512,6 +2538,81 @@ def e2e_training(torch, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: head dim 96 — phi3-mini-3.8b, and qwen2.5-3b
+# ---------------------------------------------------------------------------
+
+# the launcher's decode batch: phase 5's workload, prompts capped at 1536
+PHI3_DEPTHS = [1536, 1536, 1536, 436, 1536, 1536, 428, 1536]
+
+
+def head_dim_96_cases(torch, timer) -> dict:
+    """(a): both kernels at head_dim 96 against their plain versions —
+    phi3-mini's MHA (32 query heads over 32 KV heads) at its decode and
+    prefill shapes, timed beside the bound, plain version and SDPA; a
+    grouped map, windows, forced splits, ragged tails, and the layers
+    entry over 32 layers."""
+    mha = list(range(32))
+    g4 = [h // 4 for h in range(16)]
+    out = {}
+    phi3 = dict(B=8, H=32, KV=32, D=96, page=64, max_pages=24, P=193)
+    out["paged_attention phi3-mini decode"] = check_paged(
+        torch, timer, "phi3-mini", paged_case(
+            torch, lens=PHI3_DEPTHS, qh2kv=mha, seed=30, **phi3), main=True)
+    # 1- and 65-token slots: most blocks of their clusters hold no token
+    edges = [1536, 1, 1536, 436, 65, 1536, 428, 1536]
+    for ns in (1, 2, 4, 8):
+        check_paged(torch, timer, f"phi3-mini-{ns}-splits", paged_case(
+            torch, lens=edges, qh2kv=mha, seed=31 + ns, **phi3), main=False,
+            n_splits=ns)
+    check_paged(torch, timer, "grouped-16-over-4-D96", paged_case(
+        torch, B=8, H=16, KV=4, D=96, page=64, max_pages=32, P=289,
+        lens=[5, 2048, 640, 1, 100, 1500, 63, 1024], qh2kv=g4, seed=40),
+        main=False)
+    check_paged(torch, timer, "phi3-mini-window300", paged_case(
+        torch, lens=edges, qh2kv=mha, seed=41, **phi3), main=False,
+        window=300)
+    _, out["paged_attention_layers phi3-mini"] = check_paged_layers(
+        torch, timer, L=32, lens=PHI3_DEPTHS, qh2kv=mha, seed=42, **phi3)
+    out["flash_prefill phi3-mini chunk"] = check_prefill(
+        torch, timer, "phi3-mini", Sq=256, Sk=1536, q_offset=1280, H=32,
+        KV=32, D=96, qh2kv=mha, seed=43, main=True)
+    check_prefill(torch, timer, "phi3-mini-off0", Sq=256, Sk=1536,
+                  q_offset=0, H=32, KV=32, D=96, qh2kv=mha, seed=44,
+                  main=False)
+    check_prefill(torch, timer, "phi3-mini-tail131", Sq=131, Sk=1411,
+                  q_offset=1280, H=32, KV=32, D=96, qh2kv=mha, seed=45,
+                  main=False)
+    check_prefill(torch, timer, "phi3-mini-off0-5splits", Sq=256, Sk=1536,
+                  q_offset=0, H=32, KV=32, D=96, qh2kv=mha, seed=46,
+                  main=False, n_splits=5)
+    check_prefill(torch, timer, "grouped-D96-window300", Sq=256, Sk=1536,
+                  q_offset=1280, H=16, KV=4, D=96, qh2kv=g4, seed=47,
+                  main=False, window=300)
+    return out
+
+
+def e2e_head_dim_96(torch, timer) -> dict:
+    """Phase 16: (a) the kernel cases; (b) phi3-mini-3.8b and (c)
+    qwen2.5-3b served at full width and depth; (d) the sharded op at
+    head_dim 96 on the (2, 2) mesh."""
+    t0 = time.monotonic()
+    out = dict(cases=head_dim_96_cases(torch, timer))
+    log("phase 16 (a): " + json.dumps({k: {f: round(v, 5) if isinstance(
+        v, float) else v for f, v in r.items()}
+        for k, r in out["cases"].items()}))
+    out["phi3"] = serve_dense(torch, "phi3-mini-3.8b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["qwen25"] = serve_dense(torch, "qwen2.5-3b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["sharded"] = check_sharded_op(torch, timer, H=32, KV=32, D=96,
+                                      seed=48, lens=PHI3_DEPTHS)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2544,7 +2645,8 @@ def main() -> int:
             log(f"  ptxas[{name}] {fn}: {info}")
     lib = _build.library("paged_attention")
     log("  paged_decode_kernel dynamic shared memory: " + ", ".join(
-        f"D={d} {lib.paged_attention_smem_bytes(d)} B" for d in (32, 64, 128)))
+        f"D={d} {lib.paged_attention_smem_bytes(d)} B"
+        for d in (32, 64, 96, 128)))
 
     timer = Timer(torch)
     smollm_map = [0, 0, 0, 1, 1, 1, 2, 2, 2, 3, 3, 3, 4, 4, 4, 0]
@@ -2632,7 +2734,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     vl = e2e_internvl2(torch)
     torch.cuda.empty_cache()
-    qw = e2e_qwen3_14b(torch)
+    qw = serve_dense(torch, "qwen3-14b")
     torch.cuda.empty_cache()
     jb = e2e_jamba(torch)
     log(f"phase 13 launches: whisper flash_prefill {wh['launches']}, "
@@ -2665,6 +2767,17 @@ def main() -> int:
     t15 = e2e_training(torch)
     log(f"phase 15: no kernel launched in any train step "
         f"({kernel_counts()}); phase 15 took {t15['seconds']:.1f} s")
+
+    phase("16 head dim 96: phi3-mini-3.8b and qwen2.5-3b, the last dense "
+          "configs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t16 = e2e_head_dim_96(torch, timer)
+    log(f"phase 16 launches: phi3-mini {t16['phi3']['launches']}, "
+        f"qwen2.5-3b {t16['qwen25']['launches']}; the sharded op at D=96 "
+        f"{t16['sharded']['ms']:.4f} ms against the unsharded kernel's "
+        f"{t16['sharded']['whole_ms']:.4f} ms; phase 16 took "
+        f"{t16['seconds']:.1f} s")
 
     kernels = [
         dict(name="paged_attention", route="cuda",

@@ -45,10 +45,18 @@
 //    (masking before exp), and O += P·V as wgmma with P packed to bf16 in
 //    registers (the accumulator layout of S is the A-fragment layout) and
 //    V an MN-major (transposed) B operand from the ring.
-//  * Swizzle: a row panel of 64 bf16 (128 B) uses the 128-byte swizzle in
-//    both the tensor map and the wgmma descriptor; D = 32 (64 B rows) uses
-//    the 64-byte swizzle; D = 128 is two 64-column panels, each its own
-//    TMA box and its own wgmma operand.
+//  * Panels and swizzle: D is cut into panels of 64 columns where 64
+//    divides it (D = 64: one, D = 128: two) and of 32 columns otherwise
+//    (D = 32: one, D = 96: three). Each panel is its own TMA box and its
+//    own wgmma operand, so the global row stride (2·D bytes, a multiple
+//    of 16 for every D taken) never enters shared memory. A 64-column
+//    panel (128 B rows) uses the 128-byte swizzle in both the tensor map
+//    and the wgmma descriptor, a 32-column panel (64 B rows) the 64-byte
+//    one; a panel is a whole number of swizzle atoms (8 rows), so every
+//    panel starts on an atom and the descriptors' start addresses differ
+//    only by whole panels. At D = 96, Q·Kᵀ is six k16 steps over the
+//    three panels, P·V one m64n32k16 wgmma per panel and key step, and
+//    the O accumulator three 32-column panels (o[3][16]).
 //  * The tensor-map encoder cuTensorMapEncodeTiled lives in libcuda, not
 //    in the CUDA runtime; it is fetched at run time with
 //    cudaGetDriverEntryPoint, so the library links only the runtime.
@@ -69,12 +77,13 @@ constexpr int kThreads = kConsumers + 32;  // + one producer warp
 
 template <int D>
 struct Cfg {
-  static constexpr int kPanel = D == 32 ? 32 : 64;         // columns a panel
+  static constexpr int kPanel = D % 64 == 0 ? 64 : 32;     // columns a panel
   static constexpr int kPanels = D / kPanel;
+  static_assert(kPanels * kPanel == D, "D must be a multiple of 32");
   static constexpr int kRowBytes = kPanel * 2;
   static constexpr int kPanelBytes = kBN * kRowBytes;      // one 64-row box
   static constexpr int kTileBytes = kPanels * kPanelBytes;  // Q, K or V tile
-  static constexpr int kSwizzleMode = D == 32 ? 2 : 1;     // wgmma: 64B / 128B
+  static constexpr int kSwizzleMode = kPanel == 32 ? 2 : 1;  // wgmma: 64B / 128B
   static constexpr int kSBO = 8 * kRowBytes;               // 8-row group
   static constexpr int kKSteps = kPanel / 16;              // k16 steps a panel
   // Q, then kStages K tiles, then kStages V tiles, then the barriers
@@ -495,7 +504,8 @@ bool make_map(CUtensorMap* map, const void* base, int n, int rows,
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
              dims, strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B,
+             C::kPanel == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -552,6 +562,9 @@ extern "C" int flash_prefill_bf16(const void* q, const void* k, const void* v,
                              H, KV, q_offset, window, n_splits, scale, s);
     case 64:
       return (int)launch<64>(q, k, v, qh2kv, out, part_o, part_ml, B, Sq, Sk,
+                             H, KV, q_offset, window, n_splits, scale, s);
+    case 96:
+      return (int)launch<96>(q, k, v, qh2kv, out, part_o, part_ml, B, Sq, Sk,
                              H, KV, q_offset, window, n_splits, scale, s);
     case 128:
       return (int)launch<128>(q, k, v, qh2kv, out, part_o, part_ml, B, Sq, Sk,

@@ -44,10 +44,13 @@
 //    The prologue fills every stage, so a split of up to 4 tiles (the
 //    serving step's) has all its loads in flight at once. Rows are XOR-
 //    swizzled by 16-byte chunk instead of padded, which keeps three blocks
-//    an SM at D = 64. Tiles are whole pages or parts of pages, so any page
-//    size works. cp.async and not TMA: at 16- and 32-token pages a tile
-//    spans several pages, which one TMA box cannot, and a tensor map would
-//    cost host encoding on each of the 32 calls of a decode step.
+//    an SM at D = 64 (two at D = 96 and 128). At D = 96 a row is 12
+//    chunks (192 bytes), so its swizzle and copy order are its own
+//    (``swz``, ``copy_slot``). Tiles are whole pages or parts of pages,
+//    so any page size works. cp.async and not TMA: at 16- and 32-token
+//    pages a tile spans several pages, which one TMA box cannot, and a
+//    tensor map would cost host encoding on each of the 32 calls of a
+//    decode step.
 //  * Tensor cores. Warp w takes tokens [16w, 16w+16) of every tile:
 //    S = Q·Kᵀ with mma.sync.m16n8k16 bf16 (K through ldmatrix), the online
 //    softmax per row in registers (base-2 exponent, masking before the
@@ -91,13 +94,10 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D>
 struct Cfg {
+  // D = 96: 4 stages are 96 KB of ring and 106.6 KB a block, 3 would be
+  // 82.6 KB; either way two blocks fit an SM, so it keeps all four
   static constexpr int kStages = D == 128 ? 3 : 4;
   static constexpr int kChunks = D / 8;                // 16-byte chunks a row
-  // XOR swizzle of a row's chunks, so that the 8 rows an ldmatrix reads
-  // (or a cp.async pass writes) at one chunk fall in 8 different bank
-  // groups: chunk c of row r sits at c ^ ((r >> kSwzShift) & kSwzMask)
-  static constexpr int kSwzMask = (kChunks < 8 ? kChunks : 8) - 1;
-  static constexpr int kSwzShift = kChunks >= 8 ? 0 : 1;
   static constexpr int kStageElems = 2 * kTile * D;    // K rows, then V rows
   static constexpr int kRingBytes = kStages * kStageElems * 2;
   static constexpr int kQBytes = kRows * D * 2;
@@ -109,10 +109,61 @@ struct Cfg {
   static_assert(kWarps * kPartFloats * 4 <= kRingBytes, "warp partials");
 };
 
+// XOR swizzle of a row's 16-byte chunks, so that the 8 rows an ldmatrix
+// reads at one chunk (rows 8j .. 8j + 7) fall in 8 different bank groups
+// (16 bytes each, 8 to a 128-byte line); it permutes the chunks of each
+// row among themselves. Row r starts at bank group 2·D·r/16 mod 8:
+//  * D = 64, 128 (rows of whole lines, group 0): chunk c goes to
+//    c ^ (r & 7), in group (c ^ r) mod 8;
+//  * D = 32 (64-byte rows, group 4 (r & 1)): c ^ ((r >> 1) & 3), in group
+//    4 (r & 1) + (c ^ ((r >> 1) & 3)), and (r & 1, (r >> 1) & 3) takes
+//    all 8 values over 8 rows;
+//  * D = 96 (192-byte rows, group 12 r mod 8 = 4 (r & 1)): chunks 0-7 go
+//    to c ^ (r & 7), in group (c ^ (r & 7)) ^ 4 (r & 1), and r & 7 ->
+//    (r & 7) ^ 4 (r & 1) is one-to-one; chunks 8-11 go to
+//    8 + ((c - 8) ^ ((r >> 1) & 3)), in group 4 (r & 1) + ((c - 8) ^
+//    ((r >> 1) & 3)), distinct over 8 rows as at D = 32.
+template <int D>
+__device__ __forceinline__ int swz(int r, int c) {
+  if constexpr (D == 96)
+    return c < 8 ? c ^ (r & 7) : 8 + ((c - 8) ^ ((r >> 1) & 3));
+  else if constexpr (D == 32)
+    return c ^ ((r >> 1) & 3);
+  else
+    return c ^ (r & 7);
+}
+
 // element offset of (row r, 16-byte chunk c) in a swizzled tile of D columns
 template <int D>
 __device__ __forceinline__ int sw(int r, int c) {
-  return r * D + ((c ^ ((r >> Cfg<D>::kSwzShift) & Cfg<D>::kSwzMask)) << 3);
+  return r * D + (swz<D>(r, c) << 3);
+}
+
+// Thread tid's it-th of a tile's kTile·kChunks 16-byte copies (copy
+// i = tid + it·kThreads): (row, chunk). Row by row, so 8 neighbouring
+// threads (one 128-byte store phase) write one row's 8 chunks, or 2 or 4
+// rows' 4 or 2 chunks each, in 8 bank groups; where kChunks divides
+// kThreads a thread keeps its chunk through the loop. At D = 96 a row
+// has 12 chunks, and 8 threads at a run of 8 of them would meet chunks
+// 8-11 in the groups of four of chunks 0-7; so the first 512 copies take
+// chunks 0-7 of every row (8 a row, all 8 groups) and the last 256
+// chunks 8-11 (an even row's in groups 0-3, the next odd row's in 4-7).
+template <int D>
+__device__ __forceinline__ void copy_slot(int tid, int it, int& r, int& c) {
+  constexpr int kChunks = Cfg<D>::kChunks;
+  if constexpr (D == 96) {
+    const int i = tid + it * kThreads;
+    if (i < kTile * 8) {
+      r = i >> 3;
+      c = i & 7;
+    } else {
+      r = (i - kTile * 8) >> 2;
+      c = 8 + (i & 3);
+    }
+  } else {
+    r = tid / kChunks + it * (kThreads / kChunks);
+    c = tid % kChunks;
+  }
 }
 
 // ---- tensor cores and asynchronous copies ----------------------------
@@ -206,28 +257,29 @@ __device__ __forceinline__ float quad_sum(float v) {
 // (K rows, then V rows, swizzled): token t from page table[t / page] (the
 // block's shared-memory copy of the row's first kTableCap entries, or the
 // table itself past them); rows outside [lo, n_tok) are zero-filled and
-// read nothing. ``col`` = the KV head's first column plus this thread's
-// chunk.
+// read nothing. ``col`` = the KV head's first column. Each thread makes
+// kTile·D/8 / 128 copies (``copy_slot``), a whole number at every D taken
+// (2, 4, 6, 8).
 template <int D>
 __device__ __forceinline__ void load_tile(
     __nv_bfloat16* ks, const __nv_bfloat16* __restrict__ k_pages,
     const __nv_bfloat16* __restrict__ v_pages, const int* tbl_s,
     const int* __restrict__ table, int t0, int lo, int n_tok, int page,
     size_t tok_stride, size_t col, int tid) {
-  constexpr int kChunks = Cfg<D>::kChunks;
-  constexpr int kRowStep = kThreads / kChunks;   // rows a pass of copies
+  constexpr int kCopies = kTile * Cfg<D>::kChunks;
+  static_assert(kCopies % kThreads == 0, "copies a thread");
   __nv_bfloat16* vs = ks + kTile * D;
-  const int c = tid % kChunks;
 #pragma unroll
-  for (int it = 0; it < kTile / kRowStep; ++it) {
-    const int r = tid / kChunks + it * kRowStep;
+  for (int it = 0; it < kCopies / kThreads; ++it) {
+    int r, c;
+    copy_slot<D>(tid, it, r, c);
     const int t = t0 + r;
     const bool ok = t >= lo && t < n_tok;
     size_t off = 0;
     if (ok) {
       const int p = t / page;
       const int pid = p < kTableCap ? tbl_s[p] : __ldg(table + p);
-      off = ((size_t)pid * page + t % page) * tok_stride + col;
+      off = ((size_t)pid * page + t % page) * tok_stride + col + c * 8;
     }
     cp_async16(ks + sw<D>(r, c), k_pages + off, ok);
     cp_async16(vs + sw<D>(r, c), v_pages + off, ok);
@@ -301,7 +353,7 @@ paged_decode_kernel(const __nv_bfloat16* __restrict__ q,        // (L,B,H,D)
   const int n_t = max(0, min(per, n_all - sp * per));
   const size_t tok_stride = (size_t)KV * D;
   const float sl2 = scale * kLog2e;
-  const size_t col = (size_t)kvh * D + (tid % kChunks) * 8;
+  const size_t col = (size_t)kvh * D;
 
   const int g = lane >> 2, tq = lane & 3;
   for (int h0 = 0; h0 < G; h0 += kRows) {
@@ -558,6 +610,10 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
       return (int)launch<64>(q, k_pages, v_pages, block_table, seq_lens,
                              qh2kv, out, L, B, H, KV, page, max_pages, window,
                              scale, n_splits, kv_lstride, s);
+    case 96:
+      return (int)launch<96>(q, k_pages, v_pages, block_table, seq_lens,
+                             qh2kv, out, L, B, H, KV, page, max_pages, window,
+                             scale, n_splits, kv_lstride, s);
     case 128:
       return (int)launch<128>(q, k_pages, v_pages, block_table, seq_lens,
                               qh2kv, out, L, B, H, KV, page, max_pages,
@@ -574,6 +630,7 @@ extern "C" int paged_attention_smem_bytes(int D) {
   switch (D) {
     case 32: return Cfg<32>::kSmem;
     case 64: return Cfg<64>::kSmem;
+    case 96: return Cfg<96>::kSmem;
     case 128: return Cfg<128>::kSmem;
     default: return 0;
   }

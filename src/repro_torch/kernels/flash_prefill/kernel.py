@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_prefill.ref import TILE
-from repro_torch.kernels.paged_attention.kernel import _need, device_sms
+from repro_torch.kernels.paged_attention.kernel import (HEAD_DIMS, _need,
+                                                        device_sms)
 
 BLOCKS_PER_SM = 2   # live blocks per SM the split over keys aims for
 
@@ -42,8 +43,8 @@ def flash_prefill(q, k, v, qh2kv, *, q_offset: int = 0, window: int = 0,
     if v.shape != k.shape or Bk != B or Dk != D:
         raise ValueError(f"k/v {tuple(k.shape)}/{tuple(v.shape)} do not fit "
                          f"q {tuple(q.shape)}")
-    if D not in (32, 64, 128):
-        raise ValueError(f"head_dim {D} not supported (32, 64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not supported {HEAD_DIMS}")
     if qh2kv.shape[0] != H:
         raise ValueError("qh2kv does not match q's heads")
     if len({t.device for t in (q, k, v, qh2kv)}) != 1:

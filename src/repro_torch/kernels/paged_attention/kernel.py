@@ -19,6 +19,7 @@ from repro_torch.kernels.paged_attention.ref import TILE
 BLOCKS_PER_SM = 2   # live blocks per SM the split over tokens aims for
 MAX_SPLITS = 8      # a split's blocks form one cluster: at most 8
 MAX_HEADS = 256     # query heads a head map may have (the kernel's copy)
+HEAD_DIMS = (32, 64, 96, 128)   # the head dims both attention kernels take
 
 
 def choose_splits(n_blocks: int, n_tiles: int, sm_count: int) -> int:
@@ -67,8 +68,8 @@ def _check(q, k_pages, v_pages, block_table, seq_lens, qh2kv, nd: int):
     if v_pages.shape != k_pages.shape or Dk != D:
         raise ValueError(f"page shapes {tuple(k_pages.shape)} / "
                          f"{tuple(v_pages.shape)} do not fit q {tuple(q.shape)}")
-    if D not in (32, 64, 128):
-        raise ValueError(f"head_dim {D} not supported (32, 64, 128)")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not supported {HEAD_DIMS}")
     if H > MAX_HEADS:
         raise ValueError(f"{H} query heads; the kernel takes {MAX_HEADS}")
     if block_table.shape[0] != B or seq_lens.shape[0] != B \

@@ -1,15 +1,17 @@
 """Where a serving step's time goes on the GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.profile \
-        [--arch mamba2-2.7b | qwen3-moe-235b-a22b | qwen3-14b]
+        [--arch mamba2-2.7b | qwen3-moe-235b-a22b | qwen3-14b
+                | phi3-mini-3.8b | qwen2.5-3b]
 
-smollm-360m (the default), qwen3-14b and qwen3-moe-235b-a22b: prefill the
-launcher's workload (8 requests of the generated trace, prompts capped
-at 1536 tokens) into a full decode batch at full width (random weights,
-seed 0), then, under ``torch.profiler``, run five decode steps and five
-256-token prefill chunks at offset 1280. qwen3-moe runs 4 of its 94
-layers (94 layers are 470 GB of bf16 weights; 4 are 22.4 GB), qwen3-14b
-all 40 (30.4 GB); both draw their weights on the card. mamba2-2.7b:
+smollm-360m (the default), qwen3-14b, phi3-mini-3.8b, qwen2.5-3b and
+qwen3-moe-235b-a22b: prefill the launcher's workload (8 requests of the
+generated trace, prompts capped at 1536 tokens) into a full decode batch
+at full width (random weights, seed 0), then, under ``torch.profiler``,
+run five decode steps and five 256-token prefill chunks at offset 1280.
+qwen3-moe runs 4 of its 94 layers (94 layers are 470 GB of bf16 weights;
+4 are 22.4 GB), the others all of theirs (qwen3-14b 30.4 GB); a model of
+more than 1 B parameters draws its weights on the card. mamba2-2.7b:
 prefills the workload's first prompt to 1024 tokens at full width, then
 profiles five 512-token extends from that state (what
 ``StateCheckpointWorker`` runs per block) and five one-token decode
@@ -196,7 +198,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="smollm-360m",
                     choices=("smollm-360m", "mamba2-2.7b",
-                             "qwen3-moe-235b-a22b", "qwen3-14b"))
+                             "qwen3-moe-235b-a22b", "qwen3-14b",
+                             "phi3-mini-3.8b", "qwen2.5-3b"))
     ap.add_argument("--train", action="store_true",
                     help="profile a training step instead of serving")
     args = ap.parse_args(argv)
@@ -212,7 +215,7 @@ def main(argv=None) -> int:
         return 0
     # a large model's draw stays on the card (its host copy would hold
     # tens of GB: ~35 for qwen3-moe's fp32 draw at 4 layers)
-    big = cfg.param_count() > 4e9
+    big = cfg.param_count() > 1e9
     gen = torch.Generator(device=device if big else "cpu").manual_seed(0)
     params = init_params(cfg, gen, device)
     pool = HostKVPool()

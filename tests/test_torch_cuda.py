@@ -41,6 +41,9 @@ FLASH_CASES = [  # B, Sq, Sk, H, KV, D, offset, window
     (1, 128, 128, 16, 4, 128, 0, 0),
     (1, 64, 192, 2, 2, 64, 128, 0),
     (1, 131, 1411, 16, 5, 64, 1280, 0),    # the ragged last serving chunk
+    (1, 256, 1536, 32, 32, 96, 1280, 0),   # phi3-mini's chunk (D = 96)
+    (1, 131, 1411, 32, 32, 96, 1280, 0),   # its ragged tail
+    (2, 128, 512, 8, 2, 96, 384, 128),     # D = 96, grouped, a window
 ]
 
 
@@ -327,10 +330,31 @@ def test_model_kernel_path_matches_plain_path(cuda):
     """A reduced model's prefill and paged decode through the kernels vs
     the same forward with the plain versions, on the card."""
     from repro_torch.configs.base import get_config
+    _kernel_path_vs_plain_path(get_config("smollm-360m").reduced(), cuda)
+
+
+@pytest.mark.cuda
+def test_phi3_head_dim_96_kernel_path_matches_plain_path(cuda):
+    """phi3-mini-3.8b.reduced() at its own head_dim 96: prefill chunks and
+    a paged decode step through both kernels vs the plain versions."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    full = get_config("phi3-mini-3.8b")
+    assert full.head_dim == 96
+    cfg = dataclasses.replace(full.reduced(), head_dim=full.head_dim)
+    before = paged_attention.launches, flash_prefill.launches
+    _kernel_path_vs_plain_path(cfg, cuda)
+    # 4 chunks of 64 and one paged step, per layer
+    assert (paged_attention.launches - before[0],
+            flash_prefill.launches - before[1]) == (cfg.n_layers,
+                                                    4 * cfg.n_layers)
+
+
+def _kernel_path_vs_plain_path(cfg, cuda):
     from repro_torch.models.layers import plain_attention
     from repro_torch.models.transformer import (decode_step_paged, init_caches,
                                                 init_params, decode_step)
-    cfg = get_config("smollm-360m").reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
     toks = torch.randint(0, cfg.vocab_size, (1, 200),
                          generator=torch.Generator().manual_seed(1)).to(cuda)
@@ -459,6 +483,9 @@ FLASH_SPLIT_CASES = [
     (1, 64, 320, 4, 1, 32, 256, 0, 4),     # D = 32 (64-byte swizzle)
     (1, 128, 384, 8, 2, 128, 256, 0, 3),   # D = 128 (two TMA boxes a row)
     (1, 256, 1024, 4, 2, 64, 768, 200, 4),  # a window starting in a split
+    (1, 256, 1536, 32, 32, 96, 0, 0, 5),   # D = 96 (three 32-column panels)
+    (1, 131, 1411, 32, 32, 96, 1280, 0, 6),
+    (1, 256, 1024, 8, 2, 96, 768, 200, 4),
 ]
 
 
@@ -607,32 +634,73 @@ def test_tiered_prefill_sets_the_store_bytes_into_the_arena(cuda, tmp_path,
     pool.close()
 
 
-@pytest.mark.cuda
-def test_head_dim_96_is_refused_on_the_card(cuda):
-    """phi3-mini-3.8b's head_dim 96 is taken by neither attention kernel:
-    both entry points raise ``ValueError`` on CUDA tensors (no fallback to
-    the plain versions), and so does a model of that head_dim on the
-    card."""
-    import dataclasses
+# ---------------------------------------------------------------------------
+# head_dim 96 (phi3-mini-3.8b): three 32-column panels in the prefill
+# kernel, 12-chunk rows in the paged kernel
+# ---------------------------------------------------------------------------
 
-    from repro_torch.configs.base import get_config
-    from repro_torch.models.transformer import init_params, prefill
+PHI3_LENS = [1536, 1, 1536, 436, 1536, 65, 428, 1536]  # + a 1- and 65-token slot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,window,n_splits", [
+    (32, 32, 0, None),        # phi3-mini's decode: MHA, 32 over 32
+    (32, 32, 0, 1),
+    (32, 32, 0, 2),
+    (32, 32, 0, 4),
+    (32, 32, 0, 8),
+    (16, 4, 0, None),         # grouped, 4 query heads a KV head
+    (16, 4, 300, 4),          # a window inside a split
+    (32, 32, 1000, 2),
+])
+def test_paged_kernel_head_dim_96(cuda, H, KV, window, n_splits):
+    case = _paged_grouped_case(H + KV + window, 8, H, KV, 96, 64, 24,
+                               PHI3_LENS, None, cuda)
+    _paged_checked(case, window=window, n_splits=n_splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits,window", [(None, 0), (4, 300)])
+def test_paged_layers_head_dim_96_equal_per_layer(cuda, n_splits, window):
+    """The layers entry at head_dim 96: every layer bit for bit the
+    per-layer call with the same split count, and the plain version
+    within 2e-2."""
+    rng = np.random.default_rng(96 + window)
+    L, B, H, KV, D, P, page, mp = 4, 4, 32, 32, 96, 40, 64, 8
+    qs = _randn(rng, (L, B, H, D), cuda)
+    kp = _randn(rng, (L, P, page, KV, D), cuda)
+    vp = _randn(rng, (L, P, page, KV, D), cuda)
+    kp[:, 0], vp[:, 0] = 1e4, -1e4
+    table, lens = _paged_table(rng, [1, 512, 436, 65], P, page, mp, cuda)
+    m = torch.arange(H, dtype=torch.int32, device=cuda)
+    out = paged_attention_layers(qs, kp, vp, table, lens, m, window=window,
+                                 n_splits=n_splits)
+    ns = paged_attention_layers.last_splits
+    per_layer = torch.stack([
+        paged_attention(qs[l], kp[l], vp[l], table, lens, m, window=window,
+                        n_splits=ns) for l in range(L)])
+    torch.cuda.synchronize()
+    assert torch.equal(out, per_layer)
+    _close(out, paged_attention_layers_ref(qs, kp, vp, table, lens, qh2kv=m,
+                                           window=window))
+
+
+@pytest.mark.cuda
+def test_other_head_dims_are_refused_on_the_card(cuda):
+    """A head_dim outside (32, 64, 96, 128) raises on CUDA tensors in both
+    kernels' entry points (no fallback to the plain versions) and
+    launches nothing."""
     rng = np.random.default_rng(0)
-    q = _randn(rng, (1, 64, 4, 96), cuda)
-    k = _randn(rng, (1, 64, 4, 96), cuda)
-    with pytest.raises(ValueError, match="head_dim 96"):
+    q = _randn(rng, (1, 64, 4, 80), cuda)
+    k = _randn(rng, (1, 64, 4, 80), cuda)
+    before = paged_attention.launches, flash_prefill.launches
+    with pytest.raises(ValueError, match="head_dim 80"):
         flash_prefill_attention(q, k, k)
-    pages = _randn(rng, (3, 64, 4, 96), cuda)
+    pages = _randn(rng, (3, 64, 4, 80), cuda)
     tbl, lens = _paged_table(rng, [10], 3, 64, 1, cuda)
-    with pytest.raises(ValueError, match="96"):
+    with pytest.raises(ValueError, match="head_dim 80"):
         paged_decode_attention(q[:, 0], pages, pages, tbl, lens)
-    full = get_config("phi3-mini-3.8b")
-    assert full.head_dim == 96
-    cfg = dataclasses.replace(full.reduced(), head_dim=full.head_dim)
-    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
-    with pytest.raises(ValueError, match="head_dim 96"):
-        prefill(params, torch.zeros((1, 64), dtype=torch.int64,
-                                    device=cuda), cfg)
+    assert (paged_attention.launches, flash_prefill.launches) == before
 
 
 # ---------------------------------------------------------------------------

@@ -63,6 +63,8 @@ PAGED_CASES = [  # the reference's cases: B, H, KV, D, P, page, max_pages
     (2, 4, 4, 128, 16, 128, 2),
     (3, 15, 5, 32, 64, 64, 8),
     (1, 2, 1, 128, 8, 64, 3),
+    (3, 4, 4, 96, 32, 64, 4),      # head_dim 96, MHA (phi3-mini's layout)
+    (2, 8, 2, 96, 16, 16, 6),      # head_dim 96, grouped, 16-token pages
 ]
 
 
@@ -132,6 +134,35 @@ def test_paged_pallas_interpret_grouped_case():
     _close(port, out, BF16_TOL)
 
 
+def test_paged_pallas_interpret_head_dim_96():
+    """The Pallas kernel (interpret mode) at head_dim 96 with phi3-mini's
+    head layout: MHA, 4 query heads over 4 KV heads, no head map and no
+    window, which the reference's dispatcher sends to it."""
+    q, kp, vp, table, lens = _paged_inputs(3, 4, 4, 96, 24, 64, 4, seed=96,
+                                           lens=[1, 130, 256])
+    out = jax_paged(*(jnp.asarray(a) for a in (q, kp, vp, table, lens)),
+                    interpret=True)
+    port = paged_attention_ref(*(tensor_from_numpy(a, "cpu")
+                                 for a in (q, kp, vp, table, lens)))
+    _close(port, out, BF16_TOL)
+
+
+@pytest.mark.parametrize("window", [0, 48])
+def test_paged_plain_head_dim_96_map_and_window(window):
+    """head_dim 96 under a padded query-head map (4 heads over 4, padded
+    to 16, as phi3-mini.reduced() with head_dim 96 runs) and a window."""
+    qmap = [0, 1, 2, 3] + [0] * 12
+    q, kp, vp, table, lens = _paged_inputs(3, 16, 4, 96, 24, 64, 4,
+                                           seed=window, lens=[5, 100, 250])
+    kp[0], vp[0] = 1e4, -1e4                    # the poisoned null page
+    table[0, 1:] = 0
+    table[1, 2:] = 0
+    port, ref = _paged_pair(q, kp, vp, table, lens, qh2kv=qmap,
+                            window=window)
+    _close(port, ref, BF16_TOL)
+    assert np.isfinite(tensor_to_numpy(port)).all()
+
+
 def _layers_inputs(L, B, H, KV, D, P, page, mp, lens, seed):
     rng = np.random.default_rng(seed)
     qs = _arr(rng, (L, B, H, D), "bf16")
@@ -146,6 +177,17 @@ def test_paged_layers_plain_matches_reference_and_pallas():
     (tests/test_paged_decode.py:80-99): the port's plain version against
     the jnp oracle and the Pallas kernel in interpret mode."""
     inputs = _layers_inputs(3, 2, 8, 2, 64, 16, 64, 2, [70, 128], seed=0)
+    port = paged_attention_layers_ref(*(tensor_from_numpy(a, "cpu")
+                                        for a in inputs))
+    _close(port, jax_layers_ref(*map(jnp.asarray, inputs)), BF16_TOL)
+    _close(port, jax_paged_layers(*map(jnp.asarray, inputs), interpret=True),
+           BF16_TOL)
+
+
+def test_paged_layers_plain_head_dim_96_matches_reference_and_pallas():
+    """The batched-over-layers plain version at head_dim 96 (MHA, 4 over
+    4) against the jnp oracle and the Pallas kernel in interpret mode."""
+    inputs = _layers_inputs(3, 2, 4, 4, 96, 16, 64, 2, [70, 128], seed=96)
     port = paged_attention_layers_ref(*(tensor_from_numpy(a, "cpu")
                                         for a in inputs))
     _close(port, jax_layers_ref(*map(jnp.asarray, inputs)), BF16_TOL)
@@ -179,6 +221,8 @@ FLASH_CASES = [  # the reference's cases: B, Sq, Sk, H, KV, D, offset, window
     (2, 128, 512, 4, 1, 32, 384, 128),
     (1, 128, 128, 16, 4, 128, 0, 0),
     (1, 64, 192, 2, 2, 64, 128, 0),
+    (1, 128, 384, 4, 4, 96, 256, 0),   # head_dim 96, MHA (phi3-mini)
+    (2, 131, 323, 8, 2, 96, 192, 64),  # head_dim 96, ragged, windowed
 ]
 
 
@@ -229,6 +273,35 @@ def test_flash_pallas_interpret_grouped_case():
     port = flash_prefill_ref(*(tensor_from_numpy(a, "cpu") for a in (q, k, v)),
                              q_offset=128)
     _close(port, out, BF16_TOL)
+
+
+def test_flash_pallas_interpret_head_dim_96():
+    """The Pallas prefill kernel (interpret mode) at head_dim 96, MHA."""
+    q, k, v = _flash_inputs(1, 128, 256, 4, 4, 96, "bf16", seed=96)
+    out = jax_flash(*map(jnp.asarray, (q, k, v)), q_offset=128, bq=64, bk=64,
+                    interpret=True)
+    port = flash_prefill_ref(*(tensor_from_numpy(a, "cpu") for a in (q, k, v)),
+                             q_offset=128)
+    _close(port, out, BF16_TOL)
+
+
+@pytest.mark.parametrize("q_offset,Sq,Sk", [(0, 96, 96), (256, 37, 293)])
+def test_flash_head_dim_96_matches_causal_attention(q_offset, Sq, Sk):
+    """The serving path's prefill at head_dim 96 under the padded map of
+    phi3-mini.reduced() with head_dim 96 (4 heads over 4, padded to 16):
+    the reference's ``causal_attention`` over the head-expanded cache vs
+    the port's prefill op."""
+    qh2kv = [0, 1, 2, 3] + [0] * 12
+    q, k, v = _flash_inputs(1, Sq, Sk, 16, 4, 96, "bf16", seed=Sq)
+    k[:, q_offset + Sq:] = 0
+    v[:, q_offset + Sq:] = 0
+    idx = np.asarray(qh2kv)
+    ref = jax_causal(jnp.asarray(q), jnp.asarray(k[:, :, idx]),
+                     jnp.asarray(v[:, :, idx]), jnp.asarray(q_offset))
+    port = flash_prefill_attention(
+        *(tensor_from_numpy(a, "cpu") for a in (q, k, v)),
+        q_offset=q_offset, qh2kv=torch.tensor(qh2kv, dtype=torch.int32))
+    _close(port, ref, BF16_TOL)
 
 
 # ------------------------------------------------------------- dispatch ----

@@ -10,11 +10,15 @@ reduced size, which is drop-free (capacity = every row); a windowed
 config (mixtral-8x7b: a 64-token window at reduced size, shorter than
 the first prompt) decodes its dense run through the sliding-window ring
 cache, the reference's only dense path for prompts past the window.
+phi3-mini runs reduced but at its own head_dim 96 (``reduced()`` sets
+32), so the head dim that only it has goes through both packages.
 
 Logits agree within 2e-2 of the logit scale (max |logit|, at least 1):
 both sides round logits to bf16, whose ulp at the largest logits here
 (3.7–4.1) is 0.016–0.031, so an element-wise 2e-2 would sit below one
 ulp; the observed differences are 1–2 ulps."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,12 +42,21 @@ PAGE = 16
 PROMPTS = (70, 37)           # two slots at different depths
 
 
+# configs whose own head_dim replaces reduced()'s 32 in both packages:
+# phi3-mini's 96, a head dim the kernels take only for it
+KEEP_HEAD_DIM = ("phi3-mini-3.8b",)
+
+
 @pytest.fixture(scope="module", params=["smollm-360m", "qwen2.5-3b",
                                         "qwen3-moe-235b-a22b",
-                                        "mixtral-8x7b"])
+                                        "mixtral-8x7b", "phi3-mini-3.8b"])
 def model(request):
     jcfg = jax_config(request.param).reduced()
     cfg = get_config(request.param).reduced()
+    if request.param in KEEP_HEAD_DIM:
+        head_dim = get_config(request.param).head_dim
+        jcfg = dataclasses.replace(jcfg, head_dim=head_dim)
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
     jp = JT.init_params(jcfg, jax.random.PRNGKey(0))
     tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
     rng = np.random.default_rng(1)
@@ -248,3 +261,34 @@ def test_cuda_device_requested_without_a_gpu_raises():
     cfg = get_config("smollm-360m").reduced()
     with pytest.raises(RuntimeError, match="no GPU"):
         TT.init_caches(cfg, 1, 8)
+
+
+def test_greedy_token_ranges_over_the_padded_vocabulary():
+    """Both packages unembed to ``padded_vocab`` columns and take the
+    argmax over all of them, so a model whose vocabulary is not a
+    multiple of 256 (phi3-mini: 32,064 of 32,256) can emit a padding id.
+    Here vocab 500 pads to 512, and padding id 505's unembedding is set
+    to twice the top token's: both packages pick id 505."""
+    jcfg = dataclasses.replace(jax_config("smollm-360m").reduced(),
+                               vocab_size=500)
+    cfg = dataclasses.replace(get_config("smollm-360m").reduced(),
+                              vocab_size=500)
+    assert (jcfg.padded_vocab, cfg.padded_vocab) == (512, 512)
+    jp = jax.tree.map(np.asarray, JT.init_params(jcfg, jax.random.PRNGKey(0)))
+    prompt = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 500, (1, 24)).astype(np.int32))
+    logits, _ = TT.prefill(params_from_jax(jp, "cpu"), prompt, cfg)
+    assert logits.shape[-1] == 512
+    top = int(logits[0].argmax())
+    assert top < 500 and float(logits[0, top]) > 0
+    jp = dict(jp)
+    if "lm_head" in jp:                      # (D, V)
+        jp["lm_head"] = jp["lm_head"].copy()
+        jp["lm_head"][:, 505] = 2 * jp["lm_head"][:, top]
+    else:                                    # tied: (V, D), 505 never fed
+        jp["embed"] = jp["embed"].copy()
+        jp["embed"][505] = 2 * jp["embed"][top]
+    jl, _ = JT.prefill(jax.tree.map(jnp.asarray, jp),
+                       jnp.asarray(prompt.numpy()), jcfg)
+    tl, _ = TT.prefill(params_from_jax(jp, "cpu"), prompt, cfg)
+    assert int(np.asarray(jl[0]).argmax()) == int(tl[0].argmax()) == 505
