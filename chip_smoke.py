@@ -155,6 +155,22 @@ Phases, each printed as it runs; any failure exits non-zero:
      workload, launches = layers x calls, one request teacher-forced; (d)
      the sharded op on the (2, 2) mesh at D=96, bitwise the unsharded
      kernel.
+ 17. sharded training and the sharded MoE dispatch, every position of a
+     (2, 2) (data, model) mesh on the card: (a) ``moe_block`` at B = 2,
+     S = 4096 from ``shard_params``' slices — qwen3-moe's full-width
+     layer expert-parallel (64 experts a position), mixtral's
+     tensor-parallel (14,336 split in two) — against a one-device oracle
+     of each position's slice within 4 bf16 ulps, timed beside the
+     unsharded op; (b) ``make_prefill_step`` over 2 x 4096 tokens:
+     llama2-70b at full width, 8 of 80 layers, 32 flash_prefill launches
+     of 32 query heads over 4 KV, logits within 4 ulps of the unsharded
+     prefill; qwen3-moe at 4 of 94 layers, 16 launches, the kernel path
+     against the plain path under the plain run's routing; (c)
+     smollm-360m at full width trained 10 steps of 8 x 512 on the mesh
+     against 10 unsharded (step 1's loss and gradients, tok/s, peak);
+     (d) qwen3-moe at full width, 1 of 94 layers, Adafactor, 3 steps of
+     2 x 4096, the expert-parallel dispatch on every MoE call; no kernel
+     launched in (c) or (d).
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -2613,6 +2629,389 @@ def e2e_head_dim_96(torch, timer) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: sharded training and the sharded MoE dispatch
+# ---------------------------------------------------------------------------
+
+def mesh_dist(torch, device="cuda"):
+    """A (2, 2) (data, model) mesh with every position on ``device``,
+    the batch over 'data'."""
+    from repro_torch.models.layers import Dist
+    return Dist(mesh=card_mesh(torch, (2, 2), ("data", "model"), device),
+                batch_axes=("data",))
+
+
+def moe_op_case(torch, timer, name, device="cuda") -> dict:
+    """(a): ``moe_block`` on the (2, 2) mesh at B = 2, S = 4096 (T =
+    8192 > 4096) from ``shard_params``' slices of one full-width MoE
+    layer, against an independent one-device oracle —
+    ``_moe_dispatch_compute`` of each position's token slice (EP) or data
+    slice with every expert (TP), group by group, at the local capacity —
+    within 4 bf16 ulps of the largest output; timed beside the unsharded
+    op. ``device="cpu"``: the reduced width."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import _init_moe
+    cfg = get_config(name)
+    if device != "cuda":
+        cfg = cfg.reduced()
+    gen = torch.Generator(device=device).manual_seed(17)
+    p = _init_moe(gen, cfg, 1)
+    dist = mesh_dist(torch, device)
+    sp = shard_params(cfg, {"moe": p}, dist.mesh)["moe"]
+    pm = {k: v[0] for k, v in p.items()}
+    spm = {k: v[0] for k, v in sp.items()}
+    x = (0.3 * torch.randn((2, 4096, cfg.d_model), generator=gen,
+                           device=device)).to(torch.bfloat16)
+    with torch.no_grad():
+        with L.record_moe_branches() as taken:
+            y, aux = L.moe_block(x, spm, cfg, dist)
+        branch = taken[0]
+        h = L.rms_norm(x, pm["ln"], cfg.norm_eps).reshape(-1, cfg.d_model)
+        n = 4 if branch == "ep" else 2
+        T_loc = h.shape[0] // n
+        groups = max(T_loc // L.MOE_GROUP_TOKENS, 1)
+        G = T_loc // groups
+        cap = L.moe_capacity(cfg, G)
+        want = torch.cat([L._moe_dispatch_compute(
+            h[i * T_loc + g * G:i * T_loc + (g + 1) * G], pm["router"],
+            pm["w1"], pm["w2"], pm["w3"], cfg.moe.top_k, cap)[0]
+            for i in range(n) for g in range(groups)]).view(x.shape)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        err = (y.float() - want.float()).abs().max().item()
+        scale = want.float().abs().max().item()
+        tol = bf16_ulps(4, scale)
+        ms = whole_ms = None
+        if timer is not None:
+            ms = timer.ms(lambda: L.moe_block(x, spm, cfg, dist), iters=5,
+                          warmup=1)
+            whole_ms = timer.ms(lambda: L.moe_block(x, pm, cfg), iters=5,
+                                warmup=1)
+    expect = "ep" if cfg.moe.parallelism == "ep" else "tp"
+    log(f"(a) {cfg.name} moe_block on 2x2, T = 8192: branch {taken} "
+        f"(expected {expect}), {cfg.moe.n_experts} experts, "
+        f"{cfg.moe.n_experts // (2 if branch == 'ep' else 1)} a position, "
+        f"d_ff_expert {cfg.moe.d_ff_expert}"
+        f"{' split in two' if branch == 'tp' else ''}; capacity {cap} over "
+        f"{groups} group(s) of {G}; max_abs_err vs the per-position oracle "
+        f"{err:.4e} (max |y| {scale:.3f}, tol {tol:.4f} = 4 bf16 ulps); "
+        f"aux {float(aux):.5f}; sharded op "
+        + (f"{ms:.3f} ms vs the unsharded op {whole_ms:.3f} ms"
+           if ms is not None else "not timed (cpu)"))
+    if taken != [expect] or not bool(torch.isfinite(y.float()).all()) \
+            or err > tol:
+        raise AssertionError(f"(a) {cfg.name}: the sharded MoE dispatch "
+                             f"disagrees with its oracle")
+    return dict(branch=branch, err=err, tol=tol, ms=ms, whole_ms=whole_ms)
+
+
+class HeadShapes:
+    """Records (query heads, KV heads, map given) of every chunked-prefill
+    call the model makes, while entered."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+        self.orig = L.flash_prefill_attention
+
+        def recording(q, k, v, **kw):
+            self.calls.append((q.shape[2], k.shape[2],
+                               kw.get("qh2kv") is not None))
+            return self.orig(q, k, v, **kw)
+        L.flash_prefill_attention = recording
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+        L.flash_prefill_attention = self.orig
+
+
+def prefill_mesh_llama(torch, device="cuda", seq=4096) -> dict:
+    """(b), llama2-70b at full width, 8 of 80 layers (phase 14's cut):
+    ``make_prefill_step`` on the (2, 2) mesh over a 2 x 4096 batch, one
+    chunked-prefill launch per (position, layer), each on 32 query heads
+    over 4 KV heads; the logits within 4 bf16 ulps of the unsharded
+    ``prefill``'s."""
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.transformer import prefill
+    cfg, params = llama_cut(torch, device)
+    dist = mesh_dist(torch, device)
+    sp = shard_params(cfg, params, dist.mesh)
+    gen = torch.Generator(device=device).manual_seed(171)
+    toks = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen,
+                         device=device)
+    step = make_prefill_step(cfg, dist)
+    step(sp, toks[:, :256], {})                          # warm-up
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    zero_kernel_counts()
+    with HeadShapes() as shapes:
+        t0 = time.monotonic()
+        lk, ck = step(sp, toks, {})
+        sync()
+        t_mesh = time.monotonic() - t0
+    launches = kernel_counts()["flash_prefill"]
+    with torch.no_grad():
+        t0 = time.monotonic()
+        lu, cu = prefill(params, toks, cfg)
+        sync()
+        t_whole = time.monotonic() - t0
+    err = (lk - lu).abs().max().item()
+    scale = lu.abs().max().item()
+    tol = bf16_ulps(4, scale)
+    kv_err = max((a.float() - b.float()).abs().max().item()
+                 / b.float().abs().max().item()
+                 for a, b in ((ck.kv.k, cu.kv.k), (ck.kv.v, cu.kv.v)))
+    heads = sorted(set(shapes.calls))
+    log(f"(b) {cfg.name} ({cfg.n_layers} layers) make_prefill_step on 2x2, "
+        f"2 x {seq} tokens: flash_prefill launches {launches} (expected "
+        f"{4 * cfg.n_layers} = 4 positions x {cfg.n_layers} layers), "
+        f"(query heads, KV heads, map) per call {heads}; logits vs the "
+        f"unsharded prefill max_abs_err {err:.4f} (max |logit| {scale:.3f}, "
+        f"tol {tol:.4f} = 4 bf16 ulps), KV {kv_err:.3e} of its scale; "
+        f"{t_mesh * 1e3:.1f} ms on the mesh vs {t_whole * 1e3:.1f} ms "
+        f"unsharded (synchronised wall)")
+    want_heads = [(cfg.padded_heads // 2, cfg.n_kv_heads // 2, False)]
+    if device == "cuda" and (launches != 4 * cfg.n_layers
+                             or heads != want_heads):
+        raise AssertionError(f"(b) {cfg.name}: launches {launches}, head "
+                             f"stripes {heads}")
+    if not bool(torch.isfinite(lk).all()) or err > tol or kv_err > TOL:
+        raise AssertionError(f"(b) {cfg.name}: the sharded prefill "
+                             f"disagrees with the unsharded one")
+    return dict(launches=launches, err=err, tol=tol, mesh_ms=t_mesh * 1e3,
+                whole_ms=t_whole * 1e3)
+
+
+def prefill_mesh_qwen3(torch, device="cuda", seq=4096) -> dict:
+    """(b), qwen3-moe at full width, 4 of 94 layers: the kernel path
+    against the plain path under the same (2, 2) mesh, by phase 12's
+    rule (the plain run's routing replayed in the kernel path, logits
+    within 4 bf16 ulps); 16 launches in the kernel path's own run, and
+    the expert-parallel dispatch on every MoE layer."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.layers import (plain_attention,
+                                           record_moe_branches,
+                                           record_routing, replay_routing)
+    cfg = get_config("qwen3-moe-235b-a22b")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, n_layers=4)
+    dist = mesh_dist(torch, device)
+    params = moe_params(torch, cfg, device)
+    sp = shard_params(cfg, params, dist.mesh)
+    del params
+    gen = torch.Generator(device=device).manual_seed(172)
+    toks = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen,
+                         device=device)
+    step = make_prefill_step(cfg, dist)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    with plain_attention(), record_routing() as rp:
+        lp, _ = step(sp, toks, {})
+    sync()
+    zero_kernel_counts()
+    with record_routing() as rk, record_moe_branches() as branches:
+        t0 = time.monotonic()
+        lk_own, _ = step(sp, toks, {})
+        sync()
+        t_mesh = time.monotonic() - t0
+    launches = kernel_counts()["flash_prefill"]
+    with replay_routing(rp):
+        lk, _ = step(sp, toks, {})
+    sync()
+    # rows whose set of chosen experts differs (an order swap within the
+    # top-k is not a different routing)
+    differ = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                 for a, b in zip(rk, rp))
+    err = (lk - lp).abs().max().item()
+    scale = lp.abs().max().item()
+    tol = bf16_ulps(4, scale)
+    own_err = (lk_own - lp).abs().max().item()
+    log(f"(b) {cfg.name} ({cfg.n_layers} layers) make_prefill_step on 2x2, "
+        f"2 x {seq} tokens: flash_prefill launches {launches} (expected "
+        f"{4 * cfg.n_layers}); dispatch {sorted(set(branches))} on "
+        f"{len(branches)} MoE calls; rows whose experts differ kernel vs "
+        f"plain {differ} of {sum(r.shape[0] for r in rp)}; logits under the "
+        f"plain routing max_abs_err {err:.4f} (max |logit| {scale:.3f}, "
+        f"tol {tol:.4f}), under its own routing {own_err:.4f}; "
+        f"{t_mesh * 1e3:.1f} ms (synchronised wall)")
+    if device == "cuda" and launches != 4 * cfg.n_layers:
+        raise AssertionError(f"(b) {cfg.name}: launches {launches}")
+    if set(branches) != {"ep"} or len(branches) != cfg.n_layers \
+            or not bool(torch.isfinite(lk).all()) or err > tol \
+            or (differ == 0 and own_err > tol):
+        raise AssertionError(f"(b) {cfg.name}: the kernel path disagrees "
+                             f"with the plain path on the mesh")
+    return dict(launches=launches, err=err, tol=tol, differ=differ,
+                mesh_ms=t_mesh * 1e3)
+
+
+def train_mesh_smollm(torch, device="cuda", batch=8, seq=512,
+                      steps=10) -> dict:
+    """(c): smollm-360m at full width trained on the (2, 2) mesh with
+    AdamW, phase 15's 8 x 512 batches from seed 0, against as many
+    unsharded steps: step 1's loss within 2e-2 relative (the reference's
+    bound, ``tests/test_distribution.py:80``) and its gradients within
+    2e-2 of each leaf's max-abs — or, for a leaf whose unsharded bf16
+    gradient is itself further than that from the fp32 gradient of the
+    same step (the embedding's bf16 scatter-add over repeated tokens),
+    no further from the fp32 gradient than 1.25x the unsharded one (the
+    rule ``tests/test_torch_train_parity.py`` holds against the reference)
+    — the last loss below the first;
+    tok/s and peak memory; no kernel launched."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, batch_spec_for
+    from repro_torch.launch.shardings import gather, shard_params
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.loop import batch_to, train
+    from repro_torch.training.optim import tree_map
+    cfg = get_config("smollm-360m")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    dist = mesh_dist(torch, device)
+    zero_kernel_counts()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    nb = batch_to(SyntheticLM(batch_spec_for(cfg, batch, seq),
+                              seed=0).batch(0), device)
+    l0, g0 = loss_and_grads(params, nb, cfg)
+    l1, g1 = loss_and_grads(shard_params(cfg, params, dist.mesh), nb, cfg,
+                            dist)
+    _, g32 = loss_and_grads(tree_map(lambda t: t.float(), params), nb, cfg)
+    rel = abs(float(l1) - float(l0)) / abs(float(l0))
+
+    def dist_(a, b):
+        a, b = gather(a, b.device).float(), b.float()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+    errs, fp32_rule = [], []
+
+    def hold(a, b, c):
+        d = dist_(b, a)
+        errs.append(d)
+        if d > TOL:
+            fp32_rule.append((d, dist_(b, c), dist_(a, c)))
+    tree_map(hold, g0, g1, g32)
+    worst = max(errs)
+    del params, g0, g1, g32
+    runs = {}
+    for what, d in (("unsharded", None), ("2x2", dist)):
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        kw = {} if d is None else {"dist": d}
+        res = train(cfg, steps=steps, batch=batch, seq=seq, seed=0,
+                    device=device, log_every=0, **kw)
+        peak = torch.cuda.max_memory_allocated() / 1e9 \
+            if device == "cuda" else float("nan")
+        steady = sorted(res.step_s[2:])[len(res.step_s[2:]) // 2]
+        runs[what] = dict(losses=res.losses, tok_s=res.tokens_per_s,
+                          step_ms=steady * 1e3, peak_gb=peak)
+        del res
+    no_kernel_launched("17 (c)")
+    mesh, whole = runs["2x2"], runs["unsharded"]
+    log(f"(c) {cfg.name}, {batch} x {seq} tokens: step 1 loss 2x2 "
+        f"{float(l1):.5f} vs unsharded {float(l0):.5f} (rel {rel:.3e}, tol "
+        f"2e-2); step 1 gradients worst leaf {worst:.3e} of its max-abs "
+        f"(tol {TOL}); leaves past it held against the fp32 gradient "
+        f"(sharded gap, sharded to fp32, unsharded to fp32): "
+        f"{[tuple(round(v, 4) for v in r) for r in fp32_rule]}; {steps} "
+        f"steps: 2x2 losses {mesh['losses'][0]:.4f} -> "
+        f"{mesh['losses'][-1]:.4f}, unsharded {whole['losses'][0]:.4f} -> "
+        f"{whole['losses'][-1]:.4f}, last-step gap "
+        f"{abs(mesh['losses'][-1] - whole['losses'][-1]):.4f}; 2x2 "
+        f"{mesh['tok_s']:.0f} tok/s over the run (median step "
+        f"{mesh['step_ms']:.1f} ms), peak {mesh['peak_gb']:.2f} GB; "
+        f"unsharded {whole['tok_s']:.0f} tok/s ({whole['step_ms']:.1f} ms), "
+        f"peak {whole['peak_gb']:.2f} GB; no kernel launched")
+    losses = mesh["losses"] + whole["losses"]
+    if not all(math.isfinite(x) for x in losses) or rel > TOL \
+            or any(e1 > 1.25 * e0 for _, e1, e0 in fp32_rule) \
+            or not mesh["losses"][-1] < mesh["losses"][0]:
+        raise AssertionError("(c) sharded training of smollm-360m disagrees "
+                             "or does not descend")
+    return dict(rel=rel, grad_err=worst, **{k: {f: v for f, v in r.items()
+                                               if f != "losses"}
+                                            for k, r in runs.items()})
+
+
+def train_mesh_qwen3(torch, device="cuda", n_layers=1, seq=4096,
+                     steps=3) -> dict:
+    """(d): qwen3-moe at full width, ``n_layers`` of 94, Adafactor, 2 x
+    4096 tokens on the (2, 2) mesh for 3 steps: the expert-parallel
+    dispatch on every MoE call of every step, every loss finite; the step
+    time and the peak memory; no kernel launched. One layer: at two, with
+    every position on one card, the peak passed 70 GB (70.48 GB: four
+    positions' gathered expert slabs beside the weights, gradients and
+    first moment; PERF.md §6)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.layers import record_moe_branches
+    from repro_torch.training.loop import train
+    cfg = get_config("qwen3-moe-235b-a22b")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, optimizer="adafactor")
+    dist = mesh_dist(torch, device)
+    zero_kernel_counts()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with record_moe_branches() as branches:
+        res = train(cfg, steps=steps, batch=2, seq=seq, seed=0,
+                    device=device, log_every=0, dist=dist)
+    peak = torch.cuda.max_memory_allocated() / 1e9 \
+        if device == "cuda" else float("nan")
+    no_kernel_launched("17 (d)")
+    # the forward's calls; a remat recompute in the backward, run on
+    # autograd's device thread, is not in this thread's log
+    calls = steps * n_layers
+    log(f"(d) {cfg.name}, {n_layers} layers, Adafactor, remat "
+        f"{cfg.remat}, 2 x {seq} tokens on 2x2, {steps} steps: losses "
+        f"{[round(x, 4) for x in res.losses]}; dispatch "
+        f"{sorted(set(branches))} on {len(branches)} recorded MoE calls "
+        f"(at least {calls}: steps x layers); step times "
+        f"{[round(t, 2) for t in res.step_s]} s; "
+        f"{res.tokens_per_s:.0f} tok/s; peak memory {peak:.2f} GB")
+    if set(branches) != {"ep"} or len(branches) < calls \
+            or not all(math.isfinite(x) for x in res.losses):
+        raise AssertionError("(d) qwen3-moe's sharded training did not take "
+                             "the expert-parallel dispatch or diverged")
+    return dict(losses=res.losses, step_s=res.step_s, peak_gb=peak,
+                n_layers=n_layers)
+
+
+def e2e_sharded_training(torch, timer, device="cuda") -> dict:
+    """Phase 17: (a) the MoE op, (b) the sharded prefill step, (c) and
+    (d) sharded training, every position on ``device``."""
+    t0 = time.monotonic()
+    out = {"moe_" + n: moe_op_case(torch, timer, n, device)
+           for n in ("qwen3-moe-235b-a22b", "mixtral-8x7b")}
+    gc.collect()
+    out["llama"] = prefill_mesh_llama(torch, device)
+    gc.collect()
+    out["qwen3"] = prefill_mesh_qwen3(torch, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["smollm"] = train_mesh_smollm(torch, device)
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["qwen3_train"] = train_mesh_qwen3(torch, device)
+    out["launches"] = out["llama"]["launches"] + out["qwen3"]["launches"]
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2779,6 +3178,16 @@ def main() -> int:
         f"{t16['sharded']['whole_ms']:.4f} ms; phase 16 took "
         f"{t16['seconds']:.1f} s")
 
+    phase("17 sharded training and the sharded MoE dispatch: the (2, 2) "
+          "mesh on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t17 = e2e_sharded_training(torch, timer)
+    log(f"phase 17 launches: flash_prefill {t17['llama']['launches']} "
+        f"(llama2-70b) + {t17['qwen3']['launches']} (qwen3-moe) in the "
+        f"sharded prefill steps; none in training; phase 17 took "
+        f"{t17['seconds']:.1f} s")
+
     kernels = [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
@@ -2787,7 +3196,7 @@ def main() -> int:
         dict(name="flash_prefill", route="cuda",
              source="src/repro_torch/csrc/flash_prefill.cu",
              replaces="src/repro/kernels/flash_prefill/kernel.py:83",
-             launches=launches["flash_prefill"], **pre),
+             launches=launches["flash_prefill"] + t17["launches"], **pre),
         dict(name="paged_attention_layers", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:157",

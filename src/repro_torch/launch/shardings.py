@@ -1,0 +1,335 @@
+"""Sharding rules of the port: the counterpart of the reference's
+``repro/launch/shardings.py``. Parameters are 2-D sharded —
+tensor-parallel over 'model', FSDP over 'data' — and replicated over
+'pod'; optimizer state follows its parameter.
+
+Rules are by parameter ROLE (the dict path), not shape, so every
+architecture maps through one table, as in the reference. A spec is a
+plain tuple with one mesh axis name (or None) per leaf dimension — the
+reference's ``PartitionSpec`` read as a tuple.
+
+Where the reference hands a spec tree to XLA (``named``), the port
+stores the slices itself: ``shard_params`` keeps each leaf ONCE, as the
+slices its spec names, each slice on the device of its mesh position (the
+position whose spec'd axes take the slice's index, the other axes 0), in
+a ``Sharded`` leaf. A consumer takes what it needs with ``gather``: the
+full leaf, or the full leaf's slice along 'model' — a ``torch.cat`` of
+shards moved to the consumer's device (the FSDP all-gather). Autograd
+through those copies sends each shard its part of the gradient, summed
+over every consumer (the reduce-scatter), with no code of its own.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+Spec = tuple
+
+# role → spec (leading L/stack axes are added automatically)
+_RULES: dict[str, Spec] = {
+    # embeddings
+    "embed":        ("model", "data"),
+    "lm_head":      ("data", "model"),
+    "final_ln":     (),
+    "enc_final_ln": (),
+    # attention (flat head*dim last axes)
+    "attn.ln":      (),
+    "attn.wq":      ("data", "model"),
+    "attn.wk":      ("data", "model"),
+    "attn.wv":      ("data", "model"),
+    "attn.wo":      ("model", "data"),
+    "attn.bq":      ("model",),
+    "attn.bk":      ("model",),
+    "attn.bv":      ("model",),
+    "attn.q_norm":  (),
+    "attn.k_norm":  (),
+    # dense MLP
+    "mlp.ln":       (),
+    "mlp.w1":       ("data", "model"),
+    "mlp.w2":       ("model", "data"),
+    "mlp.w3":       ("data", "model"),
+    # MoE, expert-parallel (experts on 'model'; experts lead after stack)
+    "moe.ln":       (),
+    "moe.router":   ("data", None),
+    "moe.w1":       ("model", "data", None),
+    "moe.w2":       ("model", None, "data"),
+    "moe.w3":       ("model", "data", None),
+    # MoE, tensor-parallel experts (few-expert models: expert FF hidden on
+    # 'model' — mixtral's 8 experts < model axis 16)
+    "moe_tp.ln":     (),
+    "moe_tp.router": ("data", None),
+    "moe_tp.w1":     (None, "data", "model"),
+    "moe_tp.w2":     (None, "model", "data"),
+    "moe_tp.w3":     (None, "data", "model"),
+    # Mamba2
+    "mamba.ln":       (),
+    "mamba.in_proj":  ("data", "model"),
+    "mamba.conv_w":   (None, "model"),
+    "mamba.dt_bias":  (),
+    "mamba.A_log":    (),
+    "mamba.D":        (),
+    "mamba.norm":     ("model",),
+    "mamba.out_proj": ("model", "data"),
+}
+
+# how many leading stack axes each top-level group carries
+_STACK_DEPTH = {
+    "attn": 1, "mlp": 1, "moe": 1, "mamba": 1,
+    "enc_attn": 1, "enc_mlp": 1, "cross_attn": 1,
+    # jamba period-scan groups: (n_per, inner, ...)
+    "ffn_dense": 2, "ffn_moe": 2,
+}
+_GROUP_ALIAS = {
+    "enc_attn": "attn", "enc_mlp": "mlp", "cross_attn": "attn",
+    "ffn_dense": "mlp", "ffn_moe": "moe",
+}
+
+
+def _spec_for(path: tuple, leaf, cfg: ModelConfig, hybrid: bool) -> Spec:
+    top = path[0]
+    if top in ("embed", "lm_head", "final_ln", "enc_final_ln"):
+        return _RULES[top]
+    group = _GROUP_ALIAS.get(top, top)
+    stack = _STACK_DEPTH.get(top, 1)
+    if hybrid and top == "mamba":
+        stack = 2  # (n_per, inner, ...)
+    if group == "moe" and cfg.moe is not None and cfg.moe.parallelism == "tp":
+        group = "moe_tp"
+    rule = _RULES[f"{group}.{path[-1]}"]
+    ndim = len(leaf.shape)
+    spec = ((None,) * stack + tuple(rule))[:ndim]
+    return spec + (None,) * (ndim - len(spec))
+
+
+def _tree_paths(tree, path=()):
+    """(path, leaf) pairs of a nested dict, in sorted key order (jax's
+    pytree order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_paths(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def _map_paths(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def keystr(path: tuple) -> str:
+    """``jax.tree_util.keystr`` of a dict path: ``['attn']['wq']``."""
+    return "".join(f"[{k!r}]" for k in path)
+
+
+def param_specs(cfg: ModelConfig, params: Any) -> Any:
+    """A dict like ``params`` (tensors, meta tensors or ``param_shapes``)
+    with each leaf's spec tuple."""
+    hybrid = bool(cfg.attn_every)
+    return _map_paths(lambda path, leaf: _spec_for(path, leaf, cfg, hybrid),
+                      params)
+
+
+def check_divisibility(cfg: ModelConfig, params, mesh) -> list[str]:
+    """Every sharded dim must divide by its mesh axes. Returns violations
+    (empty = good), in the reference's words. ``mesh``: anything with a
+    ``shape`` dict of axis sizes."""
+    specs = param_specs(cfg, params)
+    bad: list[str] = []
+    for (path, leaf), (_, spec) in zip(_tree_paths(params),
+                                       _tree_paths(specs)):
+        for dim, ax in zip(leaf.shape, tuple(spec) + (None,) * len(leaf.shape)):
+            if ax is None:
+                continue
+            axes = ax if isinstance(ax, tuple) else (ax,)
+            size = 1
+            for a in axes:
+                size *= mesh.shape[a]
+            if dim % size:
+                bad.append(f"{keystr(path)}: {dim} % {size}")
+    return bad
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """``init_params``' tree as ``meta`` tensors (shape and dtype, no
+    storage): it is traced under a fake-tensor mode, so not even jamba's
+    398 B parameters are allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models.transformer import init_params
+    with FakeTensorMode():
+        fake = init_params(cfg, torch.Generator(), "cpu")
+    return _map_paths(lambda _, t: torch.empty(t.shape, dtype=t.dtype,
+                                               device="meta"), fake)
+
+
+# ---------------------------------------------------------------------------
+# sharded leaves
+# ---------------------------------------------------------------------------
+
+class Sharded:
+    """One leaf stored once over a mesh: the slices its spec names.
+
+    ``spec`` has one mesh axis name or None per dimension of the full
+    ``shape``; ``shards`` maps a key — one index per sharded dimension,
+    in dimension order — to that slice, on the device of its position.
+    Indexing (``leaf[l]``) takes one entry of an unsharded leading axis
+    (a layer of a stack) off every shard."""
+
+    __slots__ = ("mesh", "spec", "shape", "shards")
+
+    def __init__(self, mesh, spec: Spec, shape, shards: dict) -> None:
+        self.mesh = mesh
+        self.shape = tuple(shape)
+        # a rule shorter than the leaf leaves its trailing dims unsharded
+        self.spec = tuple(spec) + (None,) * (len(self.shape) - len(spec))
+        self.shards = shards
+
+    @classmethod
+    def build(cls, mesh, spec: Spec, shape, make) -> "Sharded":
+        """``make(index, device)`` → the slice at ``index`` (a tuple of
+        slices into the full shape) for its position's device."""
+        leaf = cls(mesh, spec, shape, {})
+        for dim, a in zip(leaf.shape, leaf.spec):
+            if a is not None and dim % mesh.shape[a]:
+                raise ValueError(f"a {leaf.shape} leaf does not split evenly "
+                                 f"over {leaf.spec} on {mesh.shape}")
+        for key in itertools.product(*(range(mesh.shape[leaf.spec[i]])
+                                       for i in leaf.dims())):
+            leaf.shards[key] = make(leaf.index(key), position_device(
+                mesh, leaf.coords(key)))
+        return leaf
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    @property
+    def dtype(self):
+        return next(iter(self.shards.values())).dtype
+
+    def numel(self) -> int:
+        return int(np.prod(self.shape))
+
+    def dims(self) -> list:
+        """The sharded dimensions, in order: the positions of a key."""
+        return [i for i, a in enumerate(self.spec) if a is not None]
+
+    def coords(self, key) -> dict:
+        """{mesh axis: index} of a key."""
+        return {self.spec[i]: k for i, k in zip(self.dims(), key)}
+
+    def part(self, coords: dict, device) -> torch.Tensor:
+        """This leaf's slice at the mesh position ``coords`` (axes this
+        leaf is not sharded over are ignored), moved to ``device``."""
+        key = tuple(coords[self.spec[i]] for i in self.dims())
+        return self.shards[key].to(device)
+
+    def model_dim(self, model_axis: str = "model"):
+        return self.spec.index(model_axis) if model_axis in self.spec \
+            else None
+
+    def __getitem__(self, i: int) -> "Sharded":
+        if self.spec[0] is not None:
+            raise ValueError(f"indexing a leaf sharded on its first axis "
+                             f"({self.spec})")
+        return Sharded(self.mesh, self.spec[1:], self.shape[1:],
+                       {k: t[i] for k, t in self.shards.items()})
+
+    def map(self, fn, *others: "Sharded"):
+        """``fn`` over the aligned shards of this leaf and ``others`` (same
+        spec); a tuple result gives a tuple of leaves."""
+        out = {k: fn(t, *(o.shards[k] for o in others))
+               for k, t in self.shards.items()}
+        first = next(iter(out.values()))
+        if isinstance(first, tuple):
+            return tuple(Sharded(self.mesh, self.spec, self.shape,
+                                 {k: v[j] for k, v in out.items()})
+                         for j in range(len(first)))
+        return Sharded(self.mesh, self.spec, self.shape, out)
+
+    def like(self, full: torch.Tensor) -> "Sharded":
+        """``full`` (this leaf's shape) split the way this leaf is, each
+        slice on its shard's device in its shard's dtype."""
+        return Sharded(self.mesh, self.spec, self.shape, {
+            k: full[self.index(k)].to(device=t.device, dtype=t.dtype,
+                                      copy=True)
+            for k, t in self.shards.items()})
+
+    def index(self, key) -> tuple:
+        """The slices of the full leaf that shard ``key`` holds."""
+        index = [slice(None)] * self.ndim
+        for i, k in zip(self.dims(), key):
+            w = self.shape[i] // self.mesh.shape[self.spec[i]]
+            index[i] = slice(k * w, (k + 1) * w)
+        return tuple(index)
+
+    def __repr__(self) -> str:
+        return (f"Sharded(shape={self.shape}, spec={self.spec}, "
+                f"{len(self.shards)} shards)")
+
+
+def position_device(mesh, coords: dict) -> torch.device:
+    """The device of the mesh position with ``coords`` on its named axes
+    and index 0 on every other axis."""
+    return mesh.devices[tuple(coords.get(a, 0) for a in mesh.axis_names)]
+
+
+def shard_params(cfg: ModelConfig, params, mesh) -> dict:
+    """``params`` stored once over ``mesh`` by the rules: a dict of
+    ``Sharded`` leaves (copies: ``params`` is left as it is). Raises
+    ``ValueError`` with ``check_divisibility``'s findings when a sharded
+    dimension does not divide by its axis."""
+    bad = check_divisibility(cfg, params, mesh)
+    if bad:
+        raise ValueError(f"{cfg.name} does not shard over {mesh.shape}: "
+                         f"{bad[:5]}")
+    specs = param_specs(cfg, params)
+    return _map_paths(
+        lambda path, t: Sharded.build(
+            mesh, _lookup(specs, path), t.shape,
+            lambda index, dev: t[index].to(dev, copy=True)), params)
+
+
+def _lookup(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def gather(leaf, device, model=None, model_axis: str = "model"):
+    """A consumer's view of one leaf, on ``device``: the full leaf, or
+    with ``model`` the full leaf's slice ``model`` along ``model_axis``
+    (every other sharded axis gathered). A plain tensor is taken whole;
+    ``model`` then needs a sharded leaf."""
+    if not isinstance(leaf, Sharded):
+        if model is not None:
+            raise ValueError("a model slice of an unsharded leaf")
+        return leaf.to(device)
+    dims = leaf.dims()
+    keys = sorted(leaf.shards)
+    if model is not None:
+        if model_axis not in leaf.spec:
+            raise ValueError(f"{leaf} is not sharded over {model_axis!r}")
+        j = dims.index(leaf.spec.index(model_axis))
+        keys = [k for k in keys if k[j] == model]
+
+    def assemble(keys, i):
+        if i == len(dims):
+            return leaf.shards[keys[0]].to(device)
+        parts = [assemble([k for k in keys if k[i] == g], i + 1)
+                 for g in sorted({k[i] for k in keys})]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dims[i])
+    return assemble(keys, 0)
+
+
+def gather_tree(tree, device):
+    """``gather`` over a dict of leaves: every leaf whole on ``device``."""
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, device) for k, v in tree.items()}
+    return gather(tree, device)

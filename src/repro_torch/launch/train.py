@@ -2,12 +2,16 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --steps 100 --batch 8 --seq 512 [--reduced] [--ckpt dir] \
-        [--ckpt-every N] [--resume] [--seed S] [--device cuda|cpu]
+        [--ckpt-every N] [--resume] [--seed S] [--device cuda|cpu] \
+        [--mesh DxM]
 
-Trains on one device (the GPU unless ``--device cpu``), through
-``training.loop.train``. ``--mesh`` takes only ``none``: sharded
-training over a (data, model) mesh is ROADMAP queue 1, item 3 (the
-reference's ``prod`` meshes are TPU meshes).
+Trains through ``training.loop.train`` on one device (the GPU unless
+``--device cpu``), or with ``--mesh DxM`` on a (data, model) mesh of
+D·M positions (``make_decode_mesh``: the first D·M GPUs, or the CPU at
+every position with ``--device cpu``), the batch split over data and the
+weights sharded by the rules of ``launch/shardings.py``. The reference's
+``prod`` and ``prod-multipod`` meshes are TPU pod meshes and are
+refused.
 """
 from __future__ import annotations
 
@@ -25,29 +29,36 @@ def run(argv=None):
     ap.add_argument("--reduced", action="store_true",
                     help="train the reduced smoke-scale variant")
     ap.add_argument("--mesh", default="none",
-                    help="only 'none' (single device)")
+                    help="'none' (single device) or DATAxMODEL, e.g. 2x2")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh != "none":
+    if args.mesh in ("prod", "prod-multipod"):
         raise ValueError(
-            f"--mesh {args.mesh!r}: the port trains on one device only; "
-            f"sharded training over a (data, model) mesh is ROADMAP queue "
-            f"1, item 3 (the reference's prod meshes are TPU meshes)")
+            f"--mesh {args.mesh!r} is the reference's TPU pod mesh; on "
+            f"GPUs give DATAxMODEL (e.g. 2x2)")
 
     from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import make_decode_mesh, parse_mesh_arg
+    from repro_torch.launch.steps import ShapeSpec, make_dist
+    from repro_torch.models.layers import NO_DIST
     from repro_torch.training.loop import train
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    dist = NO_DIST
+    if args.mesh != "none":
+        d, m = parse_mesh_arg(args.mesh)
+        dist = make_dist(make_decode_mesh(d, m, device=args.device),
+                         ShapeSpec("train", "train", args.seq, args.batch))
     return train(cfg, steps=args.steps, batch=args.batch, seq=args.seq,
                  seed=args.seed, checkpoint_dir=args.ckpt,
                  checkpoint_every=args.ckpt_every, resume=args.resume,
-                 device=args.device)
+                 device=args.device, dist=dist)
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,8 @@
 """Transformer building blocks in PyTorch (bf16 compute, fp32 reductions)
-— the counterparts of the reference's ``repro/models/layers.py`` (the
-reference's expert- and tensor-parallel ``shard_map`` MoE paths are not
-ported; the paged attention block's KV-head stripes over a mesh's model
-axis are, as ``PagedShard``).
+— the counterparts of the reference's ``repro/models/layers.py``: the
+attention, MLP and MoE blocks, the paged attention block's KV-head
+stripes over a mesh's model axis (``PagedShard``), and the forward on a
+(data, model) mesh (``Dist``).
 
 Attention keeps the reference's numerics on its plain paths (``_attend``:
 fp32 logits, a -1e30 mask, fp32 softmax, probabilities cast to bf16
@@ -15,6 +15,20 @@ on the card. ``decode_attention``, the dense per-slot oracle, and the
 bidirectional attention of the encoder and of cross-attention stay plain,
 as in the reference.
 
+On a mesh (``dist.active``) one controller drives every position. The
+batch splits over the batch axes into data rows, each a list entry on
+its row's first position, where its residual stream lives (a
+model-replicated residual, computed once). Over ``model`` the blocks are
+Megatron tensor-parallel, as the sharding rules lay the weights out:
+attention splits the padded query heads (column-parallel ``wq``, each
+position's K/V for the KV heads its query heads read, a local
+query-head → KV-head map, row-parallel ``wo``), the MLP its hidden dim,
+and the MoE follows the reference's expert- or tensor-parallel
+dispatch. A row-parallel partial sum is the reference's ``psum``: the
+partials summed in fp32 on the row's device and rounded once. The
+reference's ``constrain``/``residual_spec``/``batch_spec`` only place
+data for XLA, so they have no counterpart.
+
 PyTorch runs eagerly, so a chunk's ``q_offset`` is a plain Python int and
 caches are updated in place where the reference rebinds functionally.
 """
@@ -22,13 +36,17 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import math
+import threading
 from dataclasses import dataclass
-from typing import Optional
+from typing import Any, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.shardings import Sharded, gather, gather_tree
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -37,12 +55,28 @@ DTYPE = torch.bfloat16
 NEG_INF = -1e30
 # Query-chunk length of the plain causal path (bounds the logits buffer).
 ATTN_CHUNK_Q = 1024
+# Token count at/below which MoE on a mesh uses the global dispatch (all
+# rows' tokens at once); above it, the expert- or tensor-parallel path.
+# Read at call time, as in the reference.
+MOE_GLOBAL_DISPATCH_MAX_TOKENS = 4096
+# MoE dispatch group length on a mesh (bounds the dispatch buffer).
+MOE_GROUP_TOKENS = 8192
 
 _FORCE_PLAIN = False
-# routing log of ``record_routing()`` and routing script of
-# ``replay_routing()``: None when off
-_ROUTES: Optional[list] = None
-_REPLAY: Optional[list] = None
+
+
+class _Logs(threading.local):
+    """The routing log of ``record_routing()``, the routing script of
+    ``replay_routing()`` and the branch log of ``record_moe_branches()``
+    (None when off), each the entering thread's own: two threads may
+    replay different routings at once. A remat recompute that autograd
+    runs on its CUDA device thread does not see them."""
+    routes: Optional[list] = None
+    replay: Optional[list] = None
+    branches: Optional[list] = None
+
+
+_LOGS = _Logs()
 
 
 @contextlib.contextmanager
@@ -65,12 +99,11 @@ def record_routing():
     ``moe_block`` call made inside (one entry per MoE layer per forward,
     in call order) — for setting two runs' routing side by side
     (``dispatched_experts``) or replaying one in the other."""
-    global _ROUTES
-    prev, _ROUTES = _ROUTES, []
+    prev, _LOGS.routes = _LOGS.routes, []
     try:
-        yield _ROUTES
+        yield _LOGS.routes
     finally:
-        _ROUTES = prev
+        _LOGS.routes = prev
 
 
 @contextlib.contextmanager
@@ -80,14 +113,119 @@ def replay_routing(routes: list):
     order, instead of by their own top-k; gates come from this run's
     router. Holds one path's numerics against another's under the same
     routing choices; never entered on the serving path."""
-    global _REPLAY
-    prev, _REPLAY = _REPLAY, list(routes)
+    prev, _LOGS.replay = _LOGS.replay, list(routes)
     try:
         yield
-        if _REPLAY:
-            raise RuntimeError(f"{len(_REPLAY)} recorded routes not replayed")
+        if _LOGS.replay:
+            raise RuntimeError(f"{len(_LOGS.replay)} recorded routes not "
+                               f"replayed")
     finally:
-        _REPLAY = prev
+        _LOGS.replay = prev
+
+
+@contextlib.contextmanager
+def record_moe_branches():
+    """Collect the dispatch each ``moe_block`` call made inside took, in
+    call order: "global", "ep" or "tp"."""
+    prev, _LOGS.branches = _LOGS.branches, []
+    try:
+        yield _LOGS.branches
+    finally:
+        _LOGS.branches = prev
+
+
+# ---------------------------------------------------------------------------
+# the distribution context
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Dist:
+    """Distribution context threaded through the forward: a
+    ``launch.mesh.Mesh`` (None: one device), the mesh axes that carry the
+    batch and the tensor-parallel axis."""
+    mesh: Any = None
+    batch_axes: Any = ("pod", "data")  # mesh axes carrying the batch dim
+    model_axis: str = "model"
+
+    @property
+    def active(self) -> bool:
+        return self.mesh is not None
+
+    def axis_size(self, name) -> int:
+        if not self.active:
+            return 1
+        if isinstance(name, tuple):
+            return math.prod(self.mesh.shape[a] for a in name
+                             if a in self.mesh.shape)
+        return self.mesh.shape.get(name, 1)
+
+    def grid(self) -> np.ndarray:
+        """(rows, model) array of devices: one row per index of the batch
+        axes (the first batch axis major), its model positions in order;
+        every other axis at index 0 (a replica computes nothing new)."""
+        names = self.mesh.axis_names
+        lead = [a for a in self.batch_axes if a in names]
+        if self.model_axis in names:
+            lead.append(self.model_axis)
+        rest = [a for a in names if a not in lead]
+        arr = self.mesh.devices.transpose([names.index(a)
+                                           for a in lead + rest])
+        arr = arr[(slice(None),) * len(lead) + (0,) * len(rest)]
+        return arr.reshape(-1, self.axis_size(self.model_axis))
+
+
+NO_DIST = Dist()
+
+
+def split_rows(t: torch.Tensor, dist: Dist) -> list:
+    """A batch-leading tensor split into the mesh's data rows, each on
+    its row's first position."""
+    grid = dist.grid()
+    if t.shape[0] % grid.shape[0]:
+        raise ValueError(f"a batch of {t.shape[0]} does not split over "
+                         f"{grid.shape[0]} data rows")
+    return [c.to(d) for c, d in zip(t.chunk(grid.shape[0]), grid[:, 0])]
+
+
+def join_rows(rows, device) -> torch.Tensor:
+    return torch.cat([r.to(device) for r in rows])
+
+
+def _psum(parts: list, device) -> torch.Tensor:
+    """The sum of the model positions' partials on ``device``: fp32
+    accumulation, one rounding (a single partial is returned as is)."""
+    if len(parts) == 1:
+        return parts[0].to(device)
+    acc = parts[0].to(device).float()
+    for t in parts[1:]:
+        acc = acc + t.to(device).float()
+    return acc.to(parts[0].dtype)
+
+
+def _model_part(leaf, device, dim: int, m: int, n: int) -> torch.Tensor:
+    """Slice ``m`` of ``n`` along ``dim`` of a leaf, on ``device``: a
+    sharded leaf split that way gathers only that slice; any other leaf
+    is gathered whole and sliced."""
+    if isinstance(leaf, Sharded) and n > 1 \
+            and leaf.model_dim() == dim % leaf.ndim:
+        return gather(leaf, device, model=m)
+    full = gather(leaf, device)
+    if n == 1:
+        return full
+    if full.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split "
+                         f"over {n} model positions")
+    return full.chunk(n, dim)[m]
+
+
+def _on_rows(x, dist: Dist, fn):
+    """``fn`` over the data rows of x — a list of row tensors, or a whole
+    (B, ...) tensor, split into rows and its results joined back on x's
+    device. ``fn(rows)`` returns (row outputs, extra)."""
+    if isinstance(x, list):
+        return fn(x)
+    ys, extra = fn(split_rows(x, dist))
+    return join_rows(ys, x.device), extra
 
 
 # ---------------------------------------------------------------------------
@@ -263,9 +401,10 @@ def _attend_all(q, k, v, qh2kv):
                    1.0 / (q.shape[-1] ** 0.5))
 
 
-def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
-                    cache=None, cache_len=None, ring: bool = False,
-                    kv_out: bool = False, enc_kv=None, causal: bool = True,
+def attention_block(x, p, cfg: ModelConfig, dist: Dist = NO_DIST, *,
+                    q_offset: int = 0, cache=None, cache_len=None,
+                    ring: bool = False, kv_out: bool = False, enc_kv=None,
+                    causal: bool = True,
                     window_override: Optional[int] = None,
                     train: bool = False):
     """Attention sub-block: norm → qkv → rope → attend → out proj.
@@ -288,7 +427,39 @@ def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
       * ``ring``: the cache IS the sliding window (a ring buffer of
         S_cache slots): one new token per step lands in slot
         ``cache_len % S_cache`` and attends every filled slot.
+
+    ``dist`` active (x a list of data rows, or a whole batch split and
+    joined back; kv per row): the causal self-attention is
+    tensor-parallel over the query heads (``_attention_mesh``); the
+    encoder's and cross-attention take their leaves whole on each row's
+    device (``enc_kv`` then one (k, v) per row, or a whole pair); the
+    cache forms are not distributed.
     """
+    if dist.active:
+        if cache is not None:
+            raise NotImplementedError(
+                "attention over a cache on a mesh: the context-parallel "
+                "decode step is not ported")
+        if enc_kv is None and causal:
+            return _on_rows(x, dist, lambda rows: _attention_mesh(
+                rows, p, cfg, dist, q_offset=q_offset, kv_out=kv_out,
+                window_override=window_override, train=train))
+
+        def whole(rows):
+            ekv = enc_kv
+            if ekv is not None and not isinstance(ekv, list):
+                ekv = list(zip(split_rows(ekv[0], dist),
+                               split_rows(ekv[1], dist)))
+            outs = [attention_block(
+                xr, gather_tree(p, xr.device), cfg, q_offset=q_offset,
+                kv_out=kv_out, causal=causal, train=train,
+                enc_kv=None if ekv is None else tuple(
+                    t.to(xr.device) for t in ekv[r]),
+                window_override=window_override)
+                for r, xr in enumerate(rows)]
+            return [o[0] for o in outs], [o[1] for o in outs]
+        return _on_rows(x, dist, whole)
+
     B, S, _ = x.shape
     Hp, KV, Dh = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim
     window = cfg.sliding_window if window_override is None else window_override
@@ -352,6 +523,100 @@ def attention_block(x, p, cfg: ModelConfig, *, q_offset: int = 0,
         o = causal_attention(q, k_cache, v_cache, pos, window, qh2kv=qh2kv)
     y = o.reshape(B, S, Hp * Dh) @ p["wo"]
     return y, (k_cache, v_cache)
+
+
+def _head_stripes(cfg: ModelConfig, n_model: int) -> list:
+    """Each model position's stripe of the padded query heads and what it
+    reads: (the KV heads read, ascending; the local query-head → KV-head
+    map as a list, or None where it is the grouped (contiguous) one)."""
+    Hp = cfg.padded_heads
+    if Hp % n_model:
+        raise ValueError(f"{Hp} query heads do not split over {n_model} "
+                         f"model positions")
+    qmap = qh2kv_map(cfg.n_heads, cfg.n_kv_heads, Hp).tolist()
+    hl = Hp // n_model
+    out = []
+    for m in range(n_model):
+        heads = qmap[m * hl:(m + 1) * hl]
+        used = sorted(set(heads))
+        local = [used.index(k) for k in heads]
+        g = hl // len(used)
+        grouped = hl % len(used) == 0 and local == [h // g for h in range(hl)]
+        out.append((used, None if grouped else local))
+    return out
+
+
+def _kv_columns(w: torch.Tensor, used: list, Dh: int) -> torch.Tensor:
+    """The columns (last axis, KV·Dh) of the KV heads ``used``."""
+    if used == list(range(used[0], used[-1] + 1)):
+        return w[..., used[0] * Dh:(used[-1] + 1) * Dh]
+    idx = torch.tensor([k * Dh + i for k in used for i in range(Dh)],
+                       device=w.device)
+    return w.index_select(-1, idx)
+
+
+def _attention_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, q_offset: int,
+                    kv_out: bool, window_override, train: bool):
+    """The causal self-attention of each data row, tensor-parallel over
+    its model positions: position m projects its stripe of the padded
+    query heads (``wq``'s column slice m) and the KV heads those read,
+    attends them under its local query-head → KV-head map (the
+    chunked-prefill kernel on CUDA outside training) and applies
+    ``wo``'s row slice m; the partials are summed on the row's device.
+    Returns (y per row, the full-headed (k, v) per row if ``kv_out``)."""
+    Hp, KV, Dh = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim
+    window = cfg.sliding_window if window_override is None else window_override
+    grid = dist.grid()
+    M = grid.shape[1]
+    stripes = _head_stripes(cfg, M)
+    hl = Hp // M
+    attend = chunked_attention if train else causal_attention
+    ys, kvs = [], []
+    for r, x in enumerate(rows):
+        B, S, D = x.shape
+        h = rms_norm(x, gather(p["ln"], x.device), cfg.norm_eps)
+        parts, ks, vs = [], [], []
+        for m, (used, local) in enumerate(stripes):
+            dev = grid[r, m]
+            hm = h.to(dev)
+            q = (hm @ _model_part(p["wq"], dev, -1, m, M)).reshape(
+                B, S, hl, Dh)
+            if cfg.attn_bias:
+                q = q + _model_part(p["bq"], dev, -1, m, M).reshape(
+                    1, 1, hl, Dh)
+            if cfg.qk_norm:
+                q = rms_norm(q, gather(p["q_norm"], dev), cfg.norm_eps)
+            nu = len(used)
+            k = (hm @ _kv_columns(gather(p["wk"], dev), used, Dh)).reshape(
+                B, S, nu, Dh)
+            v = (hm @ _kv_columns(gather(p["wv"], dev), used, Dh)).reshape(
+                B, S, nu, Dh)
+            if cfg.attn_bias:
+                k = k + _kv_columns(gather(p["bk"], dev), used, Dh).reshape(
+                    1, 1, nu, Dh)
+                v = v + _kv_columns(gather(p["bv"], dev), used, Dh).reshape(
+                    1, 1, nu, Dh)
+            if cfg.qk_norm:
+                k = rms_norm(k, gather(p["k_norm"], dev), cfg.norm_eps)
+            positions = q_offset + torch.arange(S, device=dev)
+            q = apply_rope(q, positions, cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_theta)
+            qh2kv = None if local is None else torch.tensor(
+                local, dtype=torch.int32, device=dev)
+            o = attend(q, k, v, q_offset, window, qh2kv=qh2kv)
+            parts.append(o.reshape(B, S, hl * Dh)
+                         @ _model_part(p["wo"], dev, 0, m, M))
+            ks.append(k)
+            vs.append(v)
+        ys.append(_psum(parts, x.device))
+        if kv_out:
+            # each KV head from the first position that computed it
+            src = [next((m, used.index(j)) for m, (used, _) in
+                        enumerate(stripes) if j in used) for j in range(KV)]
+            kvs.append(tuple(torch.stack(
+                [t[m][:, :, i].to(x.device) for m, i in src], dim=2)
+                for t in (ks, vs)))
+    return ys, (kvs if kv_out else None)
 
 
 @dataclass(frozen=True)
@@ -453,11 +718,30 @@ def paged_attention_block(x, p, cfg: ModelConfig, *, k_pages, v_pages,
 # dense MLP
 # ---------------------------------------------------------------------------
 
-def mlp_block(x, p, cfg: ModelConfig):
+def mlp_block(x, p, cfg: ModelConfig, dist: Dist = NO_DIST):
+    """Gated MLP. ``dist`` active: tensor-parallel over the hidden dim
+    (``w1``/``w3`` by columns, ``w2`` by rows, the partials summed)."""
+    if dist.active:
+        return _on_rows(x, dist, lambda rows: (
+            [_mlp_mesh(xr, p, cfg, dist.grid()[r]) for r, xr in
+             enumerate(rows)], None))[0]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     gate = F.silu(h @ p["w1"])
     up = h @ p["w3"]
     return (gate * up) @ p["w2"]
+
+
+def _mlp_mesh(x, p, cfg: ModelConfig, devices) -> torch.Tensor:
+    """One data row's MLP over its model positions ``devices``."""
+    M = len(devices)
+    h = rms_norm(x, gather(p["ln"], x.device), cfg.norm_eps)
+    parts = []
+    for m, dev in enumerate(devices):
+        hm = h.to(dev)
+        gate = F.silu(hm @ _model_part(p["w1"], dev, -1, m, M))
+        up = hm @ _model_part(p["w3"], dev, -1, m, M)
+        parts.append((gate * up) @ _model_part(p["w2"], dev, 0, m, M))
+    return _psum(parts, x.device)
 
 
 # ---------------------------------------------------------------------------
@@ -494,16 +778,16 @@ def _expert_ffn(buf, w1, w2, w3):
 def _route(xf, router_w, top_k: int):
     logits = (xf @ router_w).float()                          # (T, E)
     probs = torch.softmax(logits, dim=-1)
-    if _REPLAY is not None:
-        idx = _REPLAY.pop(0).to(probs.device)
+    if _LOGS.replay is not None:
+        idx = _LOGS.replay.pop(0).to(probs.device)
         if idx.shape != (probs.shape[0], top_k):
             raise RuntimeError(f"replayed routes {tuple(idx.shape)} do not "
                                f"fit {probs.shape[0]} rows of top-{top_k}")
         gates = torch.gather(probs, -1, idx)
     else:
         gates, idx = _top_k(probs, top_k)                     # (T, k)
-    if _ROUTES is not None:
-        _ROUTES.append(idx.clone())
+    if _LOGS.routes is not None:
+        _LOGS.routes.append(idx.clone())
     gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
     # load-balance aux loss (Switch-style): E * mean(f_e * p_e)
     E = router_w.shape[-1]
@@ -548,14 +832,146 @@ def dispatched_experts(cfg: ModelConfig, idx: torch.Tensor) -> torch.Tensor:
     return torch.where(slot < E * C, idx, -1).sort(dim=-1).values
 
 
-def moe_block(x, p, cfg: ModelConfig):
+def moe_block(x, p, cfg: ModelConfig, dist: Dist = NO_DIST):
     """x (B, S, D) → (y, aux loss). Every row handed over takes part in
     the routing — a paged step's idle slots too — and the capacity is
-    that of all B·S rows."""
-    B, S, D = x.shape
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    T = B * S
-    y, aux = _moe_dispatch_compute(
-        h.reshape(T, D), p["router"], p["w1"], p["w2"], p["w3"],
-        cfg.moe.top_k, moe_capacity(cfg, T))
-    return y.reshape(B, S, D), aux
+    that of all B·S rows.
+
+    ``dist`` active (x a list of data rows or a whole batch): the
+    reference's choice of dispatch over all T = B·S tokens — global (all
+    tokens at once, on the first position) at T ≤
+    ``MOE_GLOBAL_DISPATCH_MAX_TOKENS``; expert-parallel when the config
+    says "ep", the experts divide over ``model`` and T over data × model
+    (``_moe_ep``); else tensor-parallel experts (``_moe_tp``)."""
+    if not dist.active:
+        B, S, D = x.shape
+        h = rms_norm(x, p["ln"], cfg.norm_eps)
+        T = B * S
+        y, aux = _moe_dispatch_compute(
+            h.reshape(T, D), p["router"], p["w1"], p["w2"], p["w3"],
+            cfg.moe.top_k, moe_capacity(cfg, T))
+        return y.reshape(B, S, D), aux
+    return _on_rows(x, dist, lambda rows: _moe_mesh(rows, p, cfg, dist))
+
+
+def _moe_mesh(rows, p, cfg: ModelConfig, dist: Dist):
+    moe = cfg.moe
+    grid = dist.grid()
+    dp, ep = grid.shape
+    T_total = sum(r.shape[0] * r.shape[1] for r in rows)
+    hs = [rms_norm(x, gather(p["ln"], x.device), cfg.norm_eps).reshape(
+        -1, x.shape[-1]) for x in rows]
+    if T_total <= MOE_GLOBAL_DISPATCH_MAX_TOKENS:
+        branch = "global"
+    elif moe.parallelism == "ep" and moe.n_experts % ep == 0 \
+            and T_total % (dp * ep) == 0:
+        branch = "ep"
+    else:
+        branch = "tp"
+    if _LOGS.branches is not None:
+        _LOGS.branches.append(branch)
+    if branch == "global":
+        dev = grid[0, 0]
+        h = torch.cat([t.to(dev) for t in hs])
+        y, aux = _moe_dispatch_compute(
+            h, gather(p["router"], dev), gather(p["w1"], dev),
+            gather(p["w2"], dev), gather(p["w3"], dev), moe.top_k,
+            moe_capacity(cfg, T_total))
+        ys = [c.to(x.device).view(x.shape) for c, x in
+              zip(y.split([t.shape[0] for t in hs]), rows)]
+        return ys, aux
+    T_loc = T_total // (dp * ep) if branch == "ep" else T_total // dp
+    n_groups = max(T_loc // MOE_GROUP_TOKENS, 1)
+    if T_loc % n_groups:
+        raise ValueError(f"{T_loc} tokens a position do not split into "
+                         f"{n_groups} dispatch groups")
+    cap = moe_capacity(cfg, T_loc // n_groups)
+    run = _moe_ep if branch == "ep" else _moe_tp
+    ys, auxes = [], []
+    for r, (x, h) in enumerate(zip(rows, hs)):
+        y, a = run(h, p, cfg, grid[r], cap, n_groups)
+        ys.append(y.view(x.shape))
+        auxes.extend(a)
+    # the reference's pmean over the token axes (EP) / batch axes (TP)
+    dev = grid[0, 0]
+    aux = sum(a.to(dev) for a in auxes) / len(auxes)
+    return ys, aux
+
+
+def _group_combine(out, slot, gates, E: int, cap: int):
+    """The expert outputs (E, cap, D) read back at each choice's slot
+    (a dropped choice reads a zero row) and weighted by its gate."""
+    D = out.shape[-1]
+    out_flat = torch.cat([out.reshape(E * cap, D), out.new_zeros((1, D))])
+    G, k = gates.shape
+    return torch.sum(out_flat[slot].view(G, k, D) * gates[:, :, None], dim=1)
+
+
+def _dispatch(xg, idxg, E: int, cap: int):
+    """A group's rows into its (E, cap, D) capacity buffer; with the
+    flat slot of each (row, choice)."""
+    slot = _dispatch_indices(idxg, E, cap)
+    D = xg.shape[-1]
+    buf = xg.new_zeros((E * cap + 1, D)).index_put(
+        (slot,), xg.repeat_interleave(idxg.shape[1], dim=0))
+    return buf[:-1].view(E, cap, D), slot
+
+
+def _moe_ep(h, p, cfg: ModelConfig, devices, cap: int, n_groups: int):
+    """One data row, expert-parallel: position m routes its contiguous
+    slice of the row's tokens and holds experts [m·E/ep, (m+1)·E/ep).
+    Per group, the reference's tiled ``all_to_all`` both ways: position m
+    receives every position's capacity slab of its experts, in source
+    order along the capacity axis, computes them, and returns each
+    source's slab. Returns (y (T, D), each position's aux)."""
+    ep = len(devices)
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    E_loc = E // ep
+    xs = [c.to(d) for c, d in zip(h.chunk(ep), devices)]
+    routed = [_route(xf, gather(p["router"], d), k)
+              for xf, d in zip(xs, devices)]
+    w = [tuple(_model_part(p[n], d, 0, m, ep) for n in ("w1", "w2", "w3"))
+         for m, d in enumerate(devices)]
+    ys = [[] for _ in devices]
+    for g in range(n_groups):
+        bufs, slots, gates = [], [], []
+        for (gt, idx, _), xf in zip(routed, xs):
+            G = xf.shape[0] // n_groups
+            sl = slice(g * G, (g + 1) * G)
+            buf, slot = _dispatch(xf[sl], idx[sl], E, cap)
+            bufs.append(buf)
+            slots.append(slot)
+            gates.append(gt[sl])
+        outs = []
+        for m, d in enumerate(devices):
+            recv = torch.cat([b[m * E_loc:(m + 1) * E_loc].to(d)
+                              for b in bufs], dim=1)       # (E_loc, ep·C, D)
+            outs.append(_expert_ffn(recv, *w[m]))
+        for i, d in enumerate(devices):
+            back = torch.cat([o[:, i * cap:(i + 1) * cap].to(d)
+                              for o in outs])               # (E, C, D)
+            ys[i].append(_group_combine(back, slots[i], gates[i], E, cap))
+    y = torch.cat([torch.cat(parts).to(h.device) for parts in ys])
+    return y, [a for _, _, a in routed]
+
+
+def _moe_tp(h, p, cfg: ModelConfig, devices, cap: int, n_groups: int):
+    """One data row, tensor-parallel experts: the row's tokens routed
+    once on its device (every model position would route them alike),
+    each group's capacity buffer run through every position's slice of
+    the experts' hidden dim, the partial outputs summed. Returns (y (T,
+    D), [aux])."""
+    M = len(devices)
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    gates, idx, aux = _route(h, gather(p["router"], h.device), k)
+    w = [(_model_part(p["w1"], d, -1, m, M), _model_part(p["w2"], d, -2, m, M),
+          _model_part(p["w3"], d, -1, m, M)) for m, d in enumerate(devices)]
+    G = h.shape[0] // n_groups
+    ys = []
+    for g in range(n_groups):
+        sl = slice(g * G, (g + 1) * G)
+        buf, slot = _dispatch(h[sl], idx[sl], E, cap)
+        out = _psum([_expert_ffn(buf.to(d), *w[m])
+                     for m, d in enumerate(devices)], h.device)
+        ys.append(_group_combine(out, slot, gates[sl], E, cap))
+    return torch.cat(ys), [aux]

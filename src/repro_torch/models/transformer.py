@@ -33,6 +33,15 @@ layers is a Python loop here. Forward modes:
                             of a banked page store (dense-MLP stacks).
 KV caches and page slabs are updated in place; an SSM state is replaced
 by the new one a step returns, as in the reference.
+
+``loss_fn`` and ``prefill`` take a ``Dist``: on a (data, model) mesh the
+batch splits into data rows (lists of row tensors through the stack),
+the attention, MLP and MoE blocks are tensor- or expert-parallel over
+``model`` (``models/layers.py``), and every other block — Mamba2
+mixers, the encoder, cross-attention, the frontends, the embedding and
+the unembedding with its chunked cross-entropy — takes its leaves
+gathered whole on each row's device. Parameters may then be
+``launch.shardings.Sharded`` leaves (``shard_params``) or whole tensors.
 """
 from __future__ import annotations
 
@@ -43,9 +52,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import (DTYPE, PagedShard, attention_block,
-                                       mlp_block, moe_block,
-                                       paged_attention_block, rms_norm)
+from repro_torch.launch.shardings import gather, gather_tree
+from repro_torch.models.layers import (DTYPE, NO_DIST, Dist, PagedShard,
+                                       attention_block, join_rows, mlp_block,
+                                       moe_block, paged_attention_block,
+                                       rms_norm, split_rows)
 from repro_torch.models.mamba import MambaState, mamba_block
 
 # Sequence-chunk length of the chunked cross-entropy (bounds the fp32
@@ -282,13 +293,45 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
 # forwards
 # ---------------------------------------------------------------------------
 
-def _embed(params, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
+           dist: Dist = NO_DIST):
+    """Token embeddings: (B, S, D), or on a mesh one per data row."""
+    if dist.active:
+        return [gather(params["embed"], t.device)[t.long()]
+                for t in split_rows(tokens, dist)]
     return params["embed"][tokens.long()]
 
 
+def _add(x, y):
+    """The residual add, of tensors or of data rows."""
+    if isinstance(x, list):
+        return [a + b for a, b in zip(x, y)]
+    return x + y
+
+
+def _first_device(dist: Dist):
+    return dist.grid()[0, 0]
+
+
+def _join_state(states: list, device) -> MambaState:
+    """Per-row Mamba2 states → one, the rows joined on the batch axis."""
+    return MambaState(ssm=join_rows([s.ssm for s in states], device),
+                      conv=join_rows([s.conv for s in states], device))
+
+
+def _join_kv(kv, device):
+    """One layer's prefill (k, v): whole, or per data row joined."""
+    if isinstance(kv, list):
+        return (join_rows([k for k, _ in kv], device),
+                join_rows([v for _, v in kv], device))
+    return kv
+
+
 def _logits_at(params, h_last, cfg: ModelConfig) -> torch.Tensor:
-    """h_last (B, k, D) → (B, k, V) fp32 logits."""
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    """h_last (B, k, D) → (B, k, V) fp32 logits (the unembedding gathered
+    whole on h_last's device)."""
+    w = gather(params["embed"], h_last.device).T if cfg.tie_embeddings \
+        else gather(params["lm_head"], h_last.device)
     return (h_last @ w).float()
 
 
@@ -303,15 +346,24 @@ def _remat(fn, cfg: ModelConfig, train: bool):
                                     preserve_rng_state=False)
 
 
-def _ssm_stack(params, x, cfg: ModelConfig, caches, mode: str):
+def _ssm_stack(params, x, cfg: ModelConfig, caches, mode: str,
+               dist: Dist = NO_DIST):
     """One Mamba2 block per layer, from ``caches.ssm`` if given; returns
-    (x, the new stacked MambaState; None in train mode)."""
+    (x, the new stacked MambaState; None in train mode). On a mesh each
+    data row's mixer takes its leaves whole."""
     train = mode == "train"
 
     def block(x, l):
+        p_l = _layer(params["mamba"], l)
+        if dist.active:
+            ys, news = zip(*[mamba_block(
+                xr, gather_tree(p_l, xr.device), cfg,
+                return_state=not train, train=train) for xr in x])
+            return _add(x, list(ys)), (None if train else _join_state(
+                news, _first_device(dist)))
         st = None if caches is None or caches.ssm is None else MambaState(
             ssm=caches.ssm.ssm[l], conv=caches.ssm.conv[l])
-        y, new = mamba_block(x, _layer(params["mamba"], l), cfg, state=st,
+        y, new = mamba_block(x, p_l, cfg, state=st,
                              return_state=not train, train=train)
         return x + y, new
 
@@ -327,11 +379,11 @@ def _ssm_stack(params, x, cfg: ModelConfig, caches, mode: str):
     return x, MambaState(ssm=torch.stack(ssms), conv=torch.stack(convs))
 
 
-def _ffn(x, p, cfg: ModelConfig, use_moe: bool):
+def _ffn(x, p, cfg: ModelConfig, use_moe: bool, dist: Dist = NO_DIST):
     """The layer's FFN sub-block → (y, aux loss)."""
     if use_moe:
-        return moe_block(x, p, cfg)
-    return mlp_block(x, p, cfg), 0.0
+        return moe_block(x, p, cfg, dist)
+    return mlp_block(x, p, cfg, dist), 0.0
 
 
 def encode(params, frames, cfg: ModelConfig, *,
@@ -366,17 +418,18 @@ def build_enc_kv(params, enc_out, cfg: ModelConfig) -> KVCache:
 
 
 def _self_attention(x, p_a, cfg: ModelConfig, l: int, *, mode: str, caches,
-                    q_offset: int, ring: bool, window_override):
+                    q_offset: int, ring: bool, window_override,
+                    dist: Dist = NO_DIST):
     """Attention layer ``l``'s self-attention: the training form (the
     differentiable plain attention, no KV out), the prefill form (new KV
     out) or the extend/decode form over ``caches.kv[l]`` at
     ``caches.length``."""
     if mode == "train":
-        return attention_block(x, p_a, cfg, q_offset=q_offset,
+        return attention_block(x, p_a, cfg, dist, q_offset=q_offset,
                                window_override=window_override, train=True)
     if mode == "prefill":
-        return attention_block(x, p_a, cfg, q_offset=q_offset, kv_out=True,
-                               window_override=window_override)
+        return attention_block(x, p_a, cfg, dist, q_offset=q_offset,
+                               kv_out=True, window_override=window_override)
     return attention_block(x, p_a, cfg, cache=(caches.kv.k[l],
                                                caches.kv.v[l]),
                            cache_len=caches.length, ring=ring,
@@ -384,7 +437,8 @@ def _self_attention(x, p_a, cfg: ModelConfig, l: int, *, mode: str, caches,
 
 
 def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
-                   caches, q_offset: int, ring: bool, window_override):
+                   caches, q_offset: int, ring: bool, window_override,
+                   dist: Dist = NO_DIST):
     """One attention + FFN (MLP or MoE) block per layer, with a
     cross-attention over ``caches.enc_kv`` after each self-attention of
     an encoder-decoder; returns (x, the summed MoE aux loss, per-layer
@@ -399,15 +453,18 @@ def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
     def block(x, aux, l):
         y, kv = _self_attention(x, _layer(params["attn"], l), cfg, l,
                                 mode=mode, caches=caches, q_offset=q_offset,
-                                ring=ring, window_override=window_override)
-        x = x + y
+                                ring=ring, window_override=window_override,
+                                dist=dist)
+        x = _add(x, y)
         if cross:
+            e = caches.enc_kv
             y, _ = attention_block(
-                x, _layer(params["cross_attn"], l), cfg,
-                enc_kv=(caches.enc_kv.k[l], caches.enc_kv.v[l]))
-            x = x + y
-        y, a = _ffn(x, _layer(p_f, l), cfg, use_moe)
-        return x + y, aux + a, kv
+                x, _layer(params["cross_attn"], l), cfg, dist,
+                enc_kv=[(r.k[l], r.v[l]) for r in e] if isinstance(e, list)
+                else (e.k[l], e.v[l]))
+            x = _add(x, y)
+        y, a = _ffn(x, _layer(p_f, l), cfg, use_moe, dist)
+        return _add(x, y), aux + a, kv
 
     block = _remat(block, cfg, mode == "train")
     kvs, aux = [], 0.0
@@ -418,7 +475,8 @@ def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
 
 
 def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
-                  q_offset: int, ring: bool, window_override):
+                  q_offset: int, ring: bool, window_override,
+                  dist: Dist = NO_DIST):
     """The jamba period stack: each period is [attention, Mamba2 ×
     (attn_every - 1)], an FFN after every mixer — MoE at the in-period
     positions ``pos % moe.every == moe.every - 1``, a dense MLP at the
@@ -440,7 +498,17 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                 y, kv = _self_attention(
                     x, _layer(params["attn"], per), cfg, per, mode=mode,
                     caches=caches, q_offset=q_offset, ring=ring,
-                    window_override=window_override)
+                    window_override=window_override, dist=dist)
+            elif dist.active:
+                p_l = _layer(p_m, pos - 1)
+                y, new = zip(*[mamba_block(
+                    xr, gather_tree(p_l, xr.device), cfg,
+                    return_state=not train, train=train) for xr in x])
+                y = list(y)
+                if not train:
+                    new = _join_state(new, _first_device(dist))
+                    per_ssm.append(new.ssm)
+                    per_conv.append(new.conv)
             else:
                 st = None if caches is None or caches.ssm is None \
                     else MambaState(ssm=caches.ssm.ssm[per, pos - 1],
@@ -450,15 +518,15 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                 if new is not None:
                     per_ssm.append(new.ssm)
                     per_conv.append(new.conv)
-            x = x + y
+            x = _add(x, y)
             if pos % every == every - 1:
-                y, a = moe_block(x, _layer(p_fm, i_m), cfg)
+                y, a = moe_block(x, _layer(p_fm, i_m), cfg, dist)
                 aux = aux + a
                 i_m += 1
             else:
-                y = mlp_block(x, _layer(p_fd, i_d), cfg)
+                y = mlp_block(x, _layer(p_fd, i_d), cfg, dist)
                 i_d += 1
-            x = x + y
+            x = _add(x, y)
         state = None if train else MambaState(ssm=torch.stack(per_ssm),
                                               conv=torch.stack(per_conv))
         return x, aux, kv, state
@@ -478,23 +546,31 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
 
 
 def _run_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
-               q_offset: int = 0, ring: bool = False, window_override=None):
+               q_offset: int = 0, ring: bool = False, window_override=None,
+               dist: Dist = NO_DIST):
     """The decoder stack of any family → (h, the summed MoE aux loss,
     per-layer kv or None, the new stacked MambaState or None). ``mode``
-    "train" returns no caches (kv and state None)."""
+    "train" returns no caches (kv and state None). On a mesh (``dist``)
+    x and h are lists of data rows, a layer's kv one (k, v) per row; the
+    decode mode does not run there."""
+    if dist.active and mode == "decode":
+        raise NotImplementedError("decode over caches on a mesh: the "
+                                  "context-parallel serve step is not ported")
     if cfg.kind == "ssm":
-        h, ssm = _ssm_stack(params, x, cfg, caches, mode)
+        h, ssm = _ssm_stack(params, x, cfg, caches, mode, dist)
         return h, 0.0, None, ssm
     if cfg.attn_every:
         h, aux, kvs, ssm = _hybrid_stack(params, x, cfg, mode=mode,
                                          caches=caches, q_offset=q_offset,
                                          ring=ring,
-                                         window_override=window_override)
+                                         window_override=window_override,
+                                         dist=dist)
     else:
         h, aux, kvs = _uniform_stack(params, x, cfg, mode=mode,
                                      caches=caches, q_offset=q_offset,
                                      ring=ring,
-                                     window_override=window_override)
+                                     window_override=window_override,
+                                     dist=dist)
         ssm = None
     return h, aux, (None if mode == "train" else kvs), ssm
 
@@ -505,8 +581,16 @@ def _unembed_chunked(params, h, labels, cfg: ModelConfig) -> torch.Tensor:
     slices, so the (B, S, V) fp32 logits never exist at once. As in the
     reference, S splits into ``max(S // CE_CHUNK, 1)`` equal slices and a
     remainder past them is left out."""
+    tot, cnt = _ce_sums(params, h, labels, cfg)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def _ce_sums(params, h, labels, cfg: ModelConfig):
+    """``_unembed_chunked``'s (summed loss, unmasked count), the
+    unembedding gathered whole on h's device."""
     B, S, _ = h.shape
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    w = gather(params["embed"], h.device).T if cfg.tie_embeddings \
+        else gather(params["lm_head"], h.device)
     V = cfg.padded_vocab
     n = max(S // CE_CHUNK, 1)
     C = S // n
@@ -520,62 +604,112 @@ def _unembed_chunked(params, h, labels, cfg: ModelConfig) -> torch.Tensor:
         mask = (lc >= 0).float()
         tot = tot + torch.sum((logz - gold) * mask)
         cnt = cnt + torch.sum(mask)
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
-def loss_fn(params, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+_ENCODER_KEYS = ("enc_attn", "enc_mlp", "enc_final_ln", "cross_attn")
+
+
+def _encoder_kv(params, frames, cfg: ModelConfig, dist: Dist, train: bool):
+    """The cross-attention K/V of the encoded ``frames``: one KVCache, or
+    on a mesh one per data row (the encoder's leaves gathered whole on
+    the row's device)."""
+    if not dist.active:
+        return build_enc_kv(params, encode(params, frames, cfg, train=train),
+                            cfg)
+    out = []
+    for f in split_rows(frames, dist):
+        sub = gather_tree({k: params[k] for k in _ENCODER_KEYS}, f.device)
+        out.append(build_enc_kv(sub, encode(sub, f, cfg, train=train), cfg))
+    return out
+
+
+def _prepend(x, patches, dist: Dist):
+    """The patch frontend: the patch embeddings ahead of the tokens'."""
+    if not dist.active:
+        return torch.cat([patches.to(DTYPE), x], dim=1)
+    return [torch.cat([p.to(DTYPE), xr], dim=1)
+            for p, xr in zip(split_rows(patches, dist), x)]
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig,
+            dist: Dist = NO_DIST) -> torch.Tensor:
     """Training loss: the chunked next-token cross-entropy plus 0.01 ×
     the summed MoE load-balance aux loss. ``batch``: tokens and labels
     (B, S) integer tensors, and an encoder-decoder's ``frames`` or the
     patch frontend's ``patches`` (B, F, d_model). The forward runs in
     train mode: every attention and scan is a differentiable plain op,
     no kernel is launched, and a remat config recomputes each layer in
-    the backward pass."""
-    x = _embed(params, batch["tokens"], cfg)
+    the backward pass. On a mesh the batch splits over the data rows and
+    the cross-entropy is the rows' summed loss over their summed count,
+    on the mesh's first device."""
+    x = _embed(params, batch["tokens"], cfg, dist)
     labels = batch["labels"]
     caches = None
     if cfg.encoder_layers:       # whisper: encode stub frames, cross-attend
-        enc_out = encode(params, batch["frames"], cfg, train=True)
-        caches = Caches(kv=None, length=0,
-                        enc_kv=build_enc_kv(params, enc_out, cfg))
+        caches = Caches(kv=None, length=0, enc_kv=_encoder_kv(
+            params, batch["frames"], cfg, dist, train=True))
     elif cfg.frontend == "patch":    # vlm: prepend the patch embeddings
-        patches = batch["patches"].to(DTYPE)
-        x = torch.cat([patches, x], dim=1)
+        patches = batch["patches"]
+        x = _prepend(x, patches, dist)
         pad = torch.full(patches.shape[:2], -1, dtype=labels.dtype,
                          device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
-    h, aux, _, _ = _run_stack(params, x, cfg, mode="train", caches=caches)
-    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-    return _unembed_chunked(params, h, labels, cfg) + 0.01 * aux
+    h, aux, _, _ = _run_stack(params, x, cfg, mode="train", caches=caches,
+                              dist=dist)
+    if not dist.active:
+        h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+        return _unembed_chunked(params, h, labels, cfg) + 0.01 * aux
+    dev = _first_device(dist)
+    sums = [_ce_sums(params, rms_norm(hr, gather(params["final_ln"],
+                                                 hr.device), cfg.norm_eps),
+                     lr, cfg) for hr, lr in zip(h, split_rows(labels, dist))]
+    tot = sum(t.to(dev) for t, _ in sums)
+    cnt = sum(c.to(dev) for _, c in sums)
+    return tot / torch.clamp(cnt, min=1.0) + 0.01 * aux
 
 
-def prefill(params, tokens, cfg: ModelConfig, *, frames=None, patches=None,
-            q_offset: int = 0, window_override=None):
+def prefill(params, tokens, cfg: ModelConfig, dist: Dist = NO_DIST, *,
+            frames=None, patches=None, q_offset: int = 0,
+            window_override=None):
     """Full-sequence prefill of tokens (B, S). An encoder-decoder encodes
     ``frames`` (B, F, D) first and builds the cross-attention K/V; the
     patch frontend prepends ``patches`` (B, P, D) to the embedded tokens
     (the length counts them). Returns (last-position logits (B, V) fp32,
     Caches holding the exact-length KV, the final SSM state and the
-    encoder's K/V)."""
-    x = _embed(params, tokens, cfg)
+    encoder's K/V). On a mesh (``dist``) the data rows' logits and caches
+    are joined on the mesh's first device."""
+    x = _embed(params, tokens, cfg, dist)
     enc_kv = None
     if cfg.encoder_layers:
         if frames is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder model: "
                              f"prefill needs frames")
-        enc_kv = build_enc_kv(params, encode(params, frames, cfg), cfg)
+        enc_kv = _encoder_kv(params, frames, cfg, dist, train=False)
     elif cfg.frontend == "patch" and patches is not None:
-        x = torch.cat([patches.to(DTYPE), x], dim=1)
+        x = _prepend(x, patches, dist)
     h, _, kvs, ssm = _run_stack(params, x, cfg, mode="prefill",
                                 caches=Caches(kv=None, length=0,
                                               enc_kv=enc_kv),
                                 q_offset=q_offset,
-                                window_override=window_override)
-    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-    logits = _logits_at(params, h[:, -1:, :], cfg)[:, 0]
+                                window_override=window_override, dist=dist)
+    if dist.active:
+        dev = _first_device(dist)
+        logits = join_rows([_logits_at(params, rms_norm(
+            hr[:, -1:, :], gather(params["final_ln"], hr.device),
+            cfg.norm_eps), cfg)[:, 0] for hr in h], dev)
+        kvs = [_join_kv(kv, dev) for kv in kvs or []]
+        if enc_kv is not None:
+            enc_kv = KVCache(k=torch.cat([e.k.to(dev) for e in enc_kv], 1),
+                             v=torch.cat([e.v.to(dev) for e in enc_kv], 1))
+        n_new = h[0].shape[1]
+    else:
+        h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+        logits = _logits_at(params, h[:, -1:, :], cfg)[:, 0]
+        n_new = x.shape[1]
     kv = None if not kvs else KVCache(k=torch.stack([k for k, _ in kvs]),
                                       v=torch.stack([v for _, v in kvs]))
-    return logits, Caches(kv=kv, length=q_offset + x.shape[1], ssm=ssm,
+    return logits, Caches(kv=kv, length=q_offset + n_new, ssm=ssm,
                           enc_kv=enc_kv)
 
 

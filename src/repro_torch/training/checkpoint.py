@@ -11,6 +11,11 @@ leaf they restore into. The file is written under a temporary name in the
 same directory and renamed into place, so a crash never leaves a torn
 checkpoint (the reference's ``np.savez`` also leaves an empty ``.tmp``
 file behind; this writes through the open descriptor and leaves none).
+
+A sharded run (``launch.shardings.Sharded`` leaves) saves each leaf
+gathered whole, so its checkpoint is the same archive an unsharded run
+writes, and loads into either; a sharded leaf loaded is split again the
+way it was.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch.shardings import Sharded, gather
 from repro_torch.training.optim import OptState
 
 
@@ -44,7 +50,7 @@ def _paths(tree: Any, prefix: str):
 def _flatten(tree: Any, prefix: str) -> dict:
     flat = {}
     for key, leaf in _paths(tree, prefix):
-        t = leaf.detach()
+        t = gather(leaf, "cpu").detach()
         if t.dtype == torch.bfloat16:       # numpy has no bf16: store f32
             t = t.float()
         flat[key] = t.cpu().numpy()
@@ -55,8 +61,10 @@ def _unflatten(tree: Any, prefix: str, archive) -> Any:
     """``tree`` with every leaf replaced by its stored value, cast to the
     leaf's dtype and placed on its device."""
     def load(key, leaf):
-        return torch.from_numpy(np.asarray(archive[key])).to(
-            device=leaf.device, dtype=leaf.dtype)
+        full = torch.from_numpy(np.asarray(archive[key]))
+        if isinstance(leaf, Sharded):
+            return leaf.like(full)
+        return full.to(device=leaf.device, dtype=leaf.dtype)
 
     def walk(t, p):
         if isinstance(t, OptState):

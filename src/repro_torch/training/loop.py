@@ -1,10 +1,13 @@
 """Training loop: synthetic data pipeline → train step → checkpointing
-(the counterpart of the reference's ``training/loop.py``, on one device).
+(the counterpart of the reference's ``training/loop.py``), on one device
+or on a (data, model) mesh.
 
 Used by ``launch/train_e2e.py`` (a ~100M model for a few hundred steps)
 and ``launch/train.py``. Params come from ``init_params`` under an
-explicit ``torch.Generator(seed)`` on the training device, batches from
-``SyntheticLM``; every step's loss must be finite.
+explicit ``torch.Generator(seed)`` on the training device (a mesh's
+first device, then sharded by ``launch.shardings.shard_params``),
+batches from ``SyntheticLM`` (split over the mesh's data rows by
+``loss_fn``); every step's loss must be finite.
 """
 from __future__ import annotations
 
@@ -18,6 +21,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import SyntheticLM, batch_spec_for
+from repro_torch.launch.shardings import shard_params
+from repro_torch.models.layers import NO_DIST, Dist
 from repro_torch.models.transformer import init_params
 from repro_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from repro_torch.training.optim import make_optimizer
@@ -49,17 +54,23 @@ def batch_to(np_batch: dict, device) -> dict:
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
           seed: int = 0, checkpoint_dir: Optional[str] = None,
           checkpoint_every: int = 0, log_every: int = 10,
-          resume: bool = False, device="cuda") -> TrainResult:
+          resume: bool = False, device="cuda",
+          dist: Dist = NO_DIST) -> TrainResult:
     """Train ``cfg`` from ``init_params`` (seed ``seed``) for ``steps``
     steps of ``batch`` × ``seq`` tokens; with ``resume``, from the latest
     checkpoint of ``checkpoint_dir`` (params, optimizer state and step).
-    Saves a checkpoint every ``checkpoint_every`` steps."""
+    Saves a checkpoint every ``checkpoint_every`` steps. ``dist``: train
+    on its mesh, the weights drawn on the mesh's first device (which
+    stands in for ``device``) and sharded; params and optimizer state
+    stay sharded in the result, and checkpoints hold whole leaves."""
     from repro_torch.launch.steps import make_train_step
 
-    device = resolve_device(device)
+    device = dist.grid()[0, 0] if dist.active else resolve_device(device)
     opt_init, _ = make_optimizer(cfg.optimizer)
     gen = torch.Generator(device=device).manual_seed(seed)
     params = init_params(cfg, gen, device)
+    if dist.active:
+        params = shard_params(cfg, params, dist.mesh)
     opt_state = opt_init(params)
     start_step = 0
     if resume and checkpoint_dir:
@@ -67,7 +78,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq: int,
         if loaded is not None:
             params, opt_state, start_step = loaded
 
-    step_fn = make_train_step(cfg)
+    step_fn = make_train_step(cfg, dist)
     pipe = SyntheticLM(batch_spec_for(cfg, batch, seq), seed=seed)
 
     res = TrainResult()

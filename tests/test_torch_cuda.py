@@ -880,3 +880,74 @@ def test_kernel_ops_refuse_autograd_on_the_card(cuda):
     with torch.no_grad():
         flash_prefill_attention(q, k, v)
     assert flash_prefill.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,grouped", [("smollm-360m", False),
+                                          ("llama2-70b", True),
+                                          ("qwen3-moe-235b-a22b", False)])
+def test_sharded_prefill_on_the_card(cuda, name, grouped):
+    """``make_prefill_step`` on a (2, 2) mesh of the card: one
+    chunked-prefill launch per (position, layer), each on its position's
+    stripe of the query heads under a local map, and the logits within
+    4 bf16 ulps of the largest of the plain path's on the same mesh,
+    under the plain run's MoE routing (KV within 2e-2 of its scale)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.layers import (Dist, plain_attention,
+                                           record_routing, replay_routing)
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(name).reduced()
+    if grouped:         # 16 query heads over 4 KV: each stripe grouped
+        cfg = dataclasses.replace(cfg, n_heads=16, n_kv_heads=4)
+    mesh = _card_mesh(cuda, (2, 2), ("data", "model"))
+    params = shard_params(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0), cuda), mesh)
+    toks = torch.randint(0, cfg.vocab_size, (2, 256),
+                         generator=torch.Generator().manual_seed(1)).to(cuda)
+    step = make_prefill_step(cfg, Dist(mesh=mesh, batch_axes=("data",)))
+    with plain_attention(), record_routing() as routes:
+        lp, cp = step(params, toks, {})
+    before = flash_prefill.launches
+    with replay_routing(routes):        # the MoE layers routed alike
+        lk, ck = step(params, toks, {})
+    torch.cuda.synchronize()
+    assert flash_prefill.launches - before == 4 * cfg.n_layers
+    scale = lp.abs().max().item()
+    assert torch.isfinite(lk).all()
+    assert (lk - lp).abs().max().item() \
+        <= 4 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+    for got, ref in ((ck.kv.k, cp.kv.k), (ck.kv.v, cp.kv.v)):
+        assert (got.float() - ref.float()).abs().max().item() \
+            <= TOL * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_launches_no_kernel(cuda):
+    """A sharded train step on a (2, 2) mesh of the card: no kernel
+    launched, the loss finite and within 2e-2 of the unsharded step's."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, batch_spec_for
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.layers import Dist
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training import make_optimizer
+    from repro_torch.training.loop import batch_to
+    cfg = get_config("qwen3-moe-235b-a22b").reduced()
+    mesh = _card_mesh(cuda, (2, 2), ("data", "model"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    sharded = shard_params(cfg, params, mesh)
+    batch = batch_to(SyntheticLM(batch_spec_for(cfg, 2, 128)).batch(0), cuda)
+    init, _ = make_optimizer(cfg.optimizer)
+    before = _launch_counts()
+    loss, _, _ = make_train_step(cfg, Dist(mesh=mesh, batch_axes=("data",)))(
+        sharded, init(sharded), batch)
+    loss0, _, _ = make_train_step(cfg)(params, init(params), batch)
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    assert torch.isfinite(loss)
+    assert abs(float(loss) - float(loss0)) <= 2e-2 * abs(float(loss0))
