@@ -170,7 +170,27 @@ Phases, each printed as it runs; any failure exits non-zero:
      against 10 unsharded (step 1's loss and gradients, tok/s, peak);
      (d) qwen3-moe at full width, 1 of 94 layers, Adafactor, 3 steps of
      2 x 4096, the expert-parallel dispatch on every MoE call; no kernel
-     launched in (c) or (d).
+     launched in (c) or (d); (c) and (d) run the vocab-parallel
+     embedding and cross-entropy (each position's stripe of the
+     vocabulary).
+ 18. the context-parallel serve step and the tensor-parallel Mamba2
+     mixer, every position of a mesh on the card: (a) ``decode_32k``'s
+     sequence — llama2-70b at full width, 8 of 80 layers, batch 8 (cut
+     from 128), caches of 32,768 slots at length 32,640 (random K/V) —
+     ``make_serve_step`` on (1, 4) (8,192-slot stripes) and (2, 2), 16
+     greedy steps fed the unsharded stream, against the unsharded
+     ``decode_step``: logits within ``serve_ulps`` (4 bf16 ulps at 8
+     layers, scaled with depth), argmax equal wherever the gap allows,
+     step walls, peak memory; (c) ``make_prefill_step`` of mamba2-2.7b at
+     full width and depth over 2 x 4096 tokens on (2, 2): 256
+     ``ssd_scan`` launches on 40 of 80 heads, every layer's mixer held on
+     the unsharded run's input to it (y within 2 ulps, states within a
+     bf16 ulp), the free run's distance reported beside the unsharded
+     stack's kernel-vs-plain one, ``ssd_scan`` at h = 40 timed; (b)
+     ``long_500k`` on (2, 2), batch 1, the sequence over all four
+     positions: smollm-360m at full width and depth over the wrapped
+     8,192-slot ring at length 524,000, and mamba2-2.7b from (c)'s state
+     (each decode mixer held per layer), 16 steps each.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -3012,6 +3032,407 @@ def e2e_sharded_training(torch, timer, device="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the context-parallel serve step and the tensor-parallel mixer
+# ---------------------------------------------------------------------------
+
+def random_caches(torch, cfg, shape, length, device="cuda", seed=0):
+    """``init_caches`` of a decode at ``shape`` (its serving window) with
+    every KV slot and Mamba2 state drawn from ``seed`` (bf16 N(0, 1) K/V
+    layer by layer, so no fp32 copy of a cache exists): the state
+    decoded over, not a result."""
+    from repro_torch.launch.steps import serve_window
+    from repro_torch.models.transformer import init_caches
+    c = init_caches(cfg, shape.batch, shape.seq,
+                    window=serve_window(cfg, shape), device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for t in (c.kv or ()):
+        for l in range(t.shape[0]):
+            t[l] = torch.randn(t.shape[1:], generator=gen, device=device,
+                               dtype=torch.bfloat16)
+    return c._replace(length=length)
+
+
+def serve_ulps(cfg) -> float:
+    """The serve steps' logits bound: phase 5's 4 bf16 ulps at
+    llama2-70b's 8-layer cut, scaled with depth beyond it — each layer
+    adds row-parallel sums (attention's ``wo``, the MLP's ``w2``, the
+    mixer's ``out_proj``: bf16 partials summed in fp32 and rounded once,
+    a rounding the unsharded GEMM does not make), and the residual
+    stream carries every one of them to the logits."""
+    return 4.0 * max(1.0, cfg.n_layers / 8)
+
+
+def hold_serve(torch, what, lm, lw, bound_ulps=4) -> tuple:
+    """One step of a mesh's serve step against the unsharded step on the
+    same inputs: the logits within ``bound_ulps`` bf16 ulps of the
+    largest, the argmax equal wherever the unsharded top-2 gap leaves
+    room for it (more than twice the error). Returns (error in ulps,
+    rows too close to call)."""
+    scale = lw.abs().max().item()
+    ulp = bf16_ulps(1, scale)
+    err = (lm - lw).abs().max().item()
+    top2 = lw.float().topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > 2 * err
+    same = bool(torch.equal(lm.argmax(-1)[decisive], lw.argmax(-1)[decisive]))
+    if not bool(torch.isfinite(lm).all()) or err > bound_ulps * ulp \
+            or not same:
+        raise AssertionError(f"{what}: the mesh's serve step disagrees with "
+                             f"the unsharded step ({err / ulp:.2f} ulps, "
+                             f"streams equal where decided: {same})")
+    return err / ulp, int((~decisive).sum())
+
+
+def serve_mesh_run(torch, cfg, params, caches, shape, meshes, tokens,
+                   steps, device="cuda") -> dict:
+    """The unsharded ``decode_step`` (through ``make_serve_step`` without
+    a mesh) for ``steps`` greedy steps, then ``make_serve_step`` on each
+    of ``meshes`` from the same caches (``shard_caches`` copies), fed the
+    unsharded stream, every step held by ``hold_serve``. Step walls are
+    synchronised host times; the peak is ``max_memory_allocated`` over
+    the mesh run (the unsharded weights and caches included)."""
+    from repro_torch.launch.shardings import shard_caches, shard_params
+    from repro_torch.launch.steps import (cache_specs, make_dist,
+                                          make_serve_step)
+    from repro_torch.models.layers import NO_DIST
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    length = caches.length
+    whole = make_serve_step(cfg, NO_DIST, shape)
+    stream, logits, walls = [tokens], [], []
+    # the slots the unsharded run writes, kept to be put back for the
+    # meshes: a wrapped ring's hold live positions
+    saved = None
+    if caches.kv is not None:
+        S = caches.kv.k.shape[2]
+        slots = torch.tensor([(length + t) % S for t in range(steps)],
+                             device=caches.kv.k.device)
+        saved = [t[:, :, slots].clone() for t in caches.kv]
+    c = caches
+    for _ in range(steps):
+        sync()
+        t0 = time.monotonic()
+        lw, c = whole(params, stream[-1], c)
+        sync()
+        walls.append(time.monotonic() - t0)
+        logits.append(lw)
+        stream.append(lw[:, -1:].argmax(-1).to(torch.int32))
+    out = {"whole_ms": 1e3 * sum(walls[1:]) / max(len(walls) - 1, 1)}
+    if saved is not None:
+        for t, kept in zip(caches.kv, saved):
+            t[:, :, slots] = kept
+    for dm in meshes:
+        mesh = card_mesh(torch, dm, ("data", "model"), device)
+        dist = make_dist(mesh, shape)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        sp = shard_params(cfg, params, mesh)
+        sc = shard_caches(cfg, caches._replace(length=length),
+                          cache_specs(cfg, shape, dist), mesh)
+        step = make_serve_step(cfg, dist, shape)
+        errs, ties, walls = [], 0, []
+        for t in range(steps):
+            sync()
+            t0 = time.monotonic()
+            lm, sc = step(sp, stream[t], sc)
+            sync()
+            walls.append(time.monotonic() - t0)
+            e, n = hold_serve(torch, f"{cfg.name} {dm}", lm, logits[t],
+                              serve_ulps(cfg))
+            errs.append(e)
+            ties += n
+        peak = torch.cuda.max_memory_allocated() / 1e9 \
+            if device == "cuda" else float("nan")
+        out[f"{dm[0]}x{dm[1]}"] = dict(
+            ms=1e3 * sum(walls[1:]) / max(len(walls) - 1, 1),
+            worst_ulps=max(errs), near_ties=ties, peak_gb=peak,
+            stripes=len(sc.kv.k.shards) if sc.kv is not None else 0)
+        del sp, sc
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_decode_32k(torch, device="cuda", seq=32768, length=32640,
+                     steps=16) -> dict:
+    """(a): ``decode_32k``'s sequence, llama2-70b at full width, 8 of 80
+    layers (phase 14's cut), batch 8 (cut from 128): caches of ``seq``
+    slots at ``length`` (random K/V from seed 0), 16 greedy steps on a
+    (1, 4) mesh (8,192-slot stripes) and a (2, 2) one against the
+    unsharded ``decode_step``."""
+    import dataclasses
+
+    from repro_torch.launch.steps import INPUT_SHAPES
+    cfg, params = llama_cut(torch, device)
+    shape = dataclasses.replace(INPUT_SHAPES["decode_32k"], batch=8, seq=seq)
+    caches = random_caches(torch, cfg, shape, length, device)
+    gen = torch.Generator(device=device).manual_seed(18)
+    tok = torch.randint(0, cfg.vocab_size, (8, 1), generator=gen,
+                        device=device).to(torch.int32)
+    out = serve_mesh_run(torch, cfg, params, caches, shape,
+                         [(1, 4), (2, 2)], tok, steps, device)
+    kv_gb = 2 * caches.kv.k.numel() * 2 / 1e9
+    log(f"(a) {cfg.name} ({cfg.n_layers} layers), decode_32k's sequence: "
+        f"batch 8 (cut from 128), {seq}-slot caches at length {length} "
+        f"({kv_gb:.2f} GB of K/V), {steps} greedy steps teacher-forced on "
+        f"the unsharded stream: unsharded {out['whole_ms']:.2f} ms a step; "
+        + "; ".join(f"{k}: {v['stripes']} stripes, {v['ms']:.2f} ms a step, "
+                    f"worst {v['worst_ulps']:.2f} ulps (tol "
+                    f"{serve_ulps(cfg):g}), "
+                    f"{v['near_ties']} near-tie rows, peak "
+                    f"{v['peak_gb']:.2f} GB" for k, v in out.items()
+                    if isinstance(v, dict)))
+    del params, caches
+    return out
+
+
+def serve_long_500k(torch, device="cuda", steps=16, mamba_state=None,
+                    length=524000) -> dict:
+    """(b): ``long_500k``, batch 1, so the KV sequence stripes over all
+    four positions of (2, 2): smollm-360m at full width and depth over
+    the 8,192-slot ring (``SERVE_WINDOW``) at ``length`` (wrapped), and
+    mamba2-2.7b from (c)'s prefill state (row 0) on the tensor-parallel
+    mixers; each 16 steps against the unsharded step."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import INPUT_SHAPES, SERVE_WINDOW
+    shape = INPUT_SHAPES["long_500k"]
+    cfg = get_config("smollm-360m")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    params = draw_params(torch, cfg, device)
+    caches = random_caches(torch, cfg, shape, length, device, seed=1)
+    tok = torch.zeros((1, 1), dtype=torch.int32, device=device)
+    out = {"smollm": serve_mesh_run(torch, cfg, params, caches, shape,
+                                    [(2, 2)], tok, steps, device)}
+    r = out["smollm"]["2x2"]
+    log(f"(b) {cfg.name} long_500k: a {caches.kv.k.shape[2]}-slot ring "
+        f"(SERVE_WINDOW {SERVE_WINDOW}) at length {length}, batch 1 over "
+        f"{r['stripes']} stripes (data-major over the 2x2 mesh): unsharded "
+        f"{out['smollm']['whole_ms']:.2f} ms a step, 2x2 {r['ms']:.2f} ms, "
+        f"worst {r['worst_ulps']:.2f} ulps (tol {serve_ulps(cfg):g}), "
+        f"{r['near_ties']} "
+        f"near-tie rows")
+    del params, caches
+    if mamba_state is not None:
+        mcfg, mparams, state, first = mamba_state
+        caches = state._replace(ssm=type(state.ssm)(
+            *(t[:, :1].contiguous() for t in state.ssm)))
+        layer = decode_layers_mamba(torch, mcfg, mparams, caches, first[:1],
+                                    device)
+        out["mamba"] = serve_mesh_run(torch, mcfg, mparams, caches, shape,
+                                      [(2, 2)], first[:1], steps, device)
+        r = out["mamba"]["2x2"]
+        log(f"(b) {mcfg.name} long_500k from (c)'s prefill state (row 0, "
+            f"length {caches.length}), heads over the 2x2 mesh's model "
+            f"axis: unsharded {out['mamba']['whole_ms']:.2f} ms a step, "
+            f"2x2 {r['ms']:.2f} ms, worst {r['worst_ulps']:.2f} ulps (tol "
+            f"{serve_ulps(mcfg):g}), {r['near_ties']} near-tie rows; each "
+            f"layer's decode mixer on the unsharded step's input and state: "
+            f"y {layer['y']:.2f} ulps (tol 2), conv state "
+            f"{layer['conv']:.2f} ulps (tol 1), SSM state "
+            f"{layer['ssm']:.3e} (tol 4e-3)")
+        out["mamba"]["layer"] = layer
+    return out
+
+
+def layer_errors(torch, cfg, sp, dist, calls, states=None,
+                 device="cuda") -> dict:
+    """Each recorded unsharded mixer call (input, output, new state) run
+    again by the tensor-parallel mixer on the same input (and, for a
+    decode, the same incoming state of that layer): the worst output
+    error in bf16 ulps of its max-abs, conv state in ulps, SSM state
+    relative to its scale."""
+    from repro_torch.launch.shardings import gather
+    from repro_torch.models.mamba import mamba_block
+    worst = dict(y=0.0, conv=0.0, ssm=0.0)
+    with torch.no_grad():
+        for l, (x, y0, st0) in enumerate(calls):
+            st = None if states is None else type(states)(
+                *(t[l] for t in states))
+            y1, st1 = mamba_block(x, {k: v[l] for k, v in sp["mamba"].items()},
+                                  cfg, dist, state=st, return_state=True)
+            worst["y"] = max(worst["y"], (y1.float() - y0.float()).abs().max()
+                             .item() / bf16_ulps(1, y0.float().abs().max()
+                                                 .item()))
+            worst["conv"] = max(worst["conv"], (
+                gather(st1.conv, device).float() - st0.conv.float()).abs()
+                .max().item() / bf16_ulps(1, st0.conv.float().abs().max()
+                                          .item()))
+            worst["ssm"] = max(worst["ssm"], (
+                gather(st1.ssm, device) - st0.ssm).abs().max().item()
+                / st0.ssm.abs().max().item())
+    return worst
+
+
+def decode_layers_mamba(torch, cfg, params, caches, tok, device) -> dict:
+    """(b)'s per-layer hold: one unsharded serve step from ``caches``
+    recorded, then each layer's tensor-parallel decode mixer on the
+    (2, 2) mesh from the same input and state; raises past 2 ulps (y),
+    1 ulp (conv state) or 4e-3 (SSM state)."""
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.steps import INPUT_SHAPES, make_dist
+    from repro_torch.models.transformer import decode_step
+    dist = make_dist(mesh_dist(torch, device).mesh, INPUT_SHAPES["long_500k"])
+    sp = shard_params(cfg, params, dist.mesh)
+    with torch.no_grad(), MixerCalls() as whole:
+        decode_step(params, tok, caches, cfg)
+    worst = layer_errors(torch, cfg, sp, dist, whole.calls, caches.ssm,
+                         device)
+    if worst["y"] > 2 or worst["conv"] > 1 or worst["ssm"] > 4e-3:
+        raise AssertionError(f"(b) {cfg.name}: a tensor-parallel decode "
+                             f"mixer disagrees with the unsharded one: "
+                             f"{worst}")
+    return worst
+
+
+class MixerCalls:
+    """Records every unsharded ``mamba_block`` call's input, output and
+    new state while entered (the per-layer hold of phase 18 (c)) and the
+    head count of every SSD-scan call."""
+
+    def __init__(self):
+        self.calls, self.heads = [], []
+
+    def __enter__(self):
+        from repro_torch.models import mamba as MB
+        from repro_torch.models import transformer as TR
+        self.block, self.op = TR.mamba_block, MB.ssd_scan_op
+
+        def block(x, p, cfg, dist=None, **kw):
+            out = self.block(x, p, cfg, dist, **kw) if dist is not None \
+                else self.block(x, p, cfg, **kw)
+            if dist is None or not dist.active:
+                self.calls.append((x, out[0], out[1]))
+            return out
+
+        def op(xh, *a, **k):
+            self.heads.append(xh.shape[2])
+            return self.op(xh, *a, **k)
+        TR.mamba_block, MB.ssd_scan_op = block, op
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import mamba as MB
+        from repro_torch.models import transformer as TR
+        TR.mamba_block, MB.ssd_scan_op = self.block, self.op
+
+
+def prefill_mesh_mamba(torch, timer, device="cuda", seq=4096) -> dict:
+    """(c): ``make_prefill_step`` of mamba2-2.7b at full width and depth
+    over 2 x ``seq`` tokens on (2, 2): one ``ssd_scan`` launch per (row,
+    position, layer), each on nh / 2 heads. Held layer by layer: each
+    layer's tensor-parallel mixer, fed the unsharded prefill's input to
+    that layer, gives its output within 2 bf16 ulps of the unsharded
+    mixer's max-abs, its conv state within 1 ulp and its SSM state within
+    4e-3 (a bf16 ulp) of their scale. The free run's logits and final
+    states are reported beside the unsharded stack's own kernel-vs-plain
+    distance (64 mixers amplify a per-layer ulp: neither meets 4 ulps and
+    2e-2 at this depth), held finite with equal argmax wherever the top-2
+    gap exceeds twice the measured error. Then ``ssd_scan`` at the
+    stripe's shape timed beside its plain version (phase 6's check)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.layers import plain_attention
+    from repro_torch.models.transformer import prefill
+    cfg = get_config("mamba2-2.7b")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    params = draw_params(torch, cfg, device)
+    dist = mesh_dist(torch, device)
+    sp = shard_params(cfg, params, dist.mesh)
+    gen = torch.Generator(device=device).manual_seed(181)
+    toks = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen,
+                         device=device)
+    step = make_prefill_step(cfg, dist)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    step(sp, toks[:, :512], {})                          # warm-up
+    sync()
+    zero_kernel_counts()
+    with MixerCalls() as mesh_calls:
+        t0 = time.monotonic()
+        lk, ck = step(sp, toks, {})
+        sync()
+        t_mesh = time.monotonic() - t0
+    launches = kernel_counts()["ssd_scan"]
+    heads = mesh_calls.heads
+    with torch.no_grad(), MixerCalls() as whole:
+        t0 = time.monotonic()
+        lu, cu = prefill(params, toks, cfg)
+        sync()
+        t_whole = time.monotonic() - t0
+    with torch.no_grad(), plain_attention():
+        lp, cp = prefill(params, toks, cfg)
+    nh = cfg.ssm.n_heads(cfg.d_model)
+    want = 4 * cfg.n_layers
+
+    def rel(a, b):
+        return (a.float() - b.float()).abs().max().item() \
+            / b.float().abs().max().item()
+    # each layer on the unsharded run's own input to it
+    worst = layer_errors(torch, cfg, sp, dist, whole.calls, device=device)
+    del whole
+    scale = lu.abs().max().item()
+    ulp = bf16_ulps(1, scale)
+    err = (lk - lu).abs().max().item()
+    top2 = lu.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > 2 * err
+    same = bool(torch.equal(lk.argmax(-1)[decisive], lu.argmax(-1)[decisive]))
+    st_err = max(rel(a, b) for a, b in zip(ck.ssm, cu.ssm))
+    own = (lu - lp).abs().max().item() / ulp
+    own_st = max(rel(a, b) for a, b in zip(cu.ssm, cp.ssm))
+    log(f"(c) {cfg.name} ({cfg.n_layers} layers) make_prefill_step on 2x2, "
+        f"2 x {seq} tokens: ssd_scan launches {launches} (expected {want} "
+        f"= 2 rows x 2 positions x {cfg.n_layers} layers), heads per call "
+        f"{sorted(set(heads))} of {nh}; each layer on the unsharded "
+        f"input: y {worst['y']:.2f} ulps (tol 2), conv state "
+        f"{worst['conv']:.2f} ulps (tol 1), SSM state {worst['ssm']:.3e} "
+        f"of its scale (tol 4e-3); the free run: logits {err / ulp:.2f} "
+        f"ulps (max |logit| {scale:.3f}), final states {st_err:.3e} of "
+        f"their scale, argmax equal on {int(decisive.sum())} of "
+        f"{decisive.numel()} rows decided ({same}) — the unsharded stack's "
+        f"own kernel vs plain: {own:.2f} ulps, states {own_st:.3e}; "
+        f"{t_mesh * 1e3:.1f} ms on the mesh vs {t_whole * 1e3:.1f} ms "
+        f"unsharded (synchronised wall)")
+    if (device == "cuda" and launches != want) or len(heads) != want \
+            or set(heads) != {nh // 2}:
+        raise AssertionError(f"(c): {launches} launches on {set(heads)} "
+                             f"heads")
+    if worst["y"] > 2 or worst["conv"] > 1 or worst["ssm"] > 4e-3 \
+            or not bool(torch.isfinite(lk).all()) or not same:
+        raise AssertionError("(c): the tensor-parallel mixers disagree "
+                             "with the unsharded ones")
+    kernel = None
+    if timer is not None:
+        kernel = check_ssd(torch, timer, "tp-stripe", b=1, s=seq,
+                           h=nh // 2, p=cfg.ssm.head_dim, n=cfg.ssm.d_state,
+                           chunk=cfg.ssm.chunk, seed=18, main=True)
+    del sp
+    return dict(launches=launches, layer=worst, err_ulps=err / ulp,
+                state_err=st_err, own_ulps=own, own_state=own_st,
+                mesh_ms=t_mesh * 1e3, whole_ms=t_whole * 1e3, kernel=kernel,
+                mamba_state=(cfg, params, cu, lu.argmax(-1)[:, None].to(
+                    torch.int32)))
+
+
+def e2e_serve_mesh(torch, timer, device="cuda", seq=32768,
+                   length=32640) -> dict:
+    """Phase 18: (a) decode_32k's sequence, (c) the tensor-parallel
+    mixer, (b) long_500k — every position on ``device``."""
+    t0 = time.monotonic()
+    out = {"a": serve_decode_32k(torch, device, seq=seq, length=length)}
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    out["c"] = prefill_mesh_mamba(torch, timer, device)
+    gc.collect()
+    out["b"] = serve_long_500k(torch, device,
+                               mamba_state=out["c"].pop("mamba_state"))
+    out["launches"] = out["c"]["launches"]
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3185,8 +3606,21 @@ def main() -> int:
     t17 = e2e_sharded_training(torch, timer)
     log(f"phase 17 launches: flash_prefill {t17['llama']['launches']} "
         f"(llama2-70b) + {t17['qwen3']['launches']} (qwen3-moe) in the "
-        f"sharded prefill steps; none in training; phase 17 took "
-        f"{t17['seconds']:.1f} s")
+        f"sharded prefill steps; none in training, whose loss (c), (d) "
+        f"is the vocab-parallel cross-entropy over each row's model "
+        f"positions; phase 17 took {t17['seconds']:.1f} s")
+
+    phase("18 the context-parallel serve step and the tensor-parallel "
+          "Mamba2 mixer: (1, 4) and (2, 2) meshes on the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t18 = e2e_serve_mesh(torch, timer)
+    k18 = t18["c"]["kernel"]
+    log(f"phase 18 launches: ssd_scan {t18['launches']} in mamba2-2.7b's "
+        f"sharded prefill step (h = 40 a launch: {k18['ms']:.4f} ms, plain "
+        f"{k18['plain_ms']:.4f} ms, bound {k18['bound_ms']:.5f} ms); none "
+        f"in the serve steps (plain per-stripe attention, ssd_decode); "
+        f"phase 18 took {t18['seconds']:.1f} s")
 
     kernels = [
         dict(name="paged_attention", route="cuda",
@@ -3204,7 +3638,7 @@ def main() -> int:
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:79",
-             launches=ssd_launches, **ssd),
+             launches=ssd_launches + t18["launches"], **ssd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -98,7 +98,7 @@ class MoEConfig:
     capacity_factor: float = 1.25
     # 'ep': experts sharded over the model axis (requires n_experts % 16 == 0)
     # 'tp': expert hidden dim sharded over the model axis (few-expert models)
-    # (read by the sharded MoE paths, not ported yet; kept for parity)
+    # (read by the sharded MoE dispatch, models/layers.py _moe_mesh)
     parallelism: str = "ep"
     # apply MoE every k-th layer (1 = all layers); others use dense MLP
     every: int = 1

@@ -14,13 +14,20 @@ slices its spec names, each slice on the device of its mesh position (the
 position whose spec'd axes take the slice's index, the other axes 0), in
 a ``Sharded`` leaf. A consumer takes what it needs with ``gather``: the
 full leaf, or the full leaf's slice along 'model' — a ``torch.cat`` of
-shards moved to the consumer's device (the FSDP all-gather). Autograd
-through those copies sends each shard its part of the gradient, summed
-over every consumer (the reduce-scatter), with no code of its own.
+shards moved to the consumer's device (the FSDP all-gather) — or with
+``take`` any slice of the full leaf, from the shards that hold it.
+Autograd through those copies sends each shard its part of the gradient,
+summed over every consumer (the reduce-scatter), with no code of its
+own.
+
+Decode caches are placed the same way by ``shard_caches``, from
+``launch.steps.cache_specs``: a spec entry there may name several axes
+(a ``long_500k`` sequence over ('data', 'model')), the first major.
 """
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Any
 
 import numpy as np
@@ -172,14 +179,28 @@ def param_shapes(cfg: ModelConfig) -> dict:
 # sharded leaves
 # ---------------------------------------------------------------------------
 
+def _axes(entry) -> tuple:
+    """The mesh axes of one spec entry: None, a name or a tuple of names."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, tuple) else (entry,)
+
+
+def axis_size(mesh, entry) -> int:
+    """How many blocks a dimension with spec ``entry`` splits into."""
+    return math.prod(mesh.shape[a] for a in _axes(entry))
+
+
 class Sharded:
     """One leaf stored once over a mesh: the slices its spec names.
 
-    ``spec`` has one mesh axis name or None per dimension of the full
-    ``shape``; ``shards`` maps a key — one index per sharded dimension,
-    in dimension order — to that slice, on the device of its position.
-    Indexing (``leaf[l]``) takes one entry of an unsharded leading axis
-    (a layer of a stack) off every shard."""
+    ``spec`` has one entry per dimension of the full ``shape``: None, a
+    mesh axis name, or a tuple of names (the dimension split over their
+    product, the first axis major — XLA's layout of ``P(("data",
+    "model"))``); ``shards`` maps a key — one block index per sharded
+    dimension, in dimension order — to that slice, on the device of its
+    position. Indexing (``leaf[l]``) takes one entry of an unsharded
+    leading axis (a layer of a stack) off every shard, as views."""
 
     __slots__ = ("mesh", "spec", "shape", "shards")
 
@@ -196,10 +217,10 @@ class Sharded:
         slices into the full shape) for its position's device."""
         leaf = cls(mesh, spec, shape, {})
         for dim, a in zip(leaf.shape, leaf.spec):
-            if a is not None and dim % mesh.shape[a]:
+            if dim % axis_size(mesh, a):
                 raise ValueError(f"a {leaf.shape} leaf does not split evenly "
                                  f"over {leaf.spec} on {mesh.shape}")
-        for key in itertools.product(*(range(mesh.shape[leaf.spec[i]])
+        for key in itertools.product(*(range(axis_size(mesh, leaf.spec[i]))
                                        for i in leaf.dims())):
             leaf.shards[key] = make(leaf.index(key), position_device(
                 mesh, leaf.coords(key)))
@@ -222,17 +243,23 @@ class Sharded:
 
     def coords(self, key) -> dict:
         """{mesh axis: index} of a key."""
-        return {self.spec[i]: k for i, k in zip(self.dims(), key)}
+        out = {}
+        for i, k in zip(self.dims(), key):
+            for a in reversed(_axes(self.spec[i])):
+                out[a] = k % self.mesh.shape[a]
+                k //= self.mesh.shape[a]
+        return out
 
     def part(self, coords: dict, device) -> torch.Tensor:
         """This leaf's slice at the mesh position ``coords`` (axes this
         leaf is not sharded over are ignored), moved to ``device``."""
-        key = tuple(coords[self.spec[i]] for i in self.dims())
-        return self.shards[key].to(device)
-
-    def model_dim(self, model_axis: str = "model"):
-        return self.spec.index(model_axis) if model_axis in self.spec \
-            else None
+        key = []
+        for i in self.dims():
+            k = 0
+            for a in _axes(self.spec[i]):
+                k = k * self.mesh.shape[a] + coords[a]
+            key.append(k)
+        return self.shards[tuple(key)].to(device)
 
     def __getitem__(self, i: int) -> "Sharded":
         if self.spec[0] is not None:
@@ -240,6 +267,18 @@ class Sharded:
                              f"({self.spec})")
         return Sharded(self.mesh, self.spec[1:], self.shape[1:],
                        {k: t[i] for k, t in self.shards.items()})
+
+    def block(self, dim: int, i: int) -> "Sharded":
+        """Block ``i`` of sharded dimension ``dim`` (a data row's part of
+        a batch-sharded leaf): the shards that hold it, that dimension
+        no longer sharded."""
+        j = self.dims().index(dim)
+        shape = list(self.shape)
+        shape[dim] //= axis_size(self.mesh, self.spec[dim])
+        spec = self.spec[:dim] + (None,) + self.spec[dim + 1:]
+        return Sharded(self.mesh, spec, shape,
+                       {k[:j] + k[j + 1:]: t for k, t in self.shards.items()
+                        if k[j] == i})
 
     def map(self, fn, *others: "Sharded"):
         """``fn`` over the aligned shards of this leaf and ``others`` (same
@@ -265,7 +304,7 @@ class Sharded:
         """The slices of the full leaf that shard ``key`` holds."""
         index = [slice(None)] * self.ndim
         for i, k in zip(self.dims(), key):
-            w = self.shape[i] // self.mesh.shape[self.spec[i]]
+            w = self.shape[i] // axis_size(self.mesh, self.spec[i])
             index[i] = slice(k * w, (k + 1) * w)
         return tuple(index)
 
@@ -326,6 +365,74 @@ def gather(leaf, device, model=None, model_axis: str = "model"):
                  for g in sorted({k[i] for k in keys})]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dims[i])
     return assemble(keys, 0)
+
+
+def take(leaf, device, index: tuple) -> torch.Tensor:
+    """``leaf``'s full-leaf slice ``index`` (a tuple of step-1 slices, one
+    per leading dimension) on ``device``, copied only from the shards
+    that hold part of it — a column range of a weight gathered over
+    'data' from the 'model' stripes it crosses, a data row of a
+    batch-sharded state. A plain tensor is sliced."""
+    if not isinstance(leaf, Sharded):
+        return leaf[index].to(device)
+    want = []
+    for d, n in enumerate(leaf.shape):
+        lo, hi, _ = (index[d] if d < len(index)
+                     else slice(None)).indices(n)
+        want.append((lo, hi))
+    dims = leaf.dims()
+    widths = [leaf.shape[d] // axis_size(leaf.mesh, leaf.spec[d])
+              for d in dims]
+    blocks = [[g for g in range(axis_size(leaf.mesh, leaf.spec[d]))
+               if g * w < want[d][1] and (g + 1) * w > want[d][0]]
+              for d, w in zip(dims, widths)]
+
+    def assemble(key, i):
+        if i == len(dims):
+            local = list(want)
+            for d, g, w in zip(dims, key, widths):
+                local[d] = (max(want[d][0] - g * w, 0),
+                            min(want[d][1] - g * w, w))
+            t = leaf.shards[tuple(key)]
+            return t[tuple(slice(lo, hi) for lo, hi in local)].to(device)
+        parts = [assemble(key + [g], i + 1) for g in blocks[i]]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dims[i])
+    return assemble([], 0)
+
+
+def stack_sharded(leaves: list) -> "Sharded":
+    """Leaves of one spec and shape → one leaf with a new unsharded
+    leading axis, each shard the stack of the leaves' shards."""
+    first = leaves[0]
+    return Sharded(first.mesh, (None,) + first.spec,
+                   (len(leaves),) + first.shape,
+                   {k: torch.stack([x.shards[k] for x in leaves])
+                    for k in first.shards})
+
+
+def shard_caches(cfg: ModelConfig, caches, specs, mesh):
+    """``caches`` (a ``models.transformer.Caches`` of whole tensors)
+    stored once over ``mesh`` by ``specs`` (``launch.steps.cache_specs``):
+    every KV, Mamba2-state and encoder K/V leaf a ``Sharded`` leaf of
+    copies, the length as it is. A KV sequence striped over 'model'
+    gives position j the contiguous slots [j·S/M, (j+1)·S/M); over
+    ('data', 'model') the stripe index is data-major. Raises
+    ``ValueError`` when a dimension does not split evenly."""
+    def place(t, spec):
+        if t is None:
+            return None
+        if spec is None:
+            raise ValueError(f"{cfg.name}: a cache leaf without a spec")
+        return Sharded.build(mesh, spec, t.shape,
+                             lambda index, dev: t[index].to(dev, copy=True))
+
+    def group(g, sg):
+        if g is None:
+            return None
+        return type(g)(*(place(t, s) for t, s in zip(g, sg)))
+    return caches._replace(kv=group(caches.kv, specs.kv),
+                           ssm=group(caches.ssm, specs.ssm),
+                           enc_kv=group(caches.enc_kv, specs.enc_kv))
 
 
 def gather_tree(tree, device):

@@ -1,14 +1,24 @@
 """Step functions of the port: the counterpart of the reference's
-``repro/launch/steps.py`` for training and prefill, on one device or on a
-(data, model) mesh (``Dist``): the input shapes of the reference's
-(architecture × shape) grid and their rules, ``make_dist``,
-``make_train_step``, ``make_prefill_step`` and the optimizer state's
-specs.
+``repro/launch/steps.py``, on one device or on a (data, model) mesh
+(``Dist``): the input shapes of the reference's (architecture × shape)
+grid and their rules, ``make_dist``, ``make_train_step``,
+``make_prefill_step``, ``make_serve_step`` (the context-parallel decode)
+and, for every shape, the caches' and inputs' shapes and specs and the
+optimizer state's.
 
-The rest of that module — ``cache_shapes``, ``cache_specs``,
-``input_specs``, ``make_serve_step`` (the context-parallel decode) and
-``opt_state_shapes`` — feeds the reference's XLA lowering and is not
-copied here (ROADMAP queue 1, item 4).
+Shapes are ``meta`` tensors (shape and dtype, no storage), traced under
+a fake-tensor mode as ``launch.shardings.param_shapes`` traces the
+parameters, so nothing of a full-size model or cache is allocated.
+Specs are tuples, one mesh axis name, tuple of names or None per
+dimension — the reference's ``PartitionSpec`` read as a tuple; a
+``Caches`` of specs has ``length=()``. ``shard_params`` and
+``shard_caches`` place real tensors by them.
+
+Sharding: weights tensor-parallel on 'model' × FSDP on 'data'; the batch
+on the mesh's pod and data axes; a KV cache's sequence on 'model'
+(context-parallel decode: the memory-bound KV read is striped across a
+data row's model positions), or, with a batch of one (``long_500k``), on
+every axis.
 """
 from __future__ import annotations
 
@@ -19,7 +29,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.shardings import Sharded
 from repro_torch.models.layers import NO_DIST, Dist
-from repro_torch.models.transformer import loss_fn, prefill
+from repro_torch.models.mamba import MambaState
+from repro_torch.models.transformer import (Caches, KVCache, decode_step,
+                                            init_caches, loss_fn, prefill)
 from repro_torch.training.optim import (OptState, make_optimizer,
                                         tree_leaves, tree_map)
 
@@ -73,6 +85,121 @@ def make_dist(mesh, shape: ShapeSpec) -> Dist:
     if shape.batch == 1:
         batch_axes = ()
     return Dist(mesh=mesh, batch_axes=batch_axes)
+
+
+def _seq_axes(dist: Dist):
+    """Axes striping a KV-cache sequence dim: 'model', plus the other
+    axes (data, pod) when the batch does not use them (long_500k)."""
+    if dist.batch_axes:
+        return "model"
+    free = tuple(a for a in dist.mesh.axis_names if a != "model")
+    return free + ("model",)
+
+
+def _batch_entry(dist: Dist):
+    b = dist.batch_axes or None
+    if isinstance(b, tuple) and len(b) == 1:
+        b = b[0]
+    return b
+
+
+def _meta(t):
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def _map_leaves(fn, tree):
+    """``fn`` over the tensors of nested dicts, tuples and NamedTuples
+    (None kept)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        items = [_map_leaves(fn, v) for v in tree]
+        return type(tree)(*items) if hasattr(tree, "_fields") \
+            else tuple(items)
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return tree
+
+
+def cache_shapes(cfg: ModelConfig, shape: ShapeSpec) -> Caches:
+    """``init_caches`` of a decode at ``shape`` (its serving window, an
+    encoder-decoder's ``frontend_tokens`` of encoder K/V) as meta
+    tensors; the length an int32 scalar, as in the reference."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    window = serve_window(cfg, shape)
+    enc_len = cfg.frontend_tokens if cfg.encoder_layers else 0
+    with FakeTensorMode():
+        fake = init_caches(cfg, shape.batch, shape.seq, enc_len=enc_len,
+                           window=window, device="cpu")
+    return _map_leaves(_meta, fake)._replace(
+        length=torch.empty((), dtype=torch.int32, device="meta"))
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec, dist: Dist) -> Caches:
+    """Spec tuples of ``cache_shapes``' leaves: KV (layers, batch, seq,
+    KV, Dh) with the batch on the batch axes and the sequence on
+    ``_seq_axes``; a Mamba2 state's heads and conv channels on 'model';
+    an encoder's K/V by batch only."""
+    del shape    # the reference's signature: the layout is the dist's
+    b = _batch_entry(dist)
+    seq = _seq_axes(dist)
+    kv = ssm = enc_kv = None
+    if cfg.attention_layers:
+        kv = KVCache(k=(None, b, seq, None, None),
+                     v=(None, b, seq, None, None))
+    if cfg.ssm is not None and cfg.kind in ("ssm", "hybrid"):
+        if cfg.attn_every:
+            ssm = MambaState(ssm=(None, None, b, "model", None, None),
+                             conv=(None, None, b, None, "model"))
+        else:
+            ssm = MambaState(ssm=(None, b, "model", None, None),
+                             conv=(None, b, None, "model"))
+    if cfg.encoder_layers:
+        enc_kv = KVCache(k=(None, b, None, None, None),
+                         v=(None, b, None, None, None))
+    return Caches(kv=kv, ssm=ssm, enc_kv=enc_kv, length=())
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, dist: Dist):
+    """(args: a dict of meta-tensor stand-ins, specs: the matching spec
+    tuples) for the step of ``shape.kind``: train {batch: tokens, labels
+    [, patches | frames]}, prefill {tokens [, patches | frames]}, decode
+    {tokens (B, 1), caches}. Tokens are int32, frames and patches fp32,
+    as in the reference."""
+    b = _batch_entry(dist)
+    B, S = shape.batch, shape.seq
+
+    def meta(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    def tok(s):
+        return meta((B, s), torch.int32)
+
+    def frontend(args, specs):
+        name = {"patch": "patches", "audio": "frames"}.get(cfg.frontend)
+        if name is not None:
+            args[name] = meta((B, cfg.frontend_tokens, cfg.d_model),
+                              torch.float32)
+            specs[name] = (b, None, "model")
+
+    args: dict = {}
+    specs: dict = {}
+    if shape.kind == "train":
+        args["batch"] = {"tokens": tok(S), "labels": tok(S)}
+        specs["batch"] = {"tokens": (b, None), "labels": (b, None)}
+        frontend(args["batch"], specs["batch"])
+    elif shape.kind == "prefill":
+        args["tokens"] = tok(S)
+        specs["tokens"] = (b, None)
+        frontend(args, specs)
+    else:
+        args["tokens"] = tok(1)
+        specs["tokens"] = (b, None)
+        args["caches"] = cache_shapes(cfg, shape)
+        specs["caches"] = cache_specs(cfg, shape, dist)
+    return args, specs
 
 
 def _live(p):
@@ -129,6 +256,37 @@ def make_prefill_step(cfg: ModelConfig, dist: Dist = NO_DIST):
                            patches=extra.get("patches"))
 
     return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, dist: Dist, shape: ShapeSpec):
+    """``serve_step(params, tokens, caches) -> (logits, caches)``: one
+    ``decode_step`` without grad at ``shape``'s serving window, a ring
+    buffer when the cache is sized at a window shorter than the shape's
+    sequence. On a mesh the params come from ``shard_params`` and the
+    caches from ``shard_caches`` (by ``cache_specs``): the KV sequence
+    striped over a data row's model positions (over every position for
+    a batch of one), each Mamba2 state's heads over 'model'."""
+    window = serve_window(cfg, shape)
+    ring = bool(window) and window < shape.seq
+
+    def serve_step(params, tokens, caches):
+        with torch.no_grad():
+            return decode_step(params, tokens, caches, cfg, dist, ring=ring,
+                               window_override=window or None)
+
+    return serve_step
+
+
+def opt_state_shapes(cfg: ModelConfig, param_shapes) -> OptState:
+    """``cfg.optimizer``'s initial state for ``param_shapes`` (meta
+    tensors, ``launch.shardings.param_shapes``), as meta tensors: traced
+    under a fake-tensor mode, nothing allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    init, _ = make_optimizer(cfg.optimizer)
+    with FakeTensorMode():
+        fake = init(tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                             param_shapes))
+    return _map_leaves(_meta, fake)
 
 
 def opt_state_specs(cfg: ModelConfig, p_specs, param_shapes) -> OptState:

@@ -24,8 +24,11 @@ attention splits the padded query heads (column-parallel ``wq``, each
 position's K/V for the KV heads its query heads read, a local
 query-head → KV-head map, row-parallel ``wo``), the MLP its hidden dim,
 and the MoE follows the reference's expert- or tensor-parallel
-dispatch. A row-parallel partial sum is the reference's ``psum``: the
-partials summed in fp32 on the row's device and rounded once. The
+dispatch. Over a KV cache the attention is also context-parallel: the
+cache's sequence is striped over the row's positions (``shard_caches``)
+and each stripe attends its own slots (``_attention_cache_mesh``). A
+row-parallel partial sum is the reference's ``psum``: the partials
+summed in fp32 on the row's device and rounded once. The
 reference's ``constrain``/``residual_spec``/``batch_spec`` only place
 data for XLA, so they have no counterpart.
 
@@ -46,7 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.shardings import Sharded, gather, gather_tree
+from repro_torch.launch.shardings import (Sharded, axis_size, gather,
+                                          gather_tree, take)
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -203,19 +207,17 @@ def _psum(parts: list, device) -> torch.Tensor:
 
 
 def _model_part(leaf, device, dim: int, m: int, n: int) -> torch.Tensor:
-    """Slice ``m`` of ``n`` along ``dim`` of a leaf, on ``device``: a
-    sharded leaf split that way gathers only that slice; any other leaf
-    is gathered whole and sliced."""
-    if isinstance(leaf, Sharded) and n > 1 \
-            and leaf.model_dim() == dim % leaf.ndim:
-        return gather(leaf, device, model=m)
-    full = gather(leaf, device)
-    if n == 1:
-        return full
-    if full.shape[dim] % n:
-        raise ValueError(f"dim {dim} of {tuple(full.shape)} does not split "
-                         f"over {n} model positions")
-    return full.chunk(n, dim)[m]
+    """Slice ``m`` of ``n`` along ``dim`` of a leaf, on ``device``, copied
+    only from what holds it (``take``): a sharded leaf split that way
+    gathers only that slice."""
+    shape = tuple(leaf.shape)
+    dim %= len(shape)
+    if shape[dim] % n:
+        raise ValueError(f"dim {dim} of {shape} does not split over {n} "
+                         f"model positions")
+    w = shape[dim] // n
+    return take(leaf, device, (slice(None),) * dim
+                + (slice(m * w, (m + 1) * w),))
 
 
 def _on_rows(x, dist: Dist, fn):
@@ -285,24 +287,41 @@ def _grouped(cfg: ModelConfig) -> bool:
 
 def _attend(q, k, v, mask, scale):
     """q (B, Sq, H, D); k, v (B, Sk, H, D) or grouped (B, Sk, KV, D) with
-    H = KV·g; mask (B|1, 1, Sq, Sk) bool → (B, Sq, H, D)."""
-    B, Sq, H, D = q.shape
-    KV = k.shape[2]
-    if KV != H:
-        g = H // KV
-        qg = q.reshape(B, Sq, KV, g, D)
-        logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(),
-                              k.float()) * scale
-        logits = torch.where(mask[:, :, None], logits, NEG_INF)
-        probs = torch.softmax(logits, dim=-1)
-        o = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).float(),
-                         v.float())
-        return o.reshape(B, Sq, H, D).to(v.dtype)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    logits = torch.where(mask, logits, NEG_INF)
+    H = KV·g; mask (B|1, 1, Sq, Sk) bool → (B, Sq, H, D): fp32 logits
+    and softmax, the probabilities rounded to v's dtype before the PV
+    product."""
+    logits = torch.where(mask, _scores(q, k, None, scale), NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    o = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
-    return o.to(v.dtype)
+    return _pv(probs.to(v.dtype), v, None).to(v.dtype)
+
+
+def _scores(q, k, qh2kv, scale: float) -> torch.Tensor:
+    """q (B, S, H, D), k (B, Sk, KV, D) → fp32 logits (B, H, S, Sk): the
+    grouped contraction where KV divides H without a map, else over the
+    keys expanded by ``qh2kv``."""
+    B, S, H, D = q.shape
+    if qh2kv is None and k.shape[2] != H:
+        KV = k.shape[2]
+        logits = torch.einsum("bqkgd,bskd->bkgqs",
+                              q.reshape(B, S, KV, H // KV, D).float(),
+                              k.float()) * scale
+        return logits.reshape(B, H, S, k.shape[1])
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                        _expand(k, qh2kv).float()) * scale
+
+
+def _pv(probs, v, qh2kv) -> torch.Tensor:
+    """Probabilities (B, H, S, Sk) times v (B, Sk, KV, D) → fp32
+    (B, S, H, D)."""
+    B, H, S, Sk = probs.shape
+    if qh2kv is None and v.shape[2] != H:
+        KV = v.shape[2]
+        o = torch.einsum("bkgqs,bskd->bqkgd",
+                         probs.reshape(B, KV, H // KV, S, Sk).float(),
+                         v.float())
+        return o.reshape(B, S, H, v.shape[-1])
+    return torch.einsum("bhqk,bkhd->bqhd", probs.float(),
+                        _expand(v, qh2kv).float())
 
 
 def _expand(t: torch.Tensor, qh2kv: Optional[torch.Tensor]) -> torch.Tensor:
@@ -430,16 +449,18 @@ def attention_block(x, p, cfg: ModelConfig, dist: Dist = NO_DIST, *,
 
     ``dist`` active (x a list of data rows, or a whole batch split and
     joined back; kv per row): the causal self-attention is
-    tensor-parallel over the query heads (``_attention_mesh``); the
-    encoder's and cross-attention take their leaves whole on each row's
-    device (``enc_kv`` then one (k, v) per row, or a whole pair); the
-    cache forms are not distributed.
+    tensor-parallel over the query heads (``_attention_mesh``); over a
+    cache (``Sharded`` leaves from ``shard_caches``, one length for the
+    batch) it is also context-parallel over the cache's sequence stripes
+    (``_attention_cache_mesh``) and returns the cache, written in place;
+    the encoder's and cross-attention take their leaves whole on each
+    row's device (``enc_kv`` then one (k, v) per row, or a whole pair).
     """
     if dist.active:
         if cache is not None:
-            raise NotImplementedError(
-                "attention over a cache on a mesh: the context-parallel "
-                "decode step is not ported")
+            return _on_rows(x, dist, lambda rows: _attention_cache_mesh(
+                rows, p, cfg, dist, cache=cache, cache_len=cache_len,
+                ring=ring, window_override=window_override))
         if enc_kv is None and causal:
             return _on_rows(x, dist, lambda rows: _attention_mesh(
                 rows, p, cfg, dist, q_offset=q_offset, kv_out=kv_out,
@@ -555,6 +576,45 @@ def _kv_columns(w: torch.Tensor, used: list, Dh: int) -> torch.Tensor:
     return w.index_select(-1, idx)
 
 
+def _stripe_qkv(h, p, cfg: ModelConfig, m: int, M: int, used: list,
+                positions):
+    """Model position m's projections of the normed rows ``h`` (on its
+    device): its stripe of the padded query heads (``wq``'s column slice
+    m) and the KV heads ``used``, RoPE applied at ``positions``."""
+    Hp, Dh = cfg.padded_heads, cfg.head_dim
+    dev = h.device
+    B, S, _ = h.shape
+    hl = Hp // M
+    q = (h @ _model_part(p["wq"], dev, -1, m, M)).reshape(B, S, hl, Dh)
+    if cfg.attn_bias:
+        q = q + _model_part(p["bq"], dev, -1, m, M).reshape(1, 1, hl, Dh)
+    if cfg.qk_norm:
+        q = rms_norm(q, gather(p["q_norm"], dev), cfg.norm_eps)
+    nu = len(used)
+    k = (h @ _kv_columns(gather(p["wk"], dev), used, Dh)).reshape(
+        B, S, nu, Dh)
+    v = (h @ _kv_columns(gather(p["wv"], dev), used, Dh)).reshape(
+        B, S, nu, Dh)
+    if cfg.attn_bias:
+        k = k + _kv_columns(gather(p["bk"], dev), used, Dh).reshape(
+            1, 1, nu, Dh)
+        v = v + _kv_columns(gather(p["bv"], dev), used, Dh).reshape(
+            1, 1, nu, Dh)
+    if cfg.qk_norm:
+        k = rms_norm(k, gather(p["k_norm"], dev), cfg.norm_eps)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta), v)
+
+
+def _full_kv(ks, vs, stripes, n_kv: int, device):
+    """The full-headed (k, v) from the positions' KV heads: each KV head
+    from the first position that computed it."""
+    src = [next((m, used.index(j)) for m, (used, _) in enumerate(stripes)
+                if j in used) for j in range(n_kv)]
+    return tuple(torch.stack([t[m][:, :, i].to(device) for m, i in src],
+                             dim=2) for t in (ks, vs))
+
+
 def _attention_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, q_offset: int,
                     kv_out: bool, window_override, train: bool):
     """The causal self-attention of each data row, tensor-parallel over
@@ -578,29 +638,8 @@ def _attention_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, q_offset: int,
         parts, ks, vs = [], [], []
         for m, (used, local) in enumerate(stripes):
             dev = grid[r, m]
-            hm = h.to(dev)
-            q = (hm @ _model_part(p["wq"], dev, -1, m, M)).reshape(
-                B, S, hl, Dh)
-            if cfg.attn_bias:
-                q = q + _model_part(p["bq"], dev, -1, m, M).reshape(
-                    1, 1, hl, Dh)
-            if cfg.qk_norm:
-                q = rms_norm(q, gather(p["q_norm"], dev), cfg.norm_eps)
-            nu = len(used)
-            k = (hm @ _kv_columns(gather(p["wk"], dev), used, Dh)).reshape(
-                B, S, nu, Dh)
-            v = (hm @ _kv_columns(gather(p["wv"], dev), used, Dh)).reshape(
-                B, S, nu, Dh)
-            if cfg.attn_bias:
-                k = k + _kv_columns(gather(p["bk"], dev), used, Dh).reshape(
-                    1, 1, nu, Dh)
-                v = v + _kv_columns(gather(p["bv"], dev), used, Dh).reshape(
-                    1, 1, nu, Dh)
-            if cfg.qk_norm:
-                k = rms_norm(k, gather(p["k_norm"], dev), cfg.norm_eps)
-            positions = q_offset + torch.arange(S, device=dev)
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+            q, k, v = _stripe_qkv(h.to(dev), p, cfg, m, M, used,
+                                  q_offset + torch.arange(S, device=dev))
             qh2kv = None if local is None else torch.tensor(
                 local, dtype=torch.int32, device=dev)
             o = attend(q, k, v, q_offset, window, qh2kv=qh2kv)
@@ -610,13 +649,124 @@ def _attention_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, q_offset: int,
             vs.append(v)
         ys.append(_psum(parts, x.device))
         if kv_out:
-            # each KV head from the first position that computed it
-            src = [next((m, used.index(j)) for m, (used, _) in
-                        enumerate(stripes) if j in used) for j in range(KV)]
-            kvs.append(tuple(torch.stack(
-                [t[m][:, :, i].to(x.device) for m, i in src], dim=2)
-                for t in (ks, vs)))
+            kvs.append(_full_kv(ks, vs, stripes, KV, x.device))
     return ys, (kvs if kv_out else None)
+
+
+def _row_stripes(leaf, dist: Dist, r: int, n_rows: int) -> list:
+    """Data row r's part of a batch-leading cache leaf (B, S, ...) placed
+    by ``shard_caches``: its stripes along dim 1 in order, each a view on
+    its own position's device (written in place)."""
+    if not isinstance(leaf, Sharded):
+        raise ValueError("on a mesh the caches are Sharded leaves: place "
+                         "them with launch.shardings.shard_caches")
+    if any(a is not None for a in leaf.spec[2:]):
+        raise ValueError(f"a cache leaf sharded past its sequence "
+                         f"({leaf.spec})")
+    if leaf.spec[0] is not None:
+        if axis_size(leaf.mesh, leaf.spec[0]) != n_rows:
+            raise ValueError(f"a cache batch split over {leaf.spec[0]} "
+                             f"does not match {n_rows} data rows")
+        sub = leaf.block(0, r)
+        return [sub.shards[k] for k in sorted(sub.shards)]
+    rows = leaf.shape[0] // n_rows
+    return [t[r * rows:(r + 1) * rows]
+            for _, t in sorted(leaf.shards.items())]
+
+
+def _attention_cache_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, cache,
+                          cache_len, ring: bool, window_override):
+    """Context-parallel extend/decode of each data row over its cache
+    stripes (``shard_caches``: the sequence split into contiguous slot
+    ranges, one per position of the row, or of the mesh for a batch of
+    one).
+
+    Projections and ``wo`` are ``_attention_mesh``'s: position m of the
+    row projects its stripe of the query heads and the KV heads it reads.
+    The new tokens' K/V (every KV head) go to the stripes that hold their
+    slots — ``cache_len`` onwards, or slot ``cache_len % S_cache`` of a
+    ring. The queries of all heads go to every stripe, which computes the
+    masked fp32 logits over its slots and their max; once the maxes are
+    combined on the row's device, each stripe takes exp(l − max) and its
+    sum, and once the sums are combined, its bf16 probabilities (the
+    reference's fp32 softmax rounded to bf16) times its V in fp32. Each
+    head stripe's owner sums those partials in fp32, rounds once, and
+    applies its rows of ``wo``; the row partials are summed as in
+    ``_attention_mesh``. The mask is ``decode_attention``'s: slots below
+    min(length, S_cache), and for a linear cache of a windowed arch
+    longer than the window the last ``window`` positions."""
+    if isinstance(cache_len, torch.Tensor) and cache_len.dim() == 1:
+        raise ValueError("the context-parallel decode takes one length for "
+                         "the batch (the serve step's), not one per slot")
+    k_leaf, v_leaf = cache
+    Hp, KV, Dh = cfg.padded_heads, cfg.n_kv_heads, cfg.head_dim
+    window = cfg.sliding_window if window_override is None else window_override
+    grid = dist.grid()
+    M = grid.shape[1]
+    stripes = _head_stripes(cfg, M)
+    hl = Hp // M
+    qmap = None if _grouped(cfg) else qh2kv_map(cfg.n_heads, KV, Hp)
+    pos = int(cache_len)
+    S_cache = k_leaf.shape[1]
+    scale = 1.0 / (Dh ** 0.5)
+    ys = []
+    for r, x in enumerate(rows):
+        B, S, _ = x.shape
+        if ring and S != 1:
+            raise ValueError("the ring-buffer cache takes one token per step")
+        if not ring and pos + S > S_cache:
+            raise ValueError(f"extend of {S} tokens at {pos} past the "
+                             f"{S_cache}-slot cache")
+        ks = _row_stripes(k_leaf, dist, r, len(grid))
+        vs = _row_stripes(v_leaf, dist, r, len(grid))
+        Sj = S_cache // len(ks)
+        h = rms_norm(x, gather(p["ln"], x.device), cfg.norm_eps)
+        qs, kn, vn = [], [], []
+        for m, (used, _) in enumerate(stripes):
+            dev = grid[r, m]
+            q, k, v = _stripe_qkv(h.to(dev), p, cfg, m, M, used,
+                                  pos + torch.arange(S, device=dev))
+            qs.append(q)
+            kn.append(k)
+            vn.append(v)
+        q = torch.cat([t.to(x.device) for t in qs], dim=2)   # (B, S, Hp, Dh)
+        k_new, v_new = _full_kv(kn, vn, stripes, KV, x.device)
+        lo_new = pos % S_cache if ring else pos
+        logits, maxes = [], []
+        for j, (kc, vc) in enumerate(zip(ks, vs)):
+            dev, lo = kc.device, j * Sj
+            a, b = max(lo_new, lo), min(lo_new + S, lo + Sj)
+            if a < b:                          # this stripe holds new slots
+                kc[:, a - lo:b - lo] = k_new[:, a - lo_new:b - lo_new].to(dev)
+                vc[:, a - lo:b - lo] = v_new[:, a - lo_new:b - lo_new].to(dev)
+            kpos = lo + torch.arange(Sj, device=dev)[None, :]
+            clen = pos + 1 + torch.arange(S, device=dev)[:, None]   # (S, 1)
+            valid = kpos < torch.clamp(clen, max=S_cache)
+            if window and S_cache > window:
+                valid &= kpos >= clen - window
+            l = torch.where(valid[None, None], _scores(
+                q.to(dev), kc, None if qmap is None else qmap.to(dev),
+                scale), NEG_INF)
+            logits.append(l)
+            maxes.append(l.amax(-1))
+        mx = torch.stack([t.to(x.device) for t in maxes]).amax(0)
+        es = [torch.exp(l - mx.to(l.device)[..., None]) for l in logits]
+        tot = es[0].sum(-1).to(x.device)
+        for e in es[1:]:
+            tot = tot + e.sum(-1).to(x.device)
+        outs = [_pv((e / tot.to(e.device)[..., None]).to(DTYPE), vc,
+                    None if qmap is None else qmap.to(vc.device))
+                for e, vc in zip(es, vs)]                   # (B, S, Hp, Dh)
+        parts = []
+        for m in range(M):
+            dev = grid[r, m]
+            acc = outs[0][:, :, m * hl:(m + 1) * hl].to(dev)
+            for o in outs[1:]:
+                acc = acc + o[:, :, m * hl:(m + 1) * hl].to(dev)
+            parts.append(acc.to(DTYPE).reshape(B, S, hl * Dh)
+                         @ _model_part(p["wo"], dev, 0, m, M))
+        ys.append(_psum(parts, x.device))
+    return ys, cache
 
 
 @dataclass(frozen=True)

@@ -34,14 +34,17 @@ layers is a Python loop here. Forward modes:
 KV caches and page slabs are updated in place; an SSM state is replaced
 by the new one a step returns, as in the reference.
 
-``loss_fn`` and ``prefill`` take a ``Dist``: on a (data, model) mesh the
-batch splits into data rows (lists of row tensors through the stack),
-the attention, MLP and MoE blocks are tensor- or expert-parallel over
-``model`` (``models/layers.py``), and every other block — Mamba2
-mixers, the encoder, cross-attention, the frontends, the embedding and
-the unembedding with its chunked cross-entropy — takes its leaves
-gathered whole on each row's device. Parameters may then be
-``launch.shardings.Sharded`` leaves (``shard_params``) or whole tensors.
+``loss_fn``, ``prefill`` and ``decode_step`` take a ``Dist``: on a
+(data, model) mesh the batch splits into data rows (lists of row tensors
+through the stack), the attention, MLP, MoE and Mamba2 blocks are
+tensor- or expert-parallel over ``model`` (``models/layers.py``,
+``models/mamba.py``), the decode's attention also context-parallel over
+the KV cache's sequence stripes, and the embedding, the unembedding and
+the chunked cross-entropy are vocab-parallel: position m of a row owns
+vocabulary stripe m. The encoder, cross-attention and the frontends take
+their leaves gathered whole on each row's device. Parameters may be
+``launch.shardings.Sharded`` leaves (``shard_params``) or whole tensors;
+the decode's caches are ``Sharded`` (``shard_caches``).
 """
 from __future__ import annotations
 
@@ -52,8 +55,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.shardings import gather, gather_tree
+from repro_torch.launch.shardings import (Sharded, gather, gather_tree,
+                                          stack_sharded)
 from repro_torch.models.layers import (DTYPE, NO_DIST, Dist, PagedShard,
+                                       _model_part, _psum, _row_stripes,
                                        attention_block, join_rows, mlp_block,
                                        moe_block, paged_attention_block,
                                        rms_norm, split_rows)
@@ -295,11 +300,28 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
            dist: Dist = NO_DIST):
-    """Token embeddings: (B, S, D), or on a mesh one per data row."""
-    if dist.active:
-        return [gather(params["embed"], t.device)[t.long()]
-                for t in split_rows(tokens, dist)]
-    return params["embed"][tokens.long()]
+    """Token embeddings: (B, S, D), or on a mesh one per data row,
+    vocab-parallel: position m of the row looks up the ids that fall in
+    its stripe of ``embed``'s rows and zeroes the rest; the parts sum on
+    the row's device (one part is nonzero, so the sum is exact)."""
+    if not dist.active:
+        return params["embed"][tokens.long()]
+    grid = dist.grid()
+    M = grid.shape[1]
+    Vm = cfg.padded_vocab // M
+    out = []
+    for r, t in enumerate(split_rows(tokens, dist)):
+        parts = []
+        for m in range(M):
+            dev = grid[r, m]
+            local = t.to(dev).long() - m * Vm
+            e = _model_part(params["embed"], dev, 0, m, M)[
+                local.clamp(0, Vm - 1)]
+            hit = ((local >= 0) & (local < Vm))[..., None]
+            parts.append(torch.where(hit, e, torch.zeros((), dtype=e.dtype,
+                                                         device=dev)))
+        out.append(_psum(parts, t.device))
+    return out
 
 
 def _add(x, y):
@@ -313,10 +335,18 @@ def _first_device(dist: Dist):
     return dist.grid()[0, 0]
 
 
-def _join_state(states: list, device) -> MambaState:
-    """Per-row Mamba2 states → one, the rows joined on the batch axis."""
-    return MambaState(ssm=join_rows([s.ssm for s in states], device),
-                      conv=join_rows([s.conv for s in states], device))
+def _stack_states(ssms: list, convs: list, dist: Dist, whole: bool):
+    """Per-layer Mamba2 states → one stacked MambaState: tensors stacked,
+    or on a mesh ``Sharded`` leaves stacked shard by shard — gathered
+    whole on the mesh's first device when ``whole`` (a prefill's
+    caches)."""
+    if not dist.active:
+        return MambaState(ssm=torch.stack(ssms), conv=torch.stack(convs))
+    st = MambaState(ssm=stack_sharded(ssms), conv=stack_sharded(convs))
+    if whole:
+        dev = _first_device(dist)
+        st = MambaState(ssm=gather(st.ssm, dev), conv=gather(st.conv, dev))
+    return st
 
 
 def _join_kv(kv, device):
@@ -327,12 +357,27 @@ def _join_kv(kv, device):
     return kv
 
 
-def _logits_at(params, h_last, cfg: ModelConfig) -> torch.Tensor:
-    """h_last (B, k, D) → (B, k, V) fp32 logits (the unembedding gathered
-    whole on h_last's device)."""
-    w = gather(params["embed"], h_last.device).T if cfg.tie_embeddings \
-        else gather(params["lm_head"], h_last.device)
-    return (h_last @ w).float()
+def _unembedding(params, cfg: ModelConfig, device, m: int = 0,
+                 M: int = 1) -> torch.Tensor:
+    """Vocabulary stripe m of M of the unembedding (D, V/M) on
+    ``device``: ``embed``'s rows transposed when tied, else ``lm_head``'s
+    columns (M = 1: the whole, gathered)."""
+    if cfg.tie_embeddings:
+        return _model_part(params["embed"], device, 0, m, M).T
+    return _model_part(params["lm_head"], device, -1, m, M)
+
+
+def _logits_at(params, h_last, cfg: ModelConfig,
+               devices=None) -> torch.Tensor:
+    """h_last (B, k, D) → (B, k, V) fp32 logits on h_last's device; with
+    ``devices`` (a data row's model positions) vocab-parallel, each
+    position's stripe of the logits concatenated."""
+    if devices is None:
+        return (h_last @ _unembedding(params, cfg, h_last.device)).float()
+    M = len(devices)
+    return torch.cat([(h_last.to(d) @ _unembedding(params, cfg, d, m, M))
+                      .float().to(h_last.device)
+                      for m, d in enumerate(devices)], dim=-1)
 
 
 def _remat(fn, cfg: ModelConfig, train: bool):
@@ -349,23 +394,18 @@ def _remat(fn, cfg: ModelConfig, train: bool):
 def _ssm_stack(params, x, cfg: ModelConfig, caches, mode: str,
                dist: Dist = NO_DIST):
     """One Mamba2 block per layer, from ``caches.ssm`` if given; returns
-    (x, the new stacked MambaState; None in train mode). On a mesh each
-    data row's mixer takes its leaves whole."""
+    (x, the new stacked MambaState; None in train mode). On a mesh the
+    mixers are tensor-parallel and the state stays ``Sharded`` (a
+    prefill's is gathered whole on the mesh's first device)."""
     train = mode == "train"
+    has_state = caches is not None and caches.ssm is not None
 
     def block(x, l):
-        p_l = _layer(params["mamba"], l)
-        if dist.active:
-            ys, news = zip(*[mamba_block(
-                xr, gather_tree(p_l, xr.device), cfg,
-                return_state=not train, train=train) for xr in x])
-            return _add(x, list(ys)), (None if train else _join_state(
-                news, _first_device(dist)))
-        st = None if caches is None or caches.ssm is None else MambaState(
-            ssm=caches.ssm.ssm[l], conv=caches.ssm.conv[l])
-        y, new = mamba_block(x, p_l, cfg, state=st,
-                             return_state=not train, train=train)
-        return x + y, new
+        st = MambaState(ssm=caches.ssm.ssm[l], conv=caches.ssm.conv[l]) \
+            if has_state else None
+        y, new = mamba_block(x, _layer(params["mamba"], l), cfg, dist,
+                             state=st, return_state=not train, train=train)
+        return _add(x, y), new
 
     block = _remat(block, cfg, train)
     ssms, convs = [], []
@@ -376,7 +416,7 @@ def _ssm_stack(params, x, cfg: ModelConfig, caches, mode: str,
             convs.append(new.conv)
     if train:
         return x, None
-    return x, MambaState(ssm=torch.stack(ssms), conv=torch.stack(convs))
+    return x, _stack_states(ssms, convs, dist, whole=not has_state)
 
 
 def _ffn(x, p, cfg: ModelConfig, use_moe: bool, dist: Dist = NO_DIST):
@@ -430,10 +470,22 @@ def _self_attention(x, p_a, cfg: ModelConfig, l: int, *, mode: str, caches,
     if mode == "prefill":
         return attention_block(x, p_a, cfg, dist, q_offset=q_offset,
                                kv_out=True, window_override=window_override)
-    return attention_block(x, p_a, cfg, cache=(caches.kv.k[l],
-                                               caches.kv.v[l]),
+    return attention_block(x, p_a, cfg, dist, cache=(caches.kv.k[l],
+                                                     caches.kv.v[l]),
                            cache_len=caches.length, ring=ring,
                            window_override=window_override)
+
+
+def _enc_kv_at(e, l: int, dist: Dist):
+    """Layer l's cross-attention K/V: a pair, or on a mesh one pair per
+    data row (per-row caches, or a row's part of ``Sharded`` ones)."""
+    if isinstance(e, list):
+        return [(r.k[l], r.v[l]) for r in e]
+    if dist.active and isinstance(e.k, Sharded):
+        n = dist.grid().shape[0]
+        return [(_row_stripes(e.k[l], dist, r, n)[0],
+                 _row_stripes(e.v[l], dist, r, n)[0]) for r in range(n)]
+    return e.k[l], e.v[l]
 
 
 def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
@@ -457,11 +509,9 @@ def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
                                 dist=dist)
         x = _add(x, y)
         if cross:
-            e = caches.enc_kv
             y, _ = attention_block(
                 x, _layer(params["cross_attn"], l), cfg, dist,
-                enc_kv=[(r.k[l], r.v[l]) for r in e] if isinstance(e, list)
-                else (e.k[l], e.v[l]))
+                enc_kv=_enc_kv_at(caches.enc_kv, l, dist))
             x = _add(x, y)
         y, a = _ffn(x, _layer(p_f, l), cfg, use_moe, dist)
         return _add(x, y), aux + a, kv
@@ -486,6 +536,7 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
     MambaState; None in train mode)."""
     period, every = cfg.attn_every, cfg.moe.every
     train = mode == "train"
+    has_state = caches is not None and caches.ssm is not None
 
     def period_block(x, aux, per):
         p_m = _layer(params["mamba"], per)
@@ -499,22 +550,13 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                     x, _layer(params["attn"], per), cfg, per, mode=mode,
                     caches=caches, q_offset=q_offset, ring=ring,
                     window_override=window_override, dist=dist)
-            elif dist.active:
-                p_l = _layer(p_m, pos - 1)
-                y, new = zip(*[mamba_block(
-                    xr, gather_tree(p_l, xr.device), cfg,
-                    return_state=not train, train=train) for xr in x])
-                y = list(y)
-                if not train:
-                    new = _join_state(new, _first_device(dist))
-                    per_ssm.append(new.ssm)
-                    per_conv.append(new.conv)
             else:
-                st = None if caches is None or caches.ssm is None \
-                    else MambaState(ssm=caches.ssm.ssm[per, pos - 1],
-                                    conv=caches.ssm.conv[per, pos - 1])
-                y, new = mamba_block(x, _layer(p_m, pos - 1), cfg, state=st,
-                                     return_state=not train, train=train)
+                st = MambaState(ssm=caches.ssm.ssm[per][pos - 1],
+                                conv=caches.ssm.conv[per][pos - 1]) \
+                    if has_state else None
+                y, new = mamba_block(x, _layer(p_m, pos - 1), cfg, dist,
+                                     state=st, return_state=not train,
+                                     train=train)
                 if new is not None:
                     per_ssm.append(new.ssm)
                     per_conv.append(new.conv)
@@ -527,8 +569,8 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                 y = mlp_block(x, _layer(p_fd, i_d), cfg, dist)
                 i_d += 1
             x = _add(x, y)
-        state = None if train else MambaState(ssm=torch.stack(per_ssm),
-                                              conv=torch.stack(per_conv))
+        state = None if train else _stack_states(per_ssm, per_conv, dist,
+                                                 whole=False)
         return x, aux, kv, state
 
     period_block = _remat(period_block, cfg, train)
@@ -541,8 +583,7 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
             convs.append(state.conv)
     if train:
         return x, aux, kvs, None
-    return x, aux, kvs, MambaState(ssm=torch.stack(ssms),
-                                   conv=torch.stack(convs))
+    return x, aux, kvs, _stack_states(ssms, convs, dist, whole=not has_state)
 
 
 def _run_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
@@ -551,11 +592,9 @@ def _run_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
     """The decoder stack of any family → (h, the summed MoE aux loss,
     per-layer kv or None, the new stacked MambaState or None). ``mode``
     "train" returns no caches (kv and state None). On a mesh (``dist``)
-    x and h are lists of data rows, a layer's kv one (k, v) per row; the
-    decode mode does not run there."""
-    if dist.active and mode == "decode":
-        raise NotImplementedError("decode over caches on a mesh: the "
-                                  "context-parallel serve step is not ported")
+    x and h are lists of data rows, a layer's prefill kv one (k, v) per
+    row; in the decode mode the caches are ``Sharded`` and the KV is
+    written in place."""
     if cfg.kind == "ssm":
         h, ssm = _ssm_stack(params, x, cfg, caches, mode, dist)
         return h, 0.0, None, ssm
@@ -585,26 +624,61 @@ def _unembed_chunked(params, h, labels, cfg: ModelConfig) -> torch.Tensor:
     return tot / torch.clamp(cnt, min=1.0)
 
 
-def _ce_sums(params, h, labels, cfg: ModelConfig):
-    """``_unembed_chunked``'s (summed loss, unmasked count), the
-    unembedding gathered whole on h's device."""
+def _ce_sums(params, h, labels, cfg: ModelConfig, devices=None):
+    """``_unembed_chunked``'s (summed loss, unmasked count), over the
+    unembedding gathered whole on h's device; with ``devices`` (a data
+    row's model positions) vocab-parallel: each position's stripe of a
+    slice's logits gives its max, its Σexp and the gold logit where the
+    label falls in the stripe, combined on h's device into logsumexp −
+    gold in fp32."""
     B, S, _ = h.shape
-    w = gather(params["embed"], h.device).T if cfg.tie_embeddings \
-        else gather(params["lm_head"], h.device)
     V = cfg.padded_vocab
     n = max(S // CE_CHUNK, 1)
     C = S // n
+    if devices is None:
+        w = _unembedding(params, cfg, h.device)
+    else:
+        M = len(devices)
+        ws = [_unembedding(params, cfg, d, m, M)
+              for m, d in enumerate(devices)]
     tot = cnt = 0.0
     for i in range(n):
         hc, lc = h[:, i * C:(i + 1) * C], labels[:, i * C:(i + 1) * C]
-        logits = (hc @ w).float()                              # (B, C, V)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            lc.clamp(0, V - 1).long()[..., None])[..., 0]
+        label = lc.clamp(0, V - 1).long()
+        if devices is None:
+            logits = (hc @ w).float()                          # (B, C, V)
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, label[..., None])[..., 0]
+        else:
+            logz, gold = _ce_stripes(hc, label, ws, devices)
         mask = (lc >= 0).float()
         tot = tot + torch.sum((logz - gold) * mask)
         cnt = cnt + torch.sum(mask)
     return tot, cnt
+
+
+def _ce_stripes(hc, label, ws, devices):
+    """One slice's (logsumexp, gold logit) from the vocabulary stripes
+    ``ws`` on ``devices``, on hc's device. The stripes' maxes are
+    constants to autograd (logsumexp does not depend on the shift)."""
+    Vm = ws[0].shape[-1]
+    maxes, sums, golds = [], [], []
+    for m, (d, w) in enumerate(zip(devices, ws)):
+        logits = (hc.to(d) @ w).float()                       # (B, C, V/M)
+        mx = logits.amax(-1).detach()
+        sums.append(torch.exp(logits - mx[..., None]).sum(-1).to(hc.device))
+        maxes.append(mx.to(hc.device))
+        local = label.to(d) - m * Vm
+        g = torch.gather(logits, -1, local.clamp(0, Vm - 1)[..., None])[..., 0]
+        golds.append(torch.where((local >= 0) & (local < Vm), g, 0.0)
+                     .to(hc.device))
+    mx = torch.stack(maxes).amax(0)
+    z = sums[0] * torch.exp(maxes[0] - mx)
+    gold = golds[0]
+    for s, m_, g in zip(sums[1:], maxes[1:], golds[1:]):
+        z = z + s * torch.exp(m_ - mx)
+        gold = gold + g
+    return mx + torch.log(z), gold
 
 
 _ENCODER_KEYS = ("enc_attn", "enc_mlp", "enc_final_ln", "cross_attn")
@@ -661,9 +735,11 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
         h = rms_norm(h, params["final_ln"], cfg.norm_eps)
         return _unembed_chunked(params, h, labels, cfg) + 0.01 * aux
     dev = _first_device(dist)
+    grid = dist.grid()
     sums = [_ce_sums(params, rms_norm(hr, gather(params["final_ln"],
                                                  hr.device), cfg.norm_eps),
-                     lr, cfg) for hr, lr in zip(h, split_rows(labels, dist))]
+                     lr, cfg, grid[r]) for r, (hr, lr) in
+            enumerate(zip(h, split_rows(labels, dist)))]
     tot = sum(t.to(dev) for t, _ in sums)
     cnt = sum(c.to(dev) for _, c in sums)
     return tot / torch.clamp(cnt, min=1.0) + 0.01 * aux
@@ -697,7 +773,8 @@ def prefill(params, tokens, cfg: ModelConfig, dist: Dist = NO_DIST, *,
         dev = _first_device(dist)
         logits = join_rows([_logits_at(params, rms_norm(
             hr[:, -1:, :], gather(params["final_ln"], hr.device),
-            cfg.norm_eps), cfg)[:, 0] for hr in h], dev)
+            cfg.norm_eps), cfg, dist.grid()[r])[:, 0]
+            for r, hr in enumerate(h)], dev)
         kvs = [_join_kv(kv, dev) for kv in kvs or []]
         if enc_kv is not None:
             enc_kv = KVCache(k=torch.cat([e.k.to(dev) for e in enc_kv], 1),
@@ -713,18 +790,32 @@ def prefill(params, tokens, cfg: ModelConfig, dist: Dist = NO_DIST, *,
                           enc_kv=enc_kv)
 
 
-def decode_step(params, tokens, caches: Caches, cfg: ModelConfig, *,
-                ring: bool = False, window_override=None):
+def decode_step(params, tokens, caches: Caches, cfg: ModelConfig,
+                dist: Dist = NO_DIST, *, ring: bool = False,
+                window_override=None):
     """tokens (B, S) against preallocated caches (KV written in place; an
     SSM or hybrid state continues from ``caches.ssm`` and is returned
     anew; an encoder-decoder cross-attends ``caches.enc_kv``).
     ``ring``: the KV cache is a sliding-window ring buffer (S = 1).
-    Returns (logits (B, S, V) fp32, caches with the length advanced)."""
-    x = _embed(params, tokens, cfg)
+    Returns (logits (B, S, V) fp32, caches with the length advanced).
+
+    On a mesh (``dist``): the caches are ``Sharded`` by
+    ``launch.steps.cache_specs`` (``shard_caches``) at an int length,
+    the attention context-parallel over the KV stripes, the mixers
+    tensor-parallel; the new state is ``Sharded`` like the old, the
+    logits joined on the mesh's first device."""
+    x = _embed(params, tokens, cfg, dist)
     h, _, _, ssm = _run_stack(params, x, cfg, mode="decode", caches=caches,
-                              ring=ring, window_override=window_override)
-    h = rms_norm(h, params["final_ln"], cfg.norm_eps)
-    logits = _logits_at(params, h, cfg)
+                              ring=ring, window_override=window_override,
+                              dist=dist)
+    if dist.active:
+        grid = dist.grid()
+        logits = join_rows([_logits_at(params, rms_norm(
+            hr, gather(params["final_ln"], hr.device), cfg.norm_eps), cfg,
+            grid[r]) for r, hr in enumerate(h)], _first_device(dist))
+    else:
+        h = rms_norm(h, params["final_ln"], cfg.norm_eps)
+        logits = _logits_at(params, h, cfg)
     return logits, caches._replace(length=caches.length + tokens.shape[1],
                                    ssm=ssm if ssm is not None else caches.ssm)
 

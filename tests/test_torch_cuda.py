@@ -951,3 +951,90 @@ def test_sharded_train_step_launches_no_kernel(cuda):
     assert _launch_counts() == before
     assert torch.isfinite(loss)
     assert abs(float(loss) - float(loss0)) <= 2e-2 * abs(float(loss0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_tensor_parallel_mixer_on_the_card(cuda, name):
+    """``mamba_block`` on a (2, 2) mesh of the card at reduced width: one
+    SSD-scan kernel launch per (row, position), each on its position's
+    nh / 2 heads as they come out of the column gather, y within 4 bf16
+    ulps of the plain path's on the same mesh and the new SSM state
+    within 5e-3 of its scale."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.shardings import gather, shard_params
+    from repro_torch.models.layers import Dist, plain_attention
+    from repro_torch.models.mamba import mamba_block
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(name).reduced()
+    mesh = _card_mesh(cuda, (2, 2), ("data", "model"))
+    params = shard_params(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0), cuda), mesh)
+    lead = 2 if cfg.attn_every else 1
+    p = {k: v[0][0] if lead == 2 else v[0]
+         for k, v in params["mamba"].items()}
+    x = torch.randn((4, 256, cfg.d_model),
+                    generator=torch.Generator().manual_seed(2)).to(
+        cuda, torch.bfloat16)
+    dist = Dist(mesh=mesh, batch_axes=("data",))
+    with plain_attention():
+        yp, sp = mamba_block(x, p, cfg, dist, return_state=True)
+    before = ssd_scan.launches
+    yk, sk = mamba_block(x, p, cfg, dist, return_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches - before == 4
+    scale = yp.float().abs().max().item()
+    assert torch.isfinite(yk.float()).all()
+    assert (yk.float() - yp.float()).abs().max().item() \
+        <= 4 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+    a, b = gather(sk.ssm, cuda), gather(sp.ssm, cuda)
+    assert (a - b).abs().max().item() <= 5e-3 * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [False, True])
+def test_context_parallel_decode_on_the_card(cuda, ring):
+    """``make_serve_step`` on a (1, 2) mesh of the card (the KV sequence
+    in two stripes, attended by plain PyTorch per stripe) against the
+    unsharded ``decode_step``'s plain path from the same caches, 8 steps
+    fed the unsharded stream and routing: logits within 4 bf16 ulps of
+    the largest at every step. ``ring``: a windowed config's ring
+    (mixtral.reduced()'s 64 slots, wrapped)."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.shardings import shard_caches, shard_params
+    from repro_torch.launch.steps import (INPUT_SHAPES, cache_specs,
+                                          make_dist, make_serve_step)
+    from repro_torch.models.layers import (NO_DIST, plain_attention,
+                                           record_routing, replay_routing)
+    from repro_torch.models.transformer import init_caches, init_params
+    name = "mixtral-8x7b" if ring else "llama2-70b"
+    cfg = get_config(name).reduced()
+    mesh = Mesh(np.asarray([[cuda, cuda]], dtype=object), ("data", "model"))
+    shape = dataclasses.replace(INPUT_SHAPES["long_500k" if ring else
+                                             "decode_32k"],
+                                batch=1 if ring else 4, seq=4096)
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    caches = init_caches(cfg, shape.batch, shape.seq,
+                         window=cfg.sliding_window, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    for t in caches.kv:
+        t.copy_(torch.randn(t.shape, generator=g, device=cuda))
+    caches = caches._replace(length=1000 if ring else 4000)
+    dist = make_dist(mesh, shape)
+    sc = shard_caches(cfg, caches, cache_specs(cfg, shape, dist), mesh)
+    sp = shard_params(cfg, params, mesh)
+    step, whole = (make_serve_step(cfg, d, shape) for d in (dist, NO_DIST))
+    tok = torch.zeros((shape.batch, 1), dtype=torch.int32, device=cuda)
+    for _ in range(8):
+        with record_routing() as routes, plain_attention():
+            lw, caches = whole(params, tok, caches)
+        with replay_routing(routes):
+            lm, sc = step(sp, tok, sc)
+        scale = lw.abs().max().item()
+        assert torch.isfinite(lm).all()
+        assert (lm - lw).abs().max().item() \
+            <= 4 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+        tok = lw.argmax(-1).to(torch.int32)

@@ -614,15 +614,28 @@ def test_make_prefill_step_on_a_1x1_mesh_is_the_unsharded_prefill():
 
 
 def test_decode_on_a_mesh_is_not_distributed():
-    cfg, tp = _port_params(SMOLLM)
+    """Decode on a mesh is the context-parallel serve step now: the
+    stack's decode mode no longer refuses a mesh, and ``decode_step``
+    over ``shard_caches``' stripes matches the unsharded step on the
+    same caches within 4 bf16 ulps of the largest logit."""
+    from repro_torch.launch.shardings import shard_caches
     from repro_torch.models.transformer import decode_step, init_caches
-    caches = init_caches(cfg, 2, 16, device="cpu")
-    with pytest.raises(NotImplementedError, match="context-parallel"):
-        from repro_torch.models.transformer import _run_stack
-        _run_stack(tp, [torch.zeros(1, 1, cfg.d_model)], cfg, mode="decode",
-                   caches=caches, dist=_dist())
-    assert decode_step(tp, torch.zeros((2, 1), dtype=torch.int64), caches,
-                       cfg)[0].shape == (2, 1, cfg.padded_vocab)
+    cfg, tp = _port_params(SMOLLM)
+    mesh = _mesh()
+    caches = init_caches(cfg, 2, 16, device="cpu")._replace(length=3)
+    shape = dataclasses.replace(STEPS.INPUT_SHAPES["decode_32k"], batch=2,
+                                seq=16)
+    dist = make_dist(mesh, shape)
+    sc = shard_caches(cfg, caches, STEPS.cache_specs(cfg, shape, dist), mesh)
+    tok = torch.zeros((2, 1), dtype=torch.int64)
+    with torch.no_grad():
+        lm, cm = decode_step(shard_params(cfg, tp, mesh), tok, sc, cfg, dist)
+        lw, cw = decode_step(tp, tok, caches, cfg)
+    assert lm.shape == lw.shape == (2, 1, cfg.padded_vocab)
+    assert cm.length == cw.length == 4
+    scale = lw.abs().max().item()
+    assert (lm - lw).abs().max().item() \
+        <= 4 * 2.0 ** (np.floor(np.log2(scale)) - 7)
 
 
 def test_input_shapes_and_rules_equal_the_reference():
