@@ -191,6 +191,19 @@ Phases, each printed as it runs; any failure exits non-zero:
      positions: smollm-360m at full width and depth over the wrapped
      8,192-slot ring at length 524,000, and mamba2-2.7b from (c)'s state
      (each decode mixer held per layer), 16 steps each.
+ 19. the dry run (``repro_torch.launch.dryrun``, host only, no jax):
+     (a) smollm-360m's ``decode_32k`` on the 16x16 production mesh and
+     ``train_4k`` on 2x16x16, counted on the card's host; (b) three
+     steps predicted on stand-in positions, then run on the card with
+     every position on ``cuda:0`` — smollm-360m's prefill of 1 x 8192 on
+     1x1 (full width and depth), llama2-70b's ``decode_32k`` serve step
+     (8 of 80 layers, batch 8) on (2, 2), mamba2-2.7b's prefill of 2 x
+     4096 on (2, 2): the predicted argument bytes held equal to the bytes
+     the step receives and the step's peak held at least those, the
+     logits finite, smollm-360m's within 4 bf16 ulps of its plain path's
+     (the other two shapes are held in phase 18); the predicted peak and
+     roofline bound read beside the measured peak and wall, the launches
+     counted into the kernels line.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -3433,6 +3446,231 @@ def e2e_serve_mesh(torch, timer, device="cuda", seq=32768,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the dry run — on the card's host, and against the card
+# ---------------------------------------------------------------------------
+
+def dryrun_host() -> dict:
+    """(a): ``lower_one`` of smollm-360m's ``decode_32k`` on 16x16 and
+    ``train_4k`` on 2x16x16, host only; no jax imported."""
+    from repro_torch.launch.dryrun import lower_one
+    out = {}
+    for shape, multi in (("decode_32k", False), ("train_4k", True)):
+        t0 = time.monotonic()
+        rec = lower_one("smollm-360m", shape, multi_pod=multi, verbose=False)
+        rec["wall_s"] = time.monotonic() - t0
+        show = {k: rec[k] for k in ("arch", "shape", "mesh", "n_devices",
+                                    "trace_s", "wall_s", "memory", "cost",
+                                    "roofline")}
+        show["busiest"] = rec["analysis"]["position"]
+        show["collective_bytes"] = rec["analysis"]["collective_bytes"]
+        log("(a) " + json.dumps(show))
+        out[f"{shape}-{rec['mesh']}"] = rec
+    if "jax" in sys.modules:
+        raise AssertionError("the dry run imported jax")
+    return out
+
+
+def _arg_bytes(torch, tree) -> int:
+    """The bytes of every tensor a step receives (each storage once)."""
+    from repro_torch.launch.shardings import Sharded
+    seen, total = set(), 0
+
+    def walk(x):
+        nonlocal total
+        if isinstance(x, Sharded):
+            for t in x.shards.values():
+                walk(t)
+        elif isinstance(x, torch.Tensor):
+            key = x.untyped_storage().data_ptr()
+            if key not in seen:
+                seen.add(key)
+                total += x.untyped_storage().nbytes()
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+    walk(tree)
+    return total
+
+
+def predict_and_run(torch, name, cfg, shape, dims, make_args,
+                    device="cuda", hold_plain=False) -> dict:
+    """(b): the dry run's prediction of ``cfg``'s step at ``shape`` on a
+    ``dims`` mesh (``launch.dryrun.dry_run`` on stand-in positions), then
+    the step for real with every position on ``device``: the predicted
+    argument bytes (summed over positions) held equal to the bytes the
+    step receives, the step's peak held at least those, its logits
+    finite; the predicted peak, roofline bound and launches read beside
+    the measured ones. ``hold_plain``: the logits also held within 4
+    bf16 ulps of the largest (phase 5's rule) of the same step's under
+    ``plain_attention()``, for a shape no other phase holds."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_standin_mesh
+    from repro_torch.models.layers import plain_attention
+    axes = ("data", "model")
+    rec = DR.dry_run(cfg, shape, make_standin_mesh(dims, axes))
+    mesh = card_mesh(torch, dims, axes, device)
+    step, args = make_args(mesh)
+    received = _arg_bytes(torch, args)
+    predicted = rec["memory"]["argument_bytes_total"]
+    if received != predicted:
+        raise AssertionError(f"{name}: the step receives {received} bytes, "
+                             f"the dry run predicted {predicted}")
+    step(*args)                          # warm: the first call's set-up
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated()
+    logits = out[0]
+    del out
+    if peak < received:
+        raise AssertionError(f"{name}: peak {peak} below the {received} "
+                             f"argument bytes")
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{name}: logits not finite")
+    err = None
+    if hold_plain:
+        with plain_attention():
+            plain = step(*args)[0]
+        err = (logits.float() - plain.float()).abs().max().item()
+        scale = plain.abs().max().item()
+        tol = bf16_ulps(4, scale)
+        log(f"(b) {name}: logits against the plain path's max_abs_err "
+            f"{err:.4f} (max |logit| {scale:.3f}; tol {tol:.4f} = 4 bf16 "
+            f"ulps)")
+        if err > tol:
+            raise AssertionError(f"{name}: the kernel path's logits "
+                                 f"disagree with the plain path's")
+        del plain
+    del logits
+    per = rec["analysis"]["per_position"]
+    bound_sum = sum(max(roofline_times(r)) for r in per.values())
+    peak_sum = sum(r["peak_bytes"] for r in per.values())
+    res = {"argument_bytes": received, "measured_peak": peak,
+           "predicted_peak_sum": peak_sum,
+           "peak_ratio": peak_sum / peak,
+           "busiest": rec["analysis"]["position"],
+           "bound_busiest_ms": rec["roofline"]["t_bound_s"] * 1e3,
+           "bound_sum_ms": bound_sum * 1e3, "wall_ms": wall * 1e3,
+           "share_of_bound": bound_sum / wall,
+           "predicted_flops_sum": sum(r["flops"] for r in per.values()),
+           "launches": launches, "trace_s": rec["trace_s"],
+           "max_abs_err": err}
+    log(f"(b) {name} on {dims}: argument bytes {received} = predicted; "
+        f"peak measured {peak / 1e9:.3f} GB, predicted (sum of positions' "
+        f"peaks) {peak_sum / 1e9:.3f} GB, ratio {res['peak_ratio']:.3f}; "
+        f"wall {wall * 1e3:.2f} ms against a bound of "
+        f"{bound_sum * 1e3:.3f} ms summed over positions (busiest "
+        f"{res['busiest']} {res['bound_busiest_ms']:.3f} ms): "
+        f"{res['share_of_bound']:.4f} of the bound reached; launches "
+        f"{launches}; counted in {rec['trace_s']} s")
+    return res
+
+
+def roofline_times(r) -> tuple:
+    """A position's three roofline times on the H100 (seconds)."""
+    from repro_torch.launch.op_analysis import roofline_terms
+    t = roofline_terms(r)
+    return t["t_compute_s"], t["t_memory_s"], t["t_collective_s"]
+
+
+def dryrun_card(torch, device="cuda") -> dict:
+    """(b): smollm-360m's prefill of 1 x 8192 on 1x1 (full width and
+    depth), llama2-70b's ``decode_32k`` serve step (8 of 80 layers,
+    batch 8, on (2, 2)), mamba2-2.7b's prefill of 2 x 4096 on (2, 2):
+    each predicted, then run on the card. smollm-360m's logits are held
+    against its plain path here; the other two steps' are held in phase
+    18 (a) and (c), at the same shapes."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.shardings import shard_caches, shard_params
+    from repro_torch.launch.steps import (INPUT_SHAPES, ShapeSpec,
+                                          cache_specs, make_dist,
+                                          make_prefill_step, make_serve_step)
+    reduced = device != "cuda"
+    out = {}
+
+    def cut(arch, **kw):
+        cfg = get_config(arch)
+        return dataclasses.replace(cfg.reduced() if reduced else cfg, **kw)
+
+    def prefill_case(cfg, shape, dims):
+        def make(mesh):
+            params = draw_params(torch, cfg, device)
+            sp = shard_params(cfg, params, mesh)
+            del params
+            gen = torch.Generator(device=device).manual_seed(19)
+            tok = torch.randint(0, cfg.vocab_size, (shape.batch, shape.seq),
+                                generator=gen, device=device,
+                                dtype=torch.int32)
+            return make_prefill_step(cfg, make_dist(mesh, shape)), \
+                (sp, tok, {})
+        return make
+
+    smollm = cut("smollm-360m")
+    shape = ShapeSpec("prefill", "prefill", 1024 if reduced else 8192, 1)
+    out["smollm"] = predict_and_run(torch, "smollm-360m prefill", smollm,
+                                    shape, (1, 1),
+                                    prefill_case(smollm, shape, (1, 1)),
+                                    device, hold_plain=True)
+    torch.cuda.empty_cache()
+
+    llama = cut("llama2-70b", n_layers=8)
+    if reduced:
+        llama = dataclasses.replace(llama, n_heads=16, n_kv_heads=4)
+    dshape = dataclasses.replace(INPUT_SHAPES["decode_32k"], batch=8,
+                                 seq=512 if reduced else 32768)
+
+    def decode_make(mesh):
+        params = draw_params(torch, llama, device)
+        sp = shard_params(llama, params, mesh)
+        del params
+        dist = make_dist(mesh, dshape)
+        whole = random_caches(torch, llama, dshape, dshape.seq - 128,
+                              device)
+        sc = shard_caches(llama, whole, cache_specs(llama, dshape, dist),
+                          mesh)._replace(length=dshape.seq - 1)
+        del whole
+        gen = torch.Generator(device=device).manual_seed(19)
+        tok = torch.randint(0, llama.vocab_size, (dshape.batch, 1),
+                            generator=gen, device=device, dtype=torch.int32)
+        return make_serve_step(llama, dist, dshape), (sp, tok, sc)
+    out["llama"] = predict_and_run(torch, "llama2-70b decode_32k", llama,
+                                   dshape, (2, 2), decode_make, device)
+    torch.cuda.empty_cache()
+
+    mamba = cut("mamba2-2.7b")
+    mshape = ShapeSpec("prefill", "prefill", 256 if reduced else 4096, 2)
+    out["mamba"] = predict_and_run(torch, "mamba2-2.7b prefill", mamba,
+                                   mshape, (2, 2),
+                                   prefill_case(mamba, mshape, (2, 2)),
+                                   device)
+    torch.cuda.empty_cache()
+    return out
+
+
+def e2e_dryrun(torch, device="cuda") -> dict:
+    """Phase 19: (a) the dry run on the card's host, (b) its predictions
+    against three steps on the card."""
+    t0 = time.monotonic()
+    host = dryrun_host()
+    card = dryrun_card(torch, device)
+    launches = {k: sum(v["launches"][k] for v in card.values())
+                for k in card["smollm"]["launches"]}
+    return {"host": host, "card": card, "launches": launches,
+            "seconds": time.monotonic() - t0}
+
+
 def main() -> int:
     try:
         import torch
@@ -3622,6 +3860,15 @@ def main() -> int:
         f"in the serve steps (plain per-stripe attention, ssd_decode); "
         f"phase 18 took {t18['seconds']:.1f} s")
 
+    phase("19 the dry run: on the card's host, and its predictions against "
+          "the card")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t19 = e2e_dryrun(torch)
+    log(f"phase 19 launches: flash_prefill {t19['launches']['flash_prefill']}"
+        f", ssd_scan {t19['launches']['ssd_scan']} in the predicted steps; "
+        f"phase 19 took {t19['seconds']:.1f} s ({smi})")
+
     kernels = [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
@@ -3630,7 +3877,8 @@ def main() -> int:
         dict(name="flash_prefill", route="cuda",
              source="src/repro_torch/csrc/flash_prefill.cu",
              replaces="src/repro/kernels/flash_prefill/kernel.py:83",
-             launches=launches["flash_prefill"] + t17["launches"], **pre),
+             launches=launches["flash_prefill"] + t17["launches"]
+             + t19["launches"]["flash_prefill"], **pre),
         dict(name="paged_attention_layers", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:157",
@@ -3638,7 +3886,8 @@ def main() -> int:
         dict(name="ssd_scan", route="cuda",
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:79",
-             launches=ssd_launches + t18["launches"], **ssd),
+             launches=ssd_launches + t18["launches"]
+             + t19["launches"]["ssd_scan"], **ssd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

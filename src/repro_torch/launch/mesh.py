@@ -13,10 +13,16 @@ Positions may name the same device; only an explicit device array does
 that — ``make_decode_mesh`` and ``make_stage_mesh`` never stack two
 positions on one GPU.
 
-The reference's XLA helpers (``compat_shard_map``, ``compat_make_mesh``,
-``make_production_mesh``, ``make_test_mesh``) have no counterpart here.
+``make_production_mesh`` gives the reference's production meshes, 16x16
+and 2x16x16, as stand-in positions for the dry run (``launch.dryrun``):
+host-only devices ``cpu:k`` that the dry run's stand-in tensors carry,
+so every op of a step lands on its position. The reference's XLA helpers
+(``compat_shard_map``, ``compat_make_mesh``, ``make_test_mesh``) have no
+counterpart here.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -111,6 +117,59 @@ def make_stage_mesh(stages: int, device="cuda") -> Mesh:
     return Mesh(np.asarray(_first_devices(stages, f"{stages} stages",
                                           device), dtype=object),
                 ("stage",))
+
+
+# a device index is 8 bits: 127 stand-in devices at most
+MAX_STANDINS = 127
+
+
+def make_standin_mesh(shape, axes, *, rows=None) -> Mesh:
+    """A mesh of stand-in positions for the dry run: host-only devices
+    ``cpu:k``, never a GPU. Rows are the positions of one index of the
+    batch axes (``pod``, ``data``; the first major); the first ``rows``
+    rows (all of them by default) take a device each per position, and
+    every later row shares its model index's device with the other later
+    rows — a class of positions that the dry run reads as one (the
+    device index has 8 bits: at most ``MAX_STANDINS`` distinct
+    devices)."""
+    axes = tuple(axes)
+    shape = tuple(shape)
+    size = dict(zip(axes, shape))
+    n_rows = math.prod(size.get(a, 1) for a in axes if a in ("pod", "data"))
+    rows = n_rows if rows is None else min(rows, n_rows)
+    per_row = math.prod(shape) // n_rows
+    if (rows + (rows < n_rows)) * per_row > MAX_STANDINS:
+        raise ValueError(f"a {shape} mesh with {rows} distinct rows needs "
+                         f"more than {MAX_STANDINS} stand-in devices")
+    arr = np.empty(shape, dtype=object)
+    for idx in np.ndindex(*shape):
+        c = dict(zip(axes, idx))
+        row = 0
+        for a in axes:
+            if a in ("pod", "data"):
+                row = row * size[a] + c[a]
+        rest = 0
+        for a in axes:
+            if a not in ("pod", "data"):
+                rest = rest * size[a] + c[a]
+        arr[idx] = torch.device("cpu", min(row, rows) * per_row + rest)
+    return Mesh(arr, axes)
+
+
+# the data rows of a production mesh whose positions have stand-ins of
+# their own: the most rows the dry run runs a step on (``dryrun.plan``)
+PRODUCTION_ROWS = 3
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production meshes (its ``mesh.py:44-47``): (16, 16)
+    over ("data", "model"), or (2, 16, 16) over ("pod", "data",
+    "model"), as stand-in positions (``make_standin_mesh``): the first
+    ``PRODUCTION_ROWS`` data rows each position its own device, the
+    later rows one device per model index."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_standin_mesh(shape, axes, rows=PRODUCTION_ROWS)
 
 
 def batch_axes_of(mesh) -> tuple:

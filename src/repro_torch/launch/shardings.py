@@ -23,11 +23,16 @@ own.
 Decode caches are placed the same way by ``shard_caches``, from
 ``launch.steps.cache_specs``: a spec entry there may name several axes
 (a ``long_500k`` sequence over ('data', 'model')), the first major.
+
+Every copy between positions is a part of some collective of the
+reference's. A copy that is not a gather names its kind with
+``collective``: the dry run (``launch.op_analysis``) counts it so.
 """
 from __future__ import annotations
 
 import itertools
 import math
+import threading
 from typing import Any
 
 import numpy as np
@@ -339,6 +344,42 @@ def _lookup(tree, path):
     for k in path:
         tree = tree[k]
     return tree
+
+
+class _Kind(threading.local):
+    kind = None
+
+
+_KIND = _Kind()
+
+
+class collective:
+    """``with collective(kind):`` — the copies between positions made
+    inside are one collective of ``kind``, the reference's name for it:
+    "all-reduce" (a sum or max of the positions' partials sent to where
+    it is taken), "reduce-scatter" (each position's slice of such a
+    sum), "all-to-all" (expert-parallel slabs) or "collective-permute"
+    (a pipeline stage's hand-off). A copy outside any scope is a gather
+    (``gather``, ``take``, a row split or join, a value sent to a model
+    position) — "all-gather" to the dry run, which reads the kind
+    (``collective_kind``); nothing else does."""
+
+    __slots__ = ("kind", "prev")
+
+    def __init__(self, kind: str) -> None:
+        self.kind = kind
+
+    def __enter__(self) -> None:
+        self.prev, _KIND.kind = _KIND.kind, self.kind
+
+    def __exit__(self, *exc) -> None:
+        _KIND.kind = self.prev
+
+
+def collective_kind():
+    """The kind of the innermost ``collective`` scope entered on this
+    thread (None outside every scope)."""
+    return _KIND.kind
 
 
 def gather(leaf, device, model=None, model_axis: str = "model"):

@@ -49,8 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.shardings import (Sharded, axis_size, gather,
-                                          gather_tree, take)
+from repro_torch.launch.shardings import (Sharded, axis_size, collective,
+                                          gather, gather_tree, take)
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -150,6 +150,10 @@ class Dist:
     mesh: Any = None
     batch_axes: Any = ("pod", "data")  # mesh axes carrying the batch dim
     model_axis: str = "model"
+    # the most tokens of a MoE layer's global dispatch (None:
+    # ``MOE_GLOBAL_DISPATCH_MAX_TOKENS``, read at call time) — a step
+    # cut to a mesh's first rows is given the whole step's choice
+    moe_global_max_tokens: Optional[int] = None
 
     @property
     def active(self) -> bool:
@@ -198,11 +202,12 @@ def join_rows(rows, device) -> torch.Tensor:
 def _psum(parts: list, device) -> torch.Tensor:
     """The sum of the model positions' partials on ``device``: fp32
     accumulation, one rounding (a single partial is returned as is)."""
-    if len(parts) == 1:
-        return parts[0].to(device)
-    acc = parts[0].to(device).float()
-    for t in parts[1:]:
-        acc = acc + t.to(device).float()
+    with collective("all-reduce"):
+        if len(parts) == 1:
+            return parts[0].to(device)
+        acc = parts[0].to(device).float()
+        for t in parts[1:]:
+            acc = acc + t.to(device).float()
     return acc.to(parts[0].dtype)
 
 
@@ -567,13 +572,21 @@ def _head_stripes(cfg: ModelConfig, n_model: int) -> list:
     return out
 
 
-def _kv_columns(w: torch.Tensor, used: list, Dh: int) -> torch.Tensor:
-    """The columns (last axis, KV·Dh) of the KV heads ``used``."""
-    if used == list(range(used[0], used[-1] + 1)):
-        return w[..., used[0] * Dh:(used[-1] + 1) * Dh]
-    idx = torch.tensor([k * Dh + i for k in used for i in range(Dh)],
-                       device=w.device)
-    return w.index_select(-1, idx)
+def _kv_columns(leaf, device, used: list, Dh: int) -> torch.Tensor:
+    """The columns (last axis, KV·Dh) of the KV heads ``used`` of a leaf,
+    on ``device``: each run of consecutive heads taken (``take``) from
+    the shards that hold it, so a position gathers the heads it reads and
+    not the whole leaf."""
+    runs: list = []
+    for k in used:
+        if runs and k == runs[-1][1] + 1:
+            runs[-1][1] = k
+        else:
+            runs.append([k, k])
+    lead = (slice(None),) * (len(leaf.shape) - 1)
+    parts = [take(leaf, device, lead + (slice(a * Dh, (b + 1) * Dh),))
+             for a, b in runs]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
 def _stripe_qkv(h, p, cfg: ModelConfig, m: int, M: int, used: list,
@@ -591,15 +604,11 @@ def _stripe_qkv(h, p, cfg: ModelConfig, m: int, M: int, used: list,
     if cfg.qk_norm:
         q = rms_norm(q, gather(p["q_norm"], dev), cfg.norm_eps)
     nu = len(used)
-    k = (h @ _kv_columns(gather(p["wk"], dev), used, Dh)).reshape(
-        B, S, nu, Dh)
-    v = (h @ _kv_columns(gather(p["wv"], dev), used, Dh)).reshape(
-        B, S, nu, Dh)
+    k = (h @ _kv_columns(p["wk"], dev, used, Dh)).reshape(B, S, nu, Dh)
+    v = (h @ _kv_columns(p["wv"], dev, used, Dh)).reshape(B, S, nu, Dh)
     if cfg.attn_bias:
-        k = k + _kv_columns(gather(p["bk"], dev), used, Dh).reshape(
-            1, 1, nu, Dh)
-        v = v + _kv_columns(gather(p["bv"], dev), used, Dh).reshape(
-            1, 1, nu, Dh)
+        k = k + _kv_columns(p["bk"], dev, used, Dh).reshape(1, 1, nu, Dh)
+        v = v + _kv_columns(p["bv"], dev, used, Dh).reshape(1, 1, nu, Dh)
     if cfg.qk_norm:
         k = rms_norm(k, gather(p["k_norm"], dev), cfg.norm_eps)
     return (apply_rope(q, positions, cfg.rope_theta),
@@ -749,20 +758,23 @@ def _attention_cache_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, cache,
                 scale), NEG_INF)
             logits.append(l)
             maxes.append(l.amax(-1))
-        mx = torch.stack([t.to(x.device) for t in maxes]).amax(0)
+        with collective("all-reduce"):
+            mx = torch.stack([t.to(x.device) for t in maxes]).amax(0)
         es = [torch.exp(l - mx.to(l.device)[..., None]) for l in logits]
-        tot = es[0].sum(-1).to(x.device)
-        for e in es[1:]:
-            tot = tot + e.sum(-1).to(x.device)
+        with collective("all-reduce"):
+            tot = es[0].sum(-1).to(x.device)
+            for e in es[1:]:
+                tot = tot + e.sum(-1).to(x.device)
         outs = [_pv((e / tot.to(e.device)[..., None]).to(DTYPE), vc,
                     None if qmap is None else qmap.to(vc.device))
                 for e, vc in zip(es, vs)]                   # (B, S, Hp, Dh)
         parts = []
         for m in range(M):
             dev = grid[r, m]
-            acc = outs[0][:, :, m * hl:(m + 1) * hl].to(dev)
-            for o in outs[1:]:
-                acc = acc + o[:, :, m * hl:(m + 1) * hl].to(dev)
+            with collective("reduce-scatter"):
+                acc = outs[0][:, :, m * hl:(m + 1) * hl].to(dev)
+                for o in outs[1:]:
+                    acc = acc + o[:, :, m * hl:(m + 1) * hl].to(dev)
             parts.append(acc.to(DTYPE).reshape(B, S, hl * Dh)
                          @ _model_part(p["wo"], dev, 0, m, M))
         ys.append(_psum(parts, x.device))
@@ -990,7 +1002,8 @@ def moe_block(x, p, cfg: ModelConfig, dist: Dist = NO_DIST):
     ``dist`` active (x a list of data rows or a whole batch): the
     reference's choice of dispatch over all T = B·S tokens — global (all
     tokens at once, on the first position) at T ≤
-    ``MOE_GLOBAL_DISPATCH_MAX_TOKENS``; expert-parallel when the config
+    ``MOE_GLOBAL_DISPATCH_MAX_TOKENS`` (``dist.moe_global_max_tokens``
+    where set); expert-parallel when the config
     says "ep", the experts divide over ``model`` and T over data × model
     (``_moe_ep``); else tensor-parallel experts (``_moe_tp``)."""
     if not dist.active:
@@ -1011,7 +1024,9 @@ def _moe_mesh(rows, p, cfg: ModelConfig, dist: Dist):
     T_total = sum(r.shape[0] * r.shape[1] for r in rows)
     hs = [rms_norm(x, gather(p["ln"], x.device), cfg.norm_eps).reshape(
         -1, x.shape[-1]) for x in rows]
-    if T_total <= MOE_GLOBAL_DISPATCH_MAX_TOKENS:
+    most = MOE_GLOBAL_DISPATCH_MAX_TOKENS if dist.moe_global_max_tokens \
+        is None else dist.moe_global_max_tokens
+    if T_total <= most:
         branch = "global"
     elif moe.parallelism == "ep" and moe.n_experts % ep == 0 \
             and T_total % (dp * ep) == 0:
@@ -1044,7 +1059,8 @@ def _moe_mesh(rows, p, cfg: ModelConfig, dist: Dist):
         auxes.extend(a)
     # the reference's pmean over the token axes (EP) / batch axes (TP)
     dev = grid[0, 0]
-    aux = sum(a.to(dev) for a in auxes) / len(auxes)
+    with collective("all-reduce"):
+        aux = sum(a.to(dev) for a in auxes) / len(auxes)
     return ys, aux
 
 
@@ -1077,7 +1093,8 @@ def _moe_ep(h, p, cfg: ModelConfig, devices, cap: int, n_groups: int):
     ep = len(devices)
     E, k = cfg.moe.n_experts, cfg.moe.top_k
     E_loc = E // ep
-    xs = [c.to(d) for c, d in zip(h.chunk(ep), devices)]
+    with collective("all-to-all"):
+        xs = [c.to(d) for c, d in zip(h.chunk(ep), devices)]
     routed = [_route(xf, gather(p["router"], d), k)
               for xf, d in zip(xs, devices)]
     w = [tuple(_model_part(p[n], d, 0, m, ep) for n in ("w1", "w2", "w3"))
@@ -1094,14 +1111,17 @@ def _moe_ep(h, p, cfg: ModelConfig, devices, cap: int, n_groups: int):
             gates.append(gt[sl])
         outs = []
         for m, d in enumerate(devices):
-            recv = torch.cat([b[m * E_loc:(m + 1) * E_loc].to(d)
-                              for b in bufs], dim=1)       # (E_loc, ep·C, D)
+            with collective("all-to-all"):
+                recv = torch.cat([b[m * E_loc:(m + 1) * E_loc].to(d)
+                                  for b in bufs], dim=1)   # (E_loc, ep·C, D)
             outs.append(_expert_ffn(recv, *w[m]))
         for i, d in enumerate(devices):
-            back = torch.cat([o[:, i * cap:(i + 1) * cap].to(d)
-                              for o in outs])               # (E, C, D)
+            with collective("all-to-all"):
+                back = torch.cat([o[:, i * cap:(i + 1) * cap].to(d)
+                                  for o in outs])           # (E, C, D)
             ys[i].append(_group_combine(back, slots[i], gates[i], E, cap))
-    y = torch.cat([torch.cat(parts).to(h.device) for parts in ys])
+    with collective("all-to-all"):
+        y = torch.cat([torch.cat(parts).to(h.device) for parts in ys])
     return y, [a for _, _, a in routed]
 
 

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
-from repro_torch.launch.shardings import Sharded, gather, take
+from repro_torch.launch.shardings import Sharded, collective, gather, take
 from repro_torch.models import layers
 from repro_torch.models.layers import NO_DIST, Dist, _on_rows, rms_norm
 
@@ -229,9 +229,10 @@ def _mamba_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, state,
             if want_state:
                 ssm_shards[(r, m)] = new_ssm
                 convs.append(new_conv)
-        tot = sq[0].to(x.device)
-        for t in sq[1:]:
-            tot = tot + t.to(x.device)
+        with collective("all-reduce"):
+            tot = sq[0].to(x.device)
+            for t in sq[1:]:
+                tot = tot + t.to(x.device)
         rstd = torch.rsqrt(tot / di + cfg.norm_eps)
         parts = []
         for m, g in enumerate(gs):

@@ -55,8 +55,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.shardings import (Sharded, gather, gather_tree,
-                                          stack_sharded)
+from repro_torch.launch.shardings import (Sharded, collective, gather,
+                                          gather_tree, stack_sharded)
 from repro_torch.models.layers import (DTYPE, NO_DIST, Dist, PagedShard,
                                        _model_part, _psum, _row_stripes,
                                        attention_block, join_rows, mlp_block,
@@ -666,12 +666,14 @@ def _ce_stripes(hc, label, ws, devices):
     for m, (d, w) in enumerate(zip(devices, ws)):
         logits = (hc.to(d) @ w).float()                       # (B, C, V/M)
         mx = logits.amax(-1).detach()
-        sums.append(torch.exp(logits - mx[..., None]).sum(-1).to(hc.device))
-        maxes.append(mx.to(hc.device))
+        s = torch.exp(logits - mx[..., None]).sum(-1)
         local = label.to(d) - m * Vm
         g = torch.gather(logits, -1, local.clamp(0, Vm - 1)[..., None])[..., 0]
-        golds.append(torch.where((local >= 0) & (local < Vm), g, 0.0)
-                     .to(hc.device))
+        g = torch.where((local >= 0) & (local < Vm), g, 0.0)
+        with collective("all-reduce"):
+            sums.append(s.to(hc.device))
+            maxes.append(mx.to(hc.device))
+            golds.append(g.to(hc.device))
     mx = torch.stack(maxes).amax(0)
     z = sums[0] * torch.exp(maxes[0] - mx)
     gold = golds[0]
@@ -740,8 +742,9 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
                                                  hr.device), cfg.norm_eps),
                      lr, cfg, grid[r]) for r, (hr, lr) in
             enumerate(zip(h, split_rows(labels, dist)))]
-    tot = sum(t.to(dev) for t, _ in sums)
-    cnt = sum(c.to(dev) for _, c in sums)
+    with collective("all-reduce"):
+        tot = sum(t.to(dev) for t, _ in sums)
+        cnt = sum(c.to(dev) for _, c in sums)
     return tot / torch.clamp(cnt, min=1.0) + 0.01 * aux
 
 

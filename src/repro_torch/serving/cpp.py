@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch.shardings import collective
 from repro_torch.models.layers import DTYPE, attention_block, mlp_block, rms_norm
 from repro_torch.models.transformer import _embed, _layer, _logits_at, prefill
 
@@ -96,13 +97,15 @@ def cpp_prefill(params, tokens, cfg: ModelConfig, mesh, *,
             y = _stage_body(x, p_attn, p_mlp, cfg, k_buf, v_buf,
                             c * prefill_chunk)
             if s + 1 < X:
-                nxt[s + 1] = y.to(devs[s + 1])   # hand to the next stage
+                with collective("collective-permute"):
+                    nxt[s + 1] = y.to(devs[s + 1])   # to the next stage
             elif c == C - 1:
                 h_last = y
         inbox = nxt
         schedule.append(tuple(ran))
     cpp_prefill.last_schedule = schedule
-    h_last = h_last.to(x_emb.device)
+    with collective("collective-permute"):
+        h_last = h_last.to(x_emb.device)
     h_last = rms_norm(h_last, params["final_ln"], cfg.norm_eps)
     logits = _logits_at(params, h_last[:, -1:, :], cfg)[:, 0]
     return logits, ([st[2] for st in stages], [st[3] for st in stages])

@@ -23,7 +23,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from repro_torch.launch.shardings import Sharded, position_device
+from repro_torch.launch.shardings import Sharded, collective, position_device
 
 
 class OptState(NamedTuple):
@@ -170,7 +170,9 @@ def _mean_over(p: Sharded, parts, spec, n: int) -> dict:
         k = _reduced_key(spec, c)
         dev = position_device(p.mesh, {a: c[a] for a in spec
                                        if a is not None})
-        t = parts(key).to(dev)
+        t = parts(key)
+        with collective("all-reduce"):
+            t = t.to(dev)
         acc[k] = t if k not in acc else acc[k] + t
     return {k: t / n for k, t in acc.items()}
 
@@ -213,7 +215,9 @@ def _adafactor_sharded(p: Sharded, g: Sharded, m: Sharded, v, *, lr, b1,
         def u_of(key):
             return g.shards[key].float() * torch.rsqrt(v2.shards[key] + eps)
     # update clipping at RMS 1.0, over the whole leaf
-    ss = sum((u * u).sum().to(first) for u in map(u_of, p.shards))
+    sq = [(u * u).sum() for u in map(u_of, p.shards)]
+    with collective("all-reduce"):
+        ss = sum(t.to(first) for t in sq)
     rms = torch.sqrt(ss / p.numel() + eps)
     new_p, new_m = {}, {}
     for key, t in p.shards.items():

@@ -1038,3 +1038,42 @@ def test_context_parallel_decode_on_the_card(cuda, ring):
         assert (lm - lw).abs().max().item() \
             <= 4 * 2.0 ** (np.floor(np.log2(scale)) - 7)
         tok = lw.argmax(-1).to(torch.int32)
+
+
+@pytest.mark.cuda
+def test_dry_run_predicts_the_arguments_on_the_card(cuda):
+    """The dry run's argument bytes of smollm-360m.reduced()'s prefill on
+    a 1x1 mesh (stand-in positions, host only) equal the bytes of the
+    tensors the step receives on the card, and the step's peak is at
+    least those; the dry run imports no jax (this machine has none)."""
+    import sys
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.dryrun import dry_run
+    from repro_torch.launch.mesh import Mesh, make_standin_mesh
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.steps import (ShapeSpec, make_dist,
+                                          make_prefill_step)
+    from repro_torch.models.transformer import init_params
+    assert "jax" not in sys.modules
+    cfg = get_config("smollm-360m").reduced()
+    shape = ShapeSpec("prefill", "prefill", 256, 2)
+    rec = dry_run(cfg, shape, make_standin_mesh((1, 1), ("data", "model")))
+    mesh = Mesh(np.asarray([[cuda]], dtype=object), ("data", "model"))
+    params = init_params(cfg, torch.Generator().manual_seed(0), cuda)
+    sp = shard_params(cfg, params, mesh)
+    del params
+    tok = torch.zeros((2, 256), dtype=torch.int32, device=cuda)
+    got = tok.nbytes + sum(t.nbytes for leaf in sp.values()
+                           for t in (leaf.shards.values()
+                                     if hasattr(leaf, "shards") else
+                                     (x for v in leaf.values()
+                                      for x in v.shards.values())))
+    assert got == rec["memory"]["argument_bytes_total"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    logits, _ = make_prefill_step(cfg, make_dist(mesh, shape))(sp, tok, {})
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits).all()
+    assert torch.cuda.max_memory_allocated() >= got
+    assert "jax" not in sys.modules
