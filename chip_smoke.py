@@ -204,6 +204,22 @@ Phases, each printed as it runs; any failure exits non-zero:
      (the other two shapes are held in phase 18); the predicted peak and
      roofline bound read beside the measured peak and wall, the launches
      counted into the kernels line.
+ 20. where mesh steps keep what they make, every position of a (2, 2)
+     mesh on the card: (a) ``make_prefill_step`` over 2 x 4096 tokens of
+     llama2-70b (full width, 8 of 80 layers) and mamba2-2.7b (full width
+     and depth): the caches come back ``Sharded`` by ``cache_specs``,
+     gathered bit for bit the joined caches (a copy of the join is kept
+     in the phase), each position's cache bytes, the peak, the launches;
+     4 serve steps from them as they are within ``serve_ulps`` of the
+     unsharded step; (b) the MoE global dispatch (2 x 1024 tokens) of a
+     full-width qwen3-moe (ep) and mixtral (tp) layer, bit for bit the
+     dispatch on one position, the bytes copied into (0, 0) before and
+     after (the dry run's stand-in count); (c) smollm-360m at full width
+     through ``ChunkedPrefill`` (one ``advance()`` a 256-token chunk,
+     drained bit-exact with the blocking call) and one paged decode
+     step, both held against the same pass under ``plain_attention()``
+     within phase 5's 4 bf16 ulps, and each op ``repro_torch.kernels``
+     exports against its exported oracle.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -2769,7 +2785,7 @@ def prefill_mesh_llama(torch, device="cuda", seq=4096) -> dict:
     chunked-prefill launch per (position, layer), each on 32 query heads
     over 4 KV heads; the logits within 4 bf16 ulps of the unsharded
     ``prefill``'s."""
-    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.shardings import gather, shard_params
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.transformer import prefill
     cfg, params = llama_cut(torch, device)
@@ -2797,8 +2813,8 @@ def prefill_mesh_llama(torch, device="cuda", seq=4096) -> dict:
     err = (lk - lu).abs().max().item()
     scale = lu.abs().max().item()
     tol = bf16_ulps(4, scale)
-    kv_err = max((a.float() - b.float()).abs().max().item()
-                 / b.float().abs().max().item()
+    kv_err = max((gather(a, device).float() - b.float()).abs().max().item()
+                 / b.float().abs().max().item()       # the stripes joined
                  for a, b in ((ck.kv.k, cu.kv.k), (ck.kv.v, cu.kv.v)))
     heads = sorted(set(shapes.calls))
     log(f"(b) {cfg.name} ({cfg.n_layers} layers) make_prefill_step on 2x2, "
@@ -3078,7 +3094,7 @@ def serve_ulps(cfg) -> float:
 
 def hold_serve(torch, what, lm, lw, bound_ulps=4) -> tuple:
     """One step of a mesh's serve step against the unsharded step on the
-    same inputs: the logits within ``bound_ulps`` bf16 ulps of the
+    same inputs (or any step against its reference): the logits within ``bound_ulps`` bf16 ulps of the
     largest, the argmax equal wherever the unsharded top-2 gap leaves
     room for it (more than twice the error). Returns (error in ulps,
     rows too close to call)."""
@@ -3090,9 +3106,9 @@ def hold_serve(torch, what, lm, lw, bound_ulps=4) -> tuple:
     same = bool(torch.equal(lm.argmax(-1)[decisive], lw.argmax(-1)[decisive]))
     if not bool(torch.isfinite(lm).all()) or err > bound_ulps * ulp \
             or not same:
-        raise AssertionError(f"{what}: the mesh's serve step disagrees with "
-                             f"the unsharded step ({err / ulp:.2f} ulps, "
-                             f"streams equal where decided: {same})")
+        raise AssertionError(f"{what}: disagrees with its reference "
+                             f"step ({err / ulp:.2f} ulps, streams equal "
+                             f"where decided: {same})")
     return err / ulp, int((~decisive).sum())
 
 
@@ -3344,7 +3360,7 @@ def prefill_mesh_mamba(torch, timer, device="cuda", seq=4096) -> dict:
     gap exceeds twice the measured error. Then ``ssd_scan`` at the
     stripe's shape timed beside its plain version (phase 6's check)."""
     from repro_torch.configs.base import get_config
-    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.shardings import gather, shard_params
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.layers import plain_attention
     from repro_torch.models.transformer import prefill
@@ -3391,7 +3407,7 @@ def prefill_mesh_mamba(torch, timer, device="cuda", seq=4096) -> dict:
     top2 = lu.topk(2, dim=-1).values
     decisive = (top2[..., 0] - top2[..., 1]) > 2 * err
     same = bool(torch.equal(lk.argmax(-1)[decisive], lu.argmax(-1)[decisive]))
-    st_err = max(rel(a, b) for a, b in zip(ck.ssm, cu.ssm))
+    st_err = max(rel(gather(a, device), b) for a, b in zip(ck.ssm, cu.ssm))
     own = (lu - lp).abs().max().item() / ulp
     own_st = max(rel(a, b) for a, b in zip(cu.ssm, cp.ssm))
     log(f"(c) {cfg.name} ({cfg.n_layers} layers) make_prefill_step on 2x2, "
@@ -3671,6 +3687,442 @@ def e2e_dryrun(torch, device="cuda") -> dict:
             "seconds": time.monotonic() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: where mesh steps keep what they make, and the main path again
+# ---------------------------------------------------------------------------
+
+def joined_prefill(torch, params, tokens, cfg, dist):
+    """The placement a mesh prefill's caches had before they stayed on
+    their stripes, kept here for the comparison only: the same forward,
+    every data row's KV joined on the mesh's first position and the
+    Mamba2 states gathered whole there. Returns (kv, ssm) tensors."""
+    from repro_torch.launch.shardings import gather
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import join_rows
+    from repro_torch.models.mamba import MambaState
+    with torch.no_grad():
+        x = T._embed(params, tokens, cfg, dist)
+        _, _, kvs, ssm = T._run_stack(
+            params, x, cfg, mode="prefill",
+            caches=T.Caches(kv=None, length=0), dist=dist)
+    dev = dist.grid()[0, 0]
+    kv = None
+    if kvs:
+        kv = T.KVCache(*(torch.stack([join_rows([p[i] for p in rows], dev)
+                                      for rows in kvs]) for i in range(2)))
+    if ssm is not None:
+        ssm = MambaState(ssm=gather(ssm.ssm, dev), conv=gather(ssm.conv, dev))
+    return kv, ssm
+
+
+def prefill_stripes(torch, cfg, params, device="cuda", seq=4096,
+                    steps=4) -> dict:
+    """(a): ``make_prefill_step`` over 2 x ``seq`` tokens on (2, 2): its
+    caches ``Sharded`` by ``cache_specs``, gathered bit for bit
+    ``joined_prefill``'s, each position's bytes read off its shards;
+    then ``steps`` serve steps of ``make_serve_step`` at ``seq`` + 8
+    slots from them as they are (the step gives them the room), against
+    the unsharded serve step from the same caches gathered, within
+    ``serve_ulps`` (phase 18's rule), fed the unsharded stream."""
+    import dataclasses
+
+    from repro_torch.launch.shardings import Sharded, gather, shard_params
+    from repro_torch.launch.steps import (INPUT_SHAPES, cache_specs,
+                                          make_dist, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models.layers import NO_DIST
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    shape = dataclasses.replace(INPUT_SHAPES["decode_32k"], batch=2,
+                                seq=seq + 8)
+    mesh = mesh_dist(torch, device).mesh
+    dist = make_dist(mesh, shape)
+    sp = shard_params(cfg, params, mesh)
+    gen = torch.Generator(device=device).manual_seed(201)
+    toks = torch.randint(0, cfg.vocab_size, (2, seq), generator=gen,
+                         device=device)
+    step = make_prefill_step(cfg, dist)
+    step(sp, toks[:, :512], {})                          # warm-up
+    sync()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero_kernel_counts()
+    t0 = time.monotonic()
+    logits, caches = step(sp, toks, {})
+    sync()
+    wall = time.monotonic() - t0
+    launches = kernel_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    specs = cache_specs(cfg, shape, dist)
+    per_pos: dict = {}
+    for f in ("kv", "ssm"):
+        for a, s in zip(getattr(caches, f) or (), getattr(specs, f) or ()):
+            if not isinstance(a, Sharded) or a.spec != tuple(s):
+                raise AssertionError(f"(a) {cfg.name}: a {f} leaf is not "
+                                     f"laid out by cache_specs")
+            for key, t in a.shards.items():
+                co = a.coords(key)
+                lab = f"({co.get('data', 0)}, {co.get('model', 0)})"
+                per_pos[lab] = per_pos.get(lab, 0) + t.numel() \
+                    * t.element_size()
+    kv_j, ssm_j = joined_prefill(torch, sp, toks, cfg, dist)
+    same = True
+    if kv_j is not None:
+        for a, b in zip(caches.kv, kv_j):
+            same &= bool(torch.equal(gather(a, device), b))
+    if ssm_j is not None:
+        for a, b in zip(caches.ssm, ssm_j):
+            same &= bool(torch.equal(gather(a, device), b))
+    total = sum(b.numel() * b.element_size() for g in (kv_j, ssm_j)
+                if g is not None for b in g)
+    del kv_j, ssm_j
+    whole = caches._replace(**{f: type(getattr(caches, f))(
+        *(gather(t, device) for t in getattr(caches, f)))
+        for f in ("kv", "ssm") if getattr(caches, f) is not None})
+    serve = make_serve_step(cfg, dist, shape)
+    single = make_serve_step(cfg, NO_DIST, shape)
+    nxt = logits.argmax(-1)[:, None].to(torch.int32)
+    worst = 0.0
+    for _ in range(steps):
+        lw, whole = single(params, nxt, whole)
+        lm, caches = serve(sp, nxt, caches)
+        e, _ = hold_serve(torch, f"(a) {cfg.name}", lm, lw, serve_ulps(cfg))
+        worst = max(worst, e)
+        nxt = lw.argmax(-1).to(torch.int32)
+    if caches.length != seq + steps or whole.length != seq + steps:
+        raise AssertionError(f"(a) {cfg.name}: lengths {caches.length}, "
+                             f"{whole.length}")
+    log(f"(a) {cfg.name} ({cfg.n_layers} layers) make_prefill_step on 2x2, "
+        f"2 x {seq} tokens: caches Sharded by cache_specs, gathered equal "
+        f"to the joined caches bit for bit: {same}; bytes a position "
+        f"{json.dumps(per_pos)} of {total} in all (the joined form held "
+        f"them all on (0, 0)); peak {peak / 1e9:.3f} GB; "
+        f"{wall * 1e3:.1f} ms; launches flash_prefill "
+        f"{launches['flash_prefill']}, ssd_scan {launches['ssd_scan']}; "
+        f"{steps} serve steps from the stripes as they are: worst "
+        f"{worst:.2f} ulps (tol {serve_ulps(cfg):g})")
+    if not same or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"(a) {cfg.name}: the striped caches are not "
+                             f"the joined ones")
+    if len(per_pos) != 4 or len(set(per_pos.values())) != 1:
+        raise AssertionError(f"(a) {cfg.name}: the stripes are uneven "
+                             f"{per_pos}")
+    del sp, caches, whole
+    return dict(launches=launches, per_position=per_pos, total=total,
+                peak=peak, wall_ms=wall * 1e3, worst_ulps=worst)
+
+
+def global_whole(torch, hs, p, cfg, dev, T_total):
+    """The MoE global dispatch before it ran where the experts are, kept
+    here for the comparison only: every row's tokens and every expert's
+    weights gathered on the first position."""
+    from repro_torch.launch.shardings import gather
+    from repro_torch.models import layers as L
+    h = torch.cat([t.to(dev) for t in hs])
+    return L._moe_dispatch_compute(
+        h, gather(p["router"], dev), gather(p["w1"], dev),
+        gather(p["w2"], dev), gather(p["w3"], dev), cfg.moe.top_k,
+        L.moe_capacity(cfg, T_total))
+
+
+def global_moved(torch, cfg, tokens) -> dict:
+    """Bytes copied into (0, 0), and the most into any position, by one
+    global dispatch of 2 rows x ``tokens`` on a 2x2 mesh, before
+    (``global_whole``) and after (``_moe_global``): the dry run's count
+    on stand-in positions (every position of the card's mesh is
+    ``cuda:0``, so no copy shows there)."""
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_standin_mesh
+    from repro_torch.launch.op_analysis import OpAnalysis, standin
+    from repro_torch.models import layers as L
+    mesh = make_standin_mesh((2, 2), ("data", "model"))
+    grid = mesh.devices
+    p = DR._moe_layer(cfg, mesh, False)
+    hs = [standin((tokens, cfg.d_model), L.DTYPE, grid[r, 0])
+          for r in range(2)]
+    out = {}
+    for name, fn in (
+            ("before", lambda: global_whole(torch, hs, p, cfg, grid[0, 0],
+                                            2 * tokens)),
+            ("after", lambda: L._moe_global(hs, p, cfg, grid, 2 * tokens))):
+        mode = OpAnalysis()
+        with mode, torch.no_grad():
+            fn()
+        got = {d: t.record()["collective_total"]
+               for d, t in mode.tallies.items()}
+        out[name] = (got.get(grid[0, 0], 0), max(got.values()))
+    return out
+
+
+def moe_global_case(torch, timer, name, device="cuda", tokens=1024) -> dict:
+    """(b): one full-width MoE layer's ``moe_block`` on (2, 2) over 2 x
+    ``tokens`` (T = 2048: the global dispatch) from ``shard_params``'
+    slices, against ``global_whole`` on the same inputs: y and aux bit
+    for bit (each position runs whole experts, so no partial sum
+    rounds). ``device="cpu"``: the reduced width."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.shardings import gather, shard_params
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import _init_moe
+    cfg = get_config(name)
+    if device != "cuda":
+        cfg = cfg.reduced()
+    gen = torch.Generator(device=device).manual_seed(20)
+    p = _init_moe(gen, cfg, 1)
+    dist = mesh_dist(torch, device)
+    spm = {k: v[0] for k, v in
+           shard_params(cfg, {"moe": p}, dist.mesh)["moe"].items()}
+    del p
+    x = (0.3 * torch.randn((2, tokens, cfg.d_model), generator=gen,
+                           device=device)).to(torch.bfloat16)
+    with torch.no_grad():
+        with L.record_moe_branches() as taken:
+            y, aux = L.moe_block(x, spm, cfg, dist)
+        hs = [L.rms_norm(r, gather(spm["ln"], r.device), cfg.norm_eps)
+              .reshape(-1, cfg.d_model) for r in L.split_rows(x, dist)]
+        want, want_aux = global_whole(torch, hs, spm, cfg,
+                                      dist.grid()[0, 0], 2 * tokens)
+        want = want.view(x.shape)
+        ms = whole_ms = None
+        if timer is not None:
+            ms = timer.ms(lambda: L.moe_block(x, spm, cfg, dist), iters=5,
+                          warmup=1)
+            whole_ms = timer.ms(lambda: global_whole(
+                torch, hs, spm, cfg, dist.grid()[0, 0], 2 * tokens),
+                iters=5, warmup=1)
+    same = bool(torch.equal(y, want)) and bool(torch.equal(aux, want_aux))
+    err = (y.float() - want.float()).abs().max().item()
+    moved = global_moved(torch, cfg, tokens)
+    log(f"(b) {cfg.name} ({cfg.moe.parallelism}) moe_block on 2x2, T = "
+        f"{2 * tokens}: branch {taken}; bitwise the dispatch on one "
+        f"position: {same} (max_abs_err {err:.3e}); bytes copied into "
+        f"(0, 0) {moved['before'][0]} before, {moved['after'][0]} after, "
+        f"into the busiest position {moved['before'][1]} before, "
+        f"{moved['after'][1]} after (stand-in count); the dispatch "
+        + (f"{ms:.3f} ms vs {whole_ms:.3f} ms on one position"
+           if ms is not None else "not timed (cpu)"))
+    if taken != ["global"] or not same \
+            or not bool(torch.isfinite(y.float()).all()):
+        raise AssertionError(f"(b) {cfg.name}: the global dispatch differs "
+                             f"from the one-position dispatch")
+    return dict(same=same, ms=ms, whole_ms=whole_ms, moved=moved)
+
+
+def chunked_pass(torch, params, cfg, prompts, first=None) -> tuple:
+    """One pass of (c)'s path with fresh workers: each prompt through
+    ``ChunkedPrefill`` — one ``advance()`` a 256-token chunk, ``done``
+    only at the end, ``chunks_done`` = ⌈prompt / 256⌉ — then one paged
+    decode step over them all. ``first``: the first tokens the decode
+    starts from in place of the pass's own (the plain pass is fed the
+    kernel pass's). The workers' ``_chunk_extend`` and ``_paged_call``
+    are wrapped, on these instances only, to keep the logits they
+    return. Returns (the ChunkedPrefills, each prompt's last prefill
+    logits (P, V), the decode step's logits of the active slots (P, V),
+    the step's output)."""
+    import dataclasses
+
+    from repro_torch.serving.engine import (DecodeWorker, HostKVPool,
+                                            PrefillWorker)
+    from repro_torch.serving.request import ServingRequest
+    pw = PrefillWorker(params, cfg, HostKVPool(), prefill_chunk=256)
+    dw = DecodeWorker(params, cfg, max_batch=4, max_len=2048)
+    seen = {"prefill": [], "decode": []}
+
+    def keeping(fn, key):
+        def call(*args):
+            out = fn(*args)
+            logits = out[0] if isinstance(out, tuple) else out
+            seen[key].append(logits[:, -1].float())
+            return out
+        return call
+    pw._chunk_extend = keeping(pw._chunk_extend, "prefill")
+    dw._paged_call = keeping(dw._paged_call, "decode")
+    cps, last = [], []
+    for i, toks in enumerate(prompts):
+        cp = pw.start(toks)
+        while not cp.advance():
+            if cp.done:
+                raise AssertionError("(c) done before the last chunk")
+        want = -(-len(toks) // 256)
+        if not cp.done or cp.chunks_done != want \
+                or cp.prompt_len != len(toks):
+            raise AssertionError(f"(c) prompt {i}: chunks_done "
+                                 f"{cp.chunks_done}, want {want}")
+        last.append(seen["prefill"][-1][0])
+        res = cp.result if first is None else dataclasses.replace(
+            cp.result, first_token=first[i])
+        dw.join(ServingRequest(req_id=i, tokens=toks, max_new=4), res)
+        cps.append(cp)
+    active = [i for i, sl in enumerate(dw.slots) if sl is not None]
+    out = dw.step()
+    return cps, torch.stack(last), seen["decode"][-1][active], out
+
+
+def chunked_main_path(torch, device="cuda") -> dict:
+    """(c): smollm-360m at full width through ``ChunkedPrefill`` and one
+    paged decode step (``chunked_pass``); the main path's launches read
+    right after. The same pass then runs under ``plain_attention()``,
+    fed the kernel pass's first tokens: each prompt's last prefill
+    logits and the decode step's logits within phase 5's 4 bf16 ulps of
+    the plain ones, the first tokens equal wherever the plain top-2 gap
+    decides them. Each drained prefill is held bit for bit against the
+    blocking call of a fresh worker."""
+    import numpy as np
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.layers import plain_attention
+    from repro_torch.serving.engine import HostKVPool, PrefillWorker
+    cfg = get_config("smollm-360m")
+    if device != "cuda":
+        cfg = cfg.reduced()
+    params = draw_params(torch, cfg, device)
+    rng = np.random.default_rng(20)
+    prompts = [rng.integers(0, cfg.vocab_size, n) for n in (700, 1536, 257)]
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    zero_kernel_counts()
+    cps, last, dec, out = chunked_pass(torch, params, cfg, prompts)
+    sync()
+    launches = kernel_counts()
+    chunks = sum(cp.chunks_done for cp in cps)
+    with plain_attention():
+        _, last_p, dec_p, _ = chunked_pass(
+            torch, params, cfg, prompts,
+            first=[cp.result.first_token for cp in cps])
+    sync()
+    e_pre, close_pre = hold_serve(torch, "(c) chunked prefill, kernels vs "
+                                  "plain", last, last_p, 4)
+    e_dec, close_dec = hold_serve(torch, "(c) paged decode step, kernels "
+                                  "vs plain", dec, dec_p, 4)
+    exact = True
+    for toks, cp in zip(prompts, cps):
+        ref = PrefillWorker(params, cfg, HostKVPool(), prefill_chunk=256)(toks)
+        got = cp.drain()
+        exact &= got.first_token == ref.first_token \
+            and bool(torch.equal(got.kv_k, ref.kv_k)) \
+            and bool(torch.equal(got.kv_v, ref.kv_v))
+    log(f"(c) {cfg.name}: prompts {[len(t) for t in prompts]} through "
+        f"ChunkedPrefill: chunks_done {[cp.chunks_done for cp in cps]} "
+        f"(= ceil(prompt / 256)); drained bit-exact with the blocking "
+        f"call: {exact}; one paged decode step over {len(out)} slots; "
+        f"against the same pass under plain_attention(): last prefill "
+        f"logits {e_pre:.2f} ulps ({close_pre} first tokens too close to "
+        f"call), decode logits {e_dec:.2f} ulps ({close_dec} too close) "
+        f"(tol 4 bf16 ulps); launches flash_prefill "
+        f"{launches['flash_prefill']} (= {cfg.n_layers} x {chunks} "
+        f"chunks), paged_attention {launches['paged_attention']} (= "
+        f"{cfg.n_layers} x 1 step)")
+    if not exact or len(out) != 3:
+        raise AssertionError("(c) the chunked prefill is not the blocking "
+                             "one")
+    if device == "cuda" and (
+            launches["flash_prefill"] != cfg.n_layers * chunks
+            or launches["paged_attention"] != cfg.n_layers):
+        raise AssertionError(f"(c) launches {launches}")
+    return dict(launches=launches, chunks=[cp.chunks_done for cp in cps],
+                prefill_ulps=e_pre, decode_ulps=e_dec)
+
+
+def exported_ops(torch, device="cuda") -> dict:
+    """(c): each op ``repro_torch.kernels`` and its subpackages export,
+    called once against its exported oracle on the same inputs: the two
+    attention ops within 2e-2 (bf16), the SSD scan's y and final state
+    within ``SSD_TOL`` of their scale (both fp32; ``ssd_naive_ref``
+    beside it on a short prefix). Their launches are comparisons: the
+    caller reads the main path's counts before."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.flash_prefill import flash_prefill_ref
+    from repro_torch.kernels.paged_attention import (
+        paged_attention_layers_ref, paged_attention_ref,
+        paged_decode_attention_layers)
+    from repro_torch.kernels.ssd_scan import ssd_naive_ref, ssd_scan_ref
+    g = torch.Generator(device=device).manual_seed(21)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=device).to(dtype)
+    errs = {}
+    q, k, v = rnd(1, 256, 16, 64), rnd(1, 512, 4, 64), rnd(1, 512, 4, 64)
+    errs["flash_prefill_attention"] = (
+        K.flash_prefill_attention(q, k, v, q_offset=256).float()
+        - flash_prefill_ref(q, k, v, q_offset=256).float()).abs().max().item()
+    B, H, KV, D, P, page = 4, 16, 4, 64, 33, 64
+    table = torch.randperm(P - 1, generator=g, device=device)[:B * 8] \
+        .add(1).view(B, 8).to(torch.int32)
+    lens = torch.tensor([1, 200, 512, 333], dtype=torch.int32, device=device)
+    qd, kp, vp = rnd(B, H, D), rnd(P, page, KV, D), rnd(P, page, KV, D)
+    errs["paged_decode_attention"] = (
+        K.paged_decode_attention(qd, kp, vp, table, lens).float()
+        - paged_attention_ref(qd, kp, vp, table, lens).float()
+    ).abs().max().item()
+    qs, kps, vps = rnd(2, B, H, D), rnd(2, P, page, KV, D), \
+        rnd(2, P, page, KV, D)
+    errs["paged_decode_attention_layers"] = (
+        paged_decode_attention_layers(qs, kps, vps, table, lens).float()
+        - paged_attention_layers_ref(qs, kps, vps, table, lens).float()
+    ).abs().max().item()
+    b, s, h, pd, n = 1, 512, 8, 64, 64
+    x, Bm, Cm = rnd(b, s, h, pd), rnd(b, s, n), rnd(b, s, n)
+    dt = torch.nn.functional.softplus(rnd(b, s, h, dtype=torch.float32))
+    A = -torch.exp(0.5 * rnd(h, dtype=torch.float32))
+    y, st = K.ssd_scan_op(x, dt, A, Bm, Cm, chunk=256)
+    yr, sr = ssd_scan_ref(x, dt, A, Bm, Cm, chunk=256)
+    yn, _ = ssd_naive_ref(x[:, :64], dt[:, :64], A, Bm[:, :64], Cm[:, :64])
+    rel = lambda a, r: ((a.float() - r.float()).abs().max()
+                        / r.float().abs().max()).item()
+    errs["ssd_scan_op"] = max(rel(y, yr), rel(st, sr))
+    errs["ssd_scan_ref vs ssd_naive_ref"] = rel(yr[:, :64], yn)
+    log("(c) the exported ops against their exported oracles: "
+        + json.dumps({k_: float(f"{e:.3e}") for k_, e in errs.items()})
+        + f" (tol {TOL} bf16, {SSD_TOL} of the scale for the SSD scan)")
+    for k_, e in errs.items():
+        if e > (SSD_TOL if "ssd" in k_ else TOL) or e != e:
+            raise AssertionError(f"(c) {k_} disagrees with its oracle")
+    return errs
+
+
+def e2e_placements(torch, timer, device="cuda") -> dict:
+    """Phase 20: (a) prefill caches on their stripes, (b) the MoE global
+    dispatch on the expert shards, (c) the main path through
+    ``ChunkedPrefill``, a paged step and the exported ops."""
+    from repro_torch.configs.base import get_config
+    t0 = time.monotonic()
+    cuda = device == "cuda"
+    out = {}
+    cfg, params = llama_cut(torch, device)
+    out["llama"] = prefill_stripes(torch, cfg, params, device,
+                                   seq=4096 if cuda else 256)
+    del params
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    mcfg = get_config("mamba2-2.7b")
+    if not cuda:
+        mcfg = mcfg.reduced()
+    mparams = draw_params(torch, mcfg, device)
+    out["mamba"] = prefill_stripes(torch, mcfg, mparams, device,
+                                   seq=4096 if cuda else 256)
+    del mparams
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    for name in ("qwen3-moe-235b-a22b", "mixtral-8x7b"):
+        out[name] = moe_global_case(torch, timer, name, device,
+                                    tokens=1024 if cuda else 128)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    out["main"] = chunked_main_path(torch, device)
+    out["ops"] = exported_ops(torch, device)
+    out["launches"] = {k: out["llama"]["launches"][k]
+                       + out["mamba"]["launches"][k]
+                       + out["main"]["launches"][k]
+                       for k in out["main"]["launches"]}
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3869,16 +4321,27 @@ def main() -> int:
         f", ssd_scan {t19['launches']['ssd_scan']} in the predicted steps; "
         f"phase 19 took {t19['seconds']:.1f} s ({smi})")
 
+    phase("20 placements: prefill caches on their stripes, the MoE global "
+          "dispatch on the expert shards; the main path through "
+          "ChunkedPrefill")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t20 = e2e_placements(torch, timer)
+    log(f"phase 20 launches: {json.dumps(t20['launches'])}; phase 20 took "
+        f"{t20['seconds']:.1f} s ({smi})")
+
     kernels = [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:76",
-             launches=launches["paged_attention"], **paged),
+             launches=launches["paged_attention"]
+             + t20["launches"]["paged_attention"], **paged),
         dict(name="flash_prefill", route="cuda",
              source="src/repro_torch/csrc/flash_prefill.cu",
              replaces="src/repro/kernels/flash_prefill/kernel.py:83",
              launches=launches["flash_prefill"] + t17["launches"]
-             + t19["launches"]["flash_prefill"], **pre),
+             + t19["launches"]["flash_prefill"]
+             + t20["launches"]["flash_prefill"], **pre),
         dict(name="paged_attention_layers", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:157",
@@ -3887,7 +4350,8 @@ def main() -> int:
              source="src/repro_torch/csrc/ssd_scan.cu",
              replaces="src/repro/kernels/ssd_scan/kernel.py:79",
              launches=ssd_launches + t18["launches"]
-             + t19["launches"]["ssd_scan"], **ssd),
+             + t19["launches"]["ssd_scan"] + t20["launches"]["ssd_scan"],
+             **ssd),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

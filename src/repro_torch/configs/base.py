@@ -106,13 +106,20 @@ class MoEConfig:
 
 @dataclass(frozen=True)
 class SSMConfig:
-    """Mamba2 mixer shape (one B/C group, the only one the reference's
-    configs use and the SSD kernel takes)."""
+    """Mamba2 mixer shape. One B/C group: the only one the reference's
+    configs use and the port's mixer and SSD kernel take, so any other
+    ``n_groups`` is refused."""
     d_state: int = 128
     d_conv: int = 4
     expand: int = 2
     head_dim: int = 64
+    n_groups: int = 1
     chunk: int = 256  # SSD chunk length
+
+    def __post_init__(self) -> None:
+        if self.n_groups != 1:
+            raise ValueError(f"n_groups={self.n_groups}: the port's Mamba2 "
+                             f"mixer has one B/C group")
 
     def d_inner(self, d_model: int) -> int:
         return self.expand * d_model
@@ -166,6 +173,10 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return _pad_to(self.vocab_size, 256)
+
+    @property
+    def kv_shardable(self) -> bool:
+        return self.n_kv_heads % MODEL_AXIS == 0
 
     @property
     def is_attention_free(self) -> bool:

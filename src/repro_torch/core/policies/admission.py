@@ -73,6 +73,10 @@ class BackpressureSignal:
             if self.queue_capacity else 0.0
 
     @property
+    def slot_frac(self) -> float:
+        return self.slots_used / self.slots_total if self.slots_total else 0.0
+
+    @property
     def page_frac(self) -> float:
         return self.pages_pinned / self.pages_total if self.pages_total \
             else 0.0

@@ -1,4 +1,9 @@
-"""Hopper kernels (CUDA C++ under csrc/) with plain PyTorch versions beside them."""
+"""Hopper kernels (CUDA C++ under csrc/) with plain PyTorch versions beside
+them: flash_prefill (chunked-prefill attention), paged_attention
+(continuous-batching decode over block tables), ssd_scan (the Mamba2 SSD
+mixer). Each ships kernel.py (the build and launch, at first use), ops.py
+(the dispatch) and ref.py (the plain oracle). The ops import
+``refuse_grad`` from here, so the exports follow its definition."""
 from __future__ import annotations
 
 import torch
@@ -19,3 +24,8 @@ def refuse_grad(op: str, *tensors) -> None:
             f"grad. Train through loss_fn, whose train mode runs the "
             f"differentiable plain attention and SSD scan, or call {op} "
             f"under torch.no_grad().")
+
+
+from repro_torch.kernels.flash_prefill import flash_prefill_attention  # noqa: E402
+from repro_torch.kernels.paged_attention import paged_decode_attention  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan_op  # noqa: E402

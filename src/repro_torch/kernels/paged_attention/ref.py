@@ -67,6 +67,59 @@ def paged_attention_ref(q, k_pages, v_pages, block_table, seq_lens, *,
     return out.to(q.dtype)
 
 
+def _piecewise_ref(q, k_pages, v_pages, block_table, seq_lens,
+                   window: int) -> torch.Tensor:
+    """``paged_attention_ref``'s function (grouped GQA), each (slot, head)
+    product reduced on its own by an elementwise product and sum, in one
+    order whatever the batch and head counts (a batched GEMM's blocking
+    follows its shape, so the plain oracle's einsums do not split
+    bitwise)."""
+    B, H, D = q.shape
+    KV = k_pages.shape[2]
+    k = _linearise(k_pages, block_table)                  # (B, S, KV, D)
+    v = _linearise(v_pages, block_table)
+    valid = _valid_mask(k.shape[1], seq_lens, window)
+    idx = torch.arange(H, device=k.device) // (H // KV)
+    k = k.index_select(2, idx).float().transpose(1, 2)    # (B, H, S, D)
+    v = v.index_select(2, idx).transpose(1, 2)
+    logits = (q.float()[:, :, None] * k).sum(-1) * (1.0 / (D ** 0.5))
+    logits = torch.where(valid[:, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v.dtype).float()
+    return (probs[..., None] * v.float()).sum(2).to(q.dtype)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, block_table, seq_lens,
+                              *, n_model: int = 1, n_data: int = 1,
+                              window: int = 0) -> torch.Tensor:
+    """Mesh-free oracle of the sharded decomposition: the KV heads split
+    into ``n_model`` contiguous stripes and the batch rows into
+    ``n_data`` banks, the attention run on every (bank, stripe) piece
+    alone, the pieces joined by concatenation — what the sharded entry
+    does per position, without a mesh. Head-local and row-local
+    attention make every split bitwise the unsplit one (each piece's
+    reductions are ``_piecewise_ref``'s, which do not depend on the
+    piece's size); it is ``paged_attention_ref``'s function up to the
+    order of the sums. Grouped GQA only (the sharded path's boundary):
+    H % KV == 0 and KV % n_model == 0."""
+    B, H, D = q.shape
+    KV = k_pages.shape[2]
+    if H % KV or KV % n_model or B % n_data:
+        raise ValueError(f"H={H}, KV={KV}, B={B} do not split over "
+                         f"{n_model} stripes and {n_data} banks")
+    kv_loc, g = KV // n_model, H // KV
+    rows = B // n_data
+    outs = []
+    for b in range(n_data):
+        r = slice(b * rows, (b + 1) * rows)
+        outs.append(torch.cat([_piecewise_ref(
+            q[r, m * kv_loc * g:(m + 1) * kv_loc * g],
+            k_pages[:, :, m * kv_loc:(m + 1) * kv_loc],
+            v_pages[:, :, m * kv_loc:(m + 1) * kv_loc],
+            block_table[r], seq_lens[r], window)
+            for m in range(n_model)], dim=1))
+    return torch.cat(outs, dim=0)
+
+
 def paged_attention_layers_ref(qs, k_pages, v_pages, block_table, seq_lens,
                                *, qh2kv=None, window: int = 0) -> torch.Tensor:
     """Batched-over-layers version: qs (L, B, H, D) against the stacked

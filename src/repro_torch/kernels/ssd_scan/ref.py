@@ -10,6 +10,7 @@ states, a Python loop where the reference has ``lax.scan``) and
 ``chunk_scan`` (the intra-chunk "attention" ``((C·Bᵀ) ∘ L)(x·dt)`` with
 the 1-semiseparable mask ``L = exp(segsum(dt·A))``, plus each chunk's
 incoming state decayed to every position). Single B/C group.
+``ssd_scan_ref`` is the reference's oracle entry over it.
 """
 from __future__ import annotations
 
@@ -103,6 +104,15 @@ def ssd_chunked(x, dt, A, B, C, chunk: int,
     cum, states = chunk_state(x, dt, A, B, chunk)
     h_in, hT = state_pass(states, cum, h0)
     return chunk_scan(x, dt, C, cb, cum, h_in), hT
+
+
+def ssd_scan_ref(x, dt, A, B, C, *, chunk: int,
+                 h0: Optional[torch.Tensor] = None):
+    """The reference's oracle signature over ``ssd_chunked``: x (b, s, h,
+    p); dt (b, s, h); A (h,); B, C (b, s, n). Returns (y (b, s, h, p)
+    fp32, final state (b, h, p, n) fp32)."""
+    y, state = ssd_chunked(x, dt, A, B, C, chunk, h0=h0)
+    return y.float(), state
 
 
 def ssd_naive_ref(x, dt, A, B, C, h0: Optional[torch.Tensor] = None):

@@ -29,18 +29,22 @@ extrapolates, exactly (``plan``):
     the config's depth;
   * rows: the data rows (every index of the batch axes) do the same work
     on their own batch share. The step runs on the mesh's first rows (1
-    and 2; 2 and 3 for a Mamba2 prefill, ``row_nodes``), the parameters
-    and optimizer state still sharded over the whole mesh (so the FSDP
-    gathers over 'data', the gradients sent back to every shard and the
-    optimizer's shards are the real ones), and every count of the first
-    row — which also holds the controller's joins — is affine in the
-    number of rows. A cut run's MoE layers take the whole step's
-    dispatch (``Dist.moe_global_max_tokens``); the global dispatch,
-    whose capacity rounds, is priced by running it at the full token
-    count (``_moe_dispatch_correction``). The reported positions
-    are the first row's. A batch of one (``long_500k``) stripes its
-    cache over every position: it runs whole, later rows sharing a
-    stand-in per model index (a class, reported as its mean position);
+    and 2, ``ROW_NODES``), the parameters and optimizer state still
+    sharded over the whole mesh (so the FSDP gathers over 'data', the
+    gradients sent back to every shard and the optimizer's shards are
+    the real ones), and every count of the first row — which also holds
+    the controller's joins — is affine in the number of rows. A cut
+    run's MoE layers take the whole step's dispatch
+    (``Dist.moe_global_max_tokens``); the global dispatch, whose
+    capacity rounds, is priced at every position by running it at the
+    full token count (``_moe_dispatch_correction``). The reported
+    positions are the first row's, and the positions outside it that run
+    the global dispatch's experts (``_owner_records``: a later row's
+    work is the second row's, plus its own part of the dispatch). A
+    batch of one (``long_500k``)
+    stripes its cache over every position: it runs whole, later rows
+    sharing a stand-in per model index (a class, reported as its mean
+    position);
   * the optimizer update does not depend on the rows: it runs once a
     depth, on the reported positions' shards (AdamW's update is per
     shard; Adafactor's sums partials across shards, so it runs on all);
@@ -111,18 +115,68 @@ def n_rows(mesh) -> int:
     return math.prod(mesh.shape.get(a, 1) for a in BATCH_AXES)
 
 
+def _by_rows(mesh: Mesh) -> tuple:
+    """(the devices as (rows, the other axes' sizes...) — a row per index
+    of the batch axes, the first major —, the axis order that gives
+    them, the batch axes' sizes)."""
+    names = mesh.axis_names
+    order = [i for i, a in enumerate(names) if a in BATCH_AXES] \
+        + [i for i, a in enumerate(names) if a not in BATCH_AXES]
+    arr = mesh.devices.transpose(order)
+    lead = sum(a in BATCH_AXES for a in names)
+    return arr.reshape((-1,) + arr.shape[lead:]), order, arr.shape[:lead]
+
+
+def _of_rows(mesh: Mesh, rows: np.ndarray, order, lead) -> Mesh:
+    """``_by_rows``' inverse: a mesh of ``mesh``'s axes, the batch axes'
+    sizes ``lead``."""
+    arr = rows.reshape(tuple(lead) + rows.shape[1:])
+    return Mesh(arr.transpose(np.argsort(order)), mesh.axis_names)
+
+
 def row_mesh(mesh: Mesh, k: int) -> Mesh:
     """The first ``k`` data rows of ``mesh`` (first batch axis major) as
     a mesh of the same axes: the batch axes' sizes 1, ..., k."""
-    names = mesh.axis_names
-    lead = [a for a in names if a in BATCH_AXES]
-    rest = [a for a in names if a not in BATCH_AXES]
-    arr = mesh.devices.transpose([names.index(a) for a in lead + rest])
-    arr = arr.reshape((-1,) + arr.shape[len(lead):])[:k]
-    shape = [1] * (len(lead) - 1) + [k] + list(arr.shape[1:])
-    arr = arr.reshape(shape)
-    order = [(lead + rest).index(a) for a in names]
-    return Mesh(arr.transpose(order), names)
+    rows, order, lead = _by_rows(mesh)
+    return _of_rows(mesh, rows[:k], order, [1] * (len(lead) - 1) + [k])
+
+
+def row_devices(mesh: Mesh) -> np.ndarray:
+    """The mesh's devices as a (rows, positions a row) array, in
+    ``row_mesh``'s order."""
+    rows, _, _ = _by_rows(mesh)
+    return rows.reshape(len(rows), -1)
+
+
+def _row_col(mesh: Mesh, coords: tuple) -> tuple:
+    """(row, position in the row) of a position's coordinates, in
+    ``row_devices``' order."""
+    row = col = 0
+    for a, i in zip(mesh.axis_names, coords):
+        if a in BATCH_AXES:
+            row = row * mesh.shape[a] + i
+        else:
+            col = col * mesh.shape[a] + i
+    return row, col
+
+
+def _with_row_distinct(mesh: Mesh, row: int) -> Mesh:
+    """``mesh`` with its row ``row`` given stand-ins of its own: where it
+    shares them (a later row of ``make_standin_mesh``), it trades
+    devices with the last row that has its own (never the first)."""
+    rows, order, lead = _by_rows(mesh)
+    uses: dict = {}
+    for d in rows.flat:
+        uses[d] = uses.get(d, 0) + 1
+    own = [r for r in range(len(rows))
+           if all(uses[d] == 1 for d in rows[r].flat)]
+    if row in own:
+        return mesh
+    if len(own) < 2:
+        raise ValueError("the mesh has no row of its own stand-ins to trade")
+    rows = rows.copy()
+    rows[[row, own[-1]]] = rows[[own[-1], row]]
+    return _of_rows(mesh, rows, order, lead)
 
 
 def depth_units(cfg: ModelConfig) -> int:
@@ -459,52 +513,166 @@ def _leaf_pairs(tree, path=()):
 # the MoE global dispatch
 # ---------------------------------------------------------------------------
 
-def _moe_dispatch_cost(cfg: ModelConfig, tokens: int, train: bool) -> dict:
-    """The counts of one ``_moe_dispatch_compute`` over ``tokens`` rows on
-    one stand-in position (its backward too when ``train``)."""
-    dev = torch.device("cpu", 0)
-    moe, D = cfg.moe, cfg.d_model
-    E, F = moe.n_experts, moe.d_ff_expert
-    dt = layers.DTYPE
-    h = standin((tokens, D), dt, dev)
-    ws = [standin(s, dt, dev) for s in
-          ((D, E), (E, D, F), (E, F, D), (E, D, F))]
+def _moe_layer(cfg: ModelConfig, mesh: Mesh, train: bool) -> dict:
+    """Fresh stand-in leaves of one MoE layer stored over ``mesh`` as
+    ``shard_params`` stores them (autograd leaves when ``train``)."""
+    held = _Params(cut_depth(cfg, 1), mesh, False).params
+    group = held["ffn_moe"] if cfg.attn_every else held["moe"]
+    out = {}
+    for name in ("router", "w1", "w2", "w3"):
+        leaf = group[name]
+        while leaf.ndim > (2 if name == "router" else 3):
+            leaf = leaf[0]
+        out[name] = leaf.map(lambda t: t.requires_grad_(train))
+    return out
+
+
+def _moe_dispatch_cost(cfg: ModelConfig, tokens: int, train: bool,
+                       p: dict, ctrl) -> dict:
+    """{position: counts} of one global dispatch (``layers._moe_global``)
+    over ``tokens`` rows routed on ``ctrl``, the experts where ``p``'s
+    leaves hold them (its backward too when ``train``)."""
+    h = standin((tokens, cfg.d_model), layers.DTYPE, ctrl)
+    leaves = [h.requires_grad_(train)] + [
+        t for leaf in p.values() for _, t in sorted(leaf.shards.items())]
     mode = OpAnalysis()
     with mode, torch.enable_grad():
-        leaves = [t.requires_grad_(train) for t in [h] + ws]
-        y, aux = layers._moe_dispatch_compute(
-            leaves[0], *leaves[1:], moe.top_k,
-            layers.moe_capacity(cfg, tokens))
+        (y,), aux = layers._moe_global([h], p, cfg, np.array([[ctrl]]),
+                                       tokens)
         if train:
             torch.autograd.grad(y.float().sum() + aux, leaves)
-    return _flat({**mode.tallies[dev].record(), "output_bytes": 0,
-                  "peak_a": 0, "peak_b": 0})
+    return {dev: _flat({**t.record(), "output_bytes": 0, "peak_a": 0,
+                        "peak_b": 0}) for dev, t in mode.tallies.items()}
 
 
-def _moe_dispatch_correction(cfg, t: int, rows: int, nodes, train) -> dict:
-    """What the row extrapolation misses of one global dispatch: its
-    counts at all rows' tokens less their affine interpolation through
-    the runs' row counts."""
-    exact = _moe_dispatch_cost(cfg, rows * t, train)
-    terms = [(w, {0: _moe_dispatch_cost(cfg, k * t, train)})
-             for w, k in zip(lagrange(nodes, rows), nodes)]
-    approx = _combine(terms)[0]
-    return {key: exact[key] - approx[key] for key in exact
-            if key not in ("peak_a", "peak_b", "output_bytes")}
+def _moe_dispatch_correction(cfg, t: int, rows: int, mesh: Mesh,
+                             train) -> dict:
+    """{position: what the row extrapolation misses of one global
+    dispatch}: its counts at all rows' tokens less their affine
+    interpolation through the runs' row counts (``ROW_NODES``)."""
+    ctrl = mesh.devices[(0,) * mesh.devices.ndim]
+    p = _moe_layer(cfg, mesh, train)
+    exact = _moe_dispatch_cost(cfg, rows * t, train, p, ctrl)
+    approx = _combine([(w, _moe_dispatch_cost(cfg, k * t, train, p, ctrl))
+                       for w, k in zip(lagrange(ROW_NODES, rows),
+                                       ROW_NODES)])
+    return {dev: {key: v - approx.get(dev, {}).get(key, 0)
+                  for key, v in rec.items()
+                  if key not in ("peak_a", "peak_b", "output_bytes")}
+            for dev, rec in exact.items()}
+
+
+def _owner_records(cfg, mesh: Mesh, rows: int, t: int, train: bool,
+                   per_unit: int, runs: list) -> dict:
+    """{label: (flat record, experts run, owners alike)} of the global
+    dispatch's expert owners outside the first row
+    (``layers.owner_coords``; the first row's are reported already): one
+    for each model index and number of experts run, labelled by the
+    first such owner, its record that of every one of them.
+
+    A later row does what the second row does, on its own batch share,
+    so each record is built from the cut runs' second and third rows at
+    that model index (``runs``: [(rows k, depth j, update?, {device:
+    record})]). A position of a later row runs W, its row's work, only
+    where its row runs; H, the zero-filled gradients of its shards'
+    stacked leaves, once whatever the rows; G, the gradients of its
+    shards from each row that runs (H and G only to train); and D, its
+    part of the ``per_unit`` global dispatches a depth unit at the
+    step's tokens. So the k0 = 1 row runs count H + G + D(t) at the
+    second row, and the k1 = 2 row runs W + H + 2G + D(2t), the third
+    row's increment between them being G + D(2t) − D(t). Each is taken
+    to the config's depth as ``plan`` takes the first row's (a run on
+    k0 rows through its depth nodes, a further row's increment affine),
+    and the owner at all R rows counts W + H + R·G + D'(R·t), D' its own
+    part of the dispatch (``_moe_dispatch_cost``, run where it has a
+    stand-in of its own: ``_with_row_distinct``). The peak is the second
+    row's in the k1 row runs (the update's too), taken to the config's
+    depth."""
+    nd = mesh.devices.ndim
+    p = _moe_layer(cfg, mesh, train)
+    coords = [tuple(c.get(a, 0) for a in mesh.axis_names)
+              for c in layers.owner_coords(p["w1"])]
+    shares = layers.owner_experts(cfg.moe.n_experts, len(coords))
+    groups: dict = {}
+    for c, e in zip(coords, shares):
+        r, col = _row_col(mesh, c)
+        if r and e.stop > e.start:
+            groups.setdefault((col, e.stop - e.start), []).append(c)
+    if not groups:
+        return {}
+    by_row = row_devices(mesh)
+    if len(set(by_row[:3].flat)) != by_row[:3].size:
+        raise ValueError("the owners' counts read the mesh's first three "
+                         "rows, which share stand-in devices")
+    last = [a for a in mesh.axis_names if a in BATCH_AXES][-1]
+    if train and mesh.shape[last] < 3:
+        # the third row is then in another pod, whose positions hold no
+        # shards (``shard_params`` stores a leaf on the first pod): its G
+        # is not the owner's
+        raise ValueError(f"a train step's owners are counted through the "
+                         f"third row, which needs 3 indices of '{last}'")
+    k0, k1 = ROW_NODES
+    units = depth_units(cfg)
+
+    def weights(k, update=False):
+        nodes = sorted({j for kk, j, u, _ in runs
+                        if u == update and (update or kk == k)})
+        return dict(zip(nodes, lagrange(nodes, units)))
+    a, b, upd = weights(k0), weights(k1), weights(k0, True)
+    second, inc, peaks = [], [], []
+    for k, j, u, recs in runs:
+        if u:
+            second.append((upd[j], recs))
+            peaks.append((upd[j], recs))
+        elif k == k1:
+            second.append((b[j], recs))
+            inc.append((b[j], recs))
+            peaks.append((b[j], recs))
+        else:
+            second.append((a[j] - b.get(j, 0), recs))
+            inc.append((-b.get(j, 0), recs))
+    second, inc, peaks = _combine(second), _combine(inc), _combine(peaks)
+    ctrl = mesh.devices[(0,) * nd]
+    n = per_unit * units
+    own = {k: _moe_dispatch_cost(cfg, k * t, train, p, ctrl)
+           for k in (k0, k1)}
+    at_all: dict = {}
+    out = {}
+    for (col, n_exp), members in sorted(groups.items()):
+        rep = min(members, key=lambda c: _row_col(mesh, c))
+        r = _row_col(mesh, rep)[0]
+        if r not in at_all:
+            m2 = _with_row_distinct(mesh, r)
+            labels = position_labels(m2)
+            got = _moe_dispatch_cost(cfg, rows * t, train,
+                                     _moe_layer(cfg, m2, train),
+                                     m2.devices[(0,) * nd])
+            at_all[r] = {labels[d][0]: rec for d, rec in got.items()
+                         if labels[d][1] == 1}
+        d1, d2 = by_row[1, col], by_row[2, col]
+        new = at_all[r].get(rep, {})
+        rec = {}
+        for key in second.get(d1, {}):
+            if key in ("peak_a", "peak_b"):
+                rec[key] = peaks.get(d1, {}).get(key, 0)
+                continue
+            d = lambda k, dev: own[k].get(dev, {}).get(key, 0)
+            g = inc.get(d2, {}).get(key, 0) - n * (d(k1, d2) - d(k0, d2))
+            rec[key] = second[d1][key] + (rows - k1) * g \
+                + n * (new.get(key, 0) - d(k1, d1))
+        out[_label(rep)] = (rec, n_exp, len(members))
+    return out
 
 
 # ---------------------------------------------------------------------------
 # count: one (config, shape, mesh)
 # ---------------------------------------------------------------------------
 
-def row_nodes(cfg: ModelConfig, shape: ShapeSpec) -> tuple:
-    """The row counts the first row's counts are taken through: 1 and 2,
-    or 2 and 3 for a prefill that gathers a Mamba2 state of every row on
-    the first position (``gather`` takes one row's block as it is, two
-    or more through a ``cat``, so the counts are affine from 2 rows)."""
-    if shape.kind == "prefill" and cfg.kind in ("ssm", "hybrid"):
-        return (2, 3)
-    return (1, 2)
+# the row counts the first row's counts are taken through: every row's
+# caches and states stay on its own positions and the global dispatch's
+# outputs return to them, so the first row's counts are affine from one
+# row (the experts run on their owners, ``_owner_records``)
+ROW_NODES = (1, 2)
 
 
 def plan(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
@@ -513,7 +681,7 @@ def plan(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
     all —, depth units j, count weight, peak weight)].
 
     The counts of the first row are A(L) + (R − k0)·B(L) at R rows and
-    depth L (``row_nodes``: k0, k1): A — a run on k0 rows — is affine in
+    depth L (``ROW_NODES``: k0, k1): A — a run on k0 rows — is affine in
     L (quadratic to train: the gradient of each layer's view of a stacked
     leaf is a zero-filled stack, once per layer whatever the rows), B —
     a further row's increment — affine; each is taken through its depth
@@ -523,7 +691,7 @@ def plan(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
     per layer and per row, over a transient that does not grow)."""
     units = depth_units(cfg)
     rows = n_rows(mesh) if shape.batch > 1 else 1
-    k0, k1 = row_nodes(cfg, shape)
+    k0, k1 = ROW_NODES
     ja = (1, 2, 3) if shape.kind == "train" else (1, 2)
     jb = (1, 2)
     if whole or units <= ja[-1]:
@@ -555,7 +723,11 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
     depth and on the first rows (``plan``), combined exactly (module
     docstring); ``whole`` runs every row at full depth instead. The
     reported positions are those with a stand-in of their own — of the
-    first row only when the rows are extrapolated. Returns
+    first row only when the rows are extrapolated, with the global
+    dispatch's expert owners outside it (``_owner_records``: a record
+    for each model index and number of experts, labelled by its first
+    owner, with ``experts`` and ``alike``, the owners it stands for).
+    Returns
     {"per_position": {label: record}, "classes": {label: record},
     "ops": {label: op tally} (``ops``), "trace_s", "runs"}."""
     train = shape.kind == "train"
@@ -566,8 +738,10 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
     runs = plan(cfg, shape, mesh, whole)
     reduced = runs[0][0] is not None
     labels = position_labels(mesh)
-    first_row = set(mesh.devices.reshape(-1, mesh.devices.shape[-1])[0]) \
-        if reduced else None       # (an unsharded step is never reduced)
+    # (an unsharded step is never reduced)
+    first_row = set(row_devices(mesh)[0]) if reduced else None
+    # the second and third rows' positions, which ``_owner_records`` reads
+    later_rows = set(row_devices(mesh)[1:3].flat) if reduced else set()
     if reduced:
         k1 = max(k for k, _, _, _ in runs)
         first = row_mesh(mesh, k1).devices
@@ -576,13 +750,16 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
                              f"stand-in devices: the plan runs on them")
     t0 = time.time()
     terms, peaks, op_terms, per_unit = [], [], [], 0
+    # the second and third rows' positions in each run: [(k, j, update?,
+    # {device: record with its peak})], combined by ``_owner_records``
+    later = []
     upd_nodes = sorted({j for k, j, _, _ in runs if k == runs[0][0]})[:2]
     upd_w = dict(zip(upd_nodes, lagrange(upd_nodes, depth_units(cfg))))
     t_row = shape.batch // rows * (shape.seq if shape.kind != "decode"
                                    else 1)
     held_j, held = None, None
 
-    def add(w, pw, mode, out, phase="peak_a"):
+    def add(w, pw, mode, out, run, phase="peak_a"):
         outb = _output_bytes(out)
         recs = {dev: _flat({**t.record(), "peak_a": 0, "peak_b": 0,
                             "output_bytes": outb.get(dev, 0)})
@@ -590,6 +767,10 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
         terms.append((w, recs))
         peaks.append((pw, {dev: {phase: t.peak - t.held}
                            for dev, t in mode.tallies.items()}))
+        if reduced:
+            later.append(run + ({dev: {**recs[dev], phase: t.peak - t.held}
+                                for dev, t in mode.tallies.items()
+                                if dev in later_rows},))
         if ops:
             op_terms.append((w, mode.op_tallies(lambda d: d)))
     for k, j, w, pw in runs:
@@ -600,16 +781,18 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
         if j:
             per_unit = branches.count("global") // j
         if not train:
-            add(w, pw, mode, out)
+            add(w, pw, mode, out, (k, j, False))
             continue
         loss, grads = out
-        add(w, pw, mode, loss)
+        add(w, pw, mode, loss, (k, j, False))
         del mode, out
         if k in (runs[0][0], None) and j in upd_w:
-            keep = (lambda d: d in first_row) if reduced \
-                else (lambda d: True)
+            # the owners' records read the later rows' updates too
+            keep = (lambda d: d in first_row
+                    or (per_unit and d in later_rows)) \
+                if reduced else (lambda d: True)
             mode, out = _run_update(c, held, grads, keep, ops)
-            add(upd_w[j], upd_w[j], mode, out, "peak_b")
+            add(upd_w[j], upd_w[j], mode, out, (k, j, True), "peak_b")
         del grads
     per_dev = _combine(terms)
     for dev, pk in _combine([(pw, {d: {"peak_a": 0, "peak_b": 0, **r}
@@ -617,11 +800,15 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
                              for pw, recs in peaks if pw]).items():
         if dev in per_dev:
             per_dev[dev].update(pk)
+    owners = {}
     if reduced and per_unit:
-        ctrl = mesh.devices[(0,) * mesh.devices.ndim]
-        fix = _moe_dispatch_correction(cfg, t_row, rows, (1, 2), train)
-        for key, v in fix.items():
-            per_dev[ctrl][key] += per_unit * depth_units(cfg) * v
+        fix = _moe_dispatch_correction(cfg, t_row, rows, mesh, train)
+        for dev, rec in fix.items():
+            for key, v in rec.items():
+                if dev in per_dev:      # a position the cut runs reach
+                    per_dev[dev][key] += per_unit * depth_units(cfg) * v
+        owners = _owner_records(cfg, mesh, rows, t_row, train,
+                                per_unit, later)
     per_position, classes = {}, {}
     for dev, rec in per_dev.items():
         coords, n = labels[dev]
@@ -633,6 +820,8 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
             classes[_label(coords)] = dict(
                 _unflat({key: v / n for key, v in rec.items()}),
                 positions=n)
+    for lab, (rec, n_exp, n) in owners.items():
+        per_position[lab] = dict(_unflat(rec), experts=n_exp, alike=n)
     out = {"per_position": per_position, "classes": classes,
            "trace_s": time.time() - t0,
            "runs": [[k, j] for k, j, _, _ in runs]}

@@ -476,6 +476,86 @@ def shard_caches(cfg: ModelConfig, caches, specs, mesh):
                            enc_kv=group(caches.enc_kv, specs.enc_kv))
 
 
+def batch_entry(dist):
+    """The spec entry of a batch dimension split into ``dist``'s data
+    rows (``cache_specs``' ``b``): None for one unsplit batch (without a
+    mesh, the batch axes as they are named)."""
+    b = tuple(a for a in dist.batch_axes
+              if dist.mesh is None or a in dist.mesh.axis_names)
+    if not b:
+        return None
+    return b[0] if len(b) == 1 else b
+
+
+def seq_axes(dist):
+    """Axes striping a KV-cache sequence dim: 'model', plus the other
+    axes (data, pod) when the batch does not use them (a batch of one)."""
+    if batch_entry(dist) is not None:
+        return "model"
+    free = tuple(a for a in dist.mesh.axis_names if a != "model")
+    return free + ("model",)
+
+
+def shard_rows(rows: list, spec: Spec, mesh, *,
+               batch_dim: int = 0) -> Sharded:
+    """One leaf given as its data rows' blocks (``rows``: one tensor per
+    block of dimension ``batch_dim``, each on its row's device) stored
+    over ``mesh`` by ``spec``, as ``shard_caches`` would store the rows
+    joined — without joining them: each shard is copied from its row
+    alone. Raises ``ValueError`` when a dimension does not split evenly
+    or the rows do not match the batch's split."""
+    first = rows[0]
+    if axis_size(mesh, spec[batch_dim]) != len(rows):
+        raise ValueError(f"{len(rows)} rows do not match a batch split "
+                         f"over {spec[batch_dim]} on {mesh.shape}")
+    shape = list(first.shape)
+    shape[batch_dim] *= len(rows)
+
+    def make(index, dev):
+        r = (index[batch_dim].start or 0) // first.shape[batch_dim]
+        local = list(index)
+        local[batch_dim] = slice(None)
+        part = rows[r][tuple(local)]
+        if part.shape == rows[r].shape:      # the row whole: no copy
+            return part.to(dev)
+        return part.to(dev, copy=True)
+    return Sharded.build(mesh, spec, shape, make)
+
+
+def pad_seq(leaf, length: int, dim: int):
+    """``leaf`` zero-padded along ``dim`` to ``length`` slots: a tensor by
+    concatenation; a ``Sharded`` leaf laid out anew by its spec, each
+    new shard copied only from the shards that hold its part (``take``).
+    Raises ``ValueError`` when the leaf is longer or the new length does
+    not split evenly."""
+    n = leaf.shape[dim]
+    if length < n:
+        raise ValueError(f"{n} positions do not fit {length} slots")
+    if length == n:
+        return leaf
+    if not isinstance(leaf, Sharded):
+        pad = list(leaf.shape)
+        pad[dim] = length - n
+        return torch.cat([leaf, leaf.new_zeros(pad)], dim=dim)
+    shape = list(leaf.shape)
+    shape[dim] = length
+
+    def make(index, dev):
+        lo, hi, _ = index[dim].indices(length)
+        cut = (min(lo, n), min(hi, n))
+        size = [len(range(*s.indices(m))) for s, m in zip(index, shape)]
+        if cut[1] == cut[0]:
+            return torch.zeros(size, dtype=leaf.dtype, device=dev)
+        src = list(index)
+        src[dim] = slice(*cut)
+        part = take(leaf, dev, tuple(src))
+        if hi > cut[1]:
+            size[dim] = hi - cut[1]
+            part = torch.cat([part, part.new_zeros(size)], dim=dim)
+        return part
+    return Sharded.build(leaf.mesh, leaf.spec, shape, make)
+
+
 def gather_tree(tree, device):
     """``gather`` over a dict of leaves: every leaf whole on ``device``."""
     if isinstance(tree, dict):

@@ -27,7 +27,8 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.shardings import Sharded
+from repro_torch.launch.shardings import (Sharded, batch_entry, pad_seq,
+                                          seq_axes)
 from repro_torch.models.layers import NO_DIST, Dist
 from repro_torch.models.mamba import MambaState
 from repro_torch.models.transformer import (Caches, KVCache, decode_step,
@@ -87,22 +88,6 @@ def make_dist(mesh, shape: ShapeSpec) -> Dist:
     return Dist(mesh=mesh, batch_axes=batch_axes)
 
 
-def _seq_axes(dist: Dist):
-    """Axes striping a KV-cache sequence dim: 'model', plus the other
-    axes (data, pod) when the batch does not use them (long_500k)."""
-    if dist.batch_axes:
-        return "model"
-    free = tuple(a for a in dist.mesh.axis_names if a != "model")
-    return free + ("model",)
-
-
-def _batch_entry(dist: Dist):
-    b = dist.batch_axes or None
-    if isinstance(b, tuple) and len(b) == 1:
-        b = b[0]
-    return b
-
-
 def _meta(t):
     return torch.empty(t.shape, dtype=t.dtype, device="meta")
 
@@ -140,11 +125,11 @@ def cache_shapes(cfg: ModelConfig, shape: ShapeSpec) -> Caches:
 def cache_specs(cfg: ModelConfig, shape: ShapeSpec, dist: Dist) -> Caches:
     """Spec tuples of ``cache_shapes``' leaves: KV (layers, batch, seq,
     KV, Dh) with the batch on the batch axes and the sequence on
-    ``_seq_axes``; a Mamba2 state's heads and conv channels on 'model';
+    ``seq_axes``; a Mamba2 state's heads and conv channels on 'model';
     an encoder's K/V by batch only."""
     del shape    # the reference's signature: the layout is the dist's
-    b = _batch_entry(dist)
-    seq = _seq_axes(dist)
+    b = batch_entry(dist)
+    seq = seq_axes(dist)
     kv = ssm = enc_kv = None
     if cfg.attention_layers:
         kv = KVCache(k=(None, b, seq, None, None),
@@ -168,7 +153,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, dist: Dist):
     [, patches | frames]}, prefill {tokens [, patches | frames]}, decode
     {tokens (B, 1), caches}. Tokens are int32, frames and patches fp32,
     as in the reference."""
-    b = _batch_entry(dist)
+    b = batch_entry(dist)
     B, S = shape.batch, shape.seq
 
     def meta(shp, dtype):
@@ -248,7 +233,9 @@ def make_prefill_step(cfg: ModelConfig, dist: Dist = NO_DIST):
     """``prefill_step(params, tokens, extra) -> (logits, caches)``, the
     forward without grad (the kernels are forward-only); ``extra`` is
     {} or {'frames': ...} / {'patches': ...} (stub modality
-    embeddings)."""
+    embeddings). On a mesh the logits are joined on its first position
+    and the caches come back ``Sharded`` by ``cache_specs`` (the
+    reference's ``out_shardings``), ready for ``make_serve_step``."""
     def prefill_step(params, tokens, extra):
         with torch.no_grad():
             return prefill(params, tokens, cfg, dist,
@@ -265,11 +252,20 @@ def make_serve_step(cfg: ModelConfig, dist: Dist, shape: ShapeSpec):
     sequence. On a mesh the params come from ``shard_params`` and the
     caches from ``shard_caches`` (by ``cache_specs``): the KV sequence
     striped over a data row's model positions (over every position for
-    a batch of one), each Mamba2 state's heads over 'model'."""
+    a batch of one), each Mamba2 state's heads over 'model'. Caches whose
+    KV has fewer slots than the shape's — a prefill's (``prefill_step``),
+    which hold just the prompt — are given the shape's slots on the way
+    in (``pad_seq``: zero slots, each stripe copied from the stripes
+    that hold it), so the step takes a prefill's caches as they are."""
     window = serve_window(cfg, shape)
     ring = bool(window) and window < shape.seq
+    kv = cache_shapes(cfg, shape).kv
+    slots = None if kv is None else kv.k.shape[2]
 
     def serve_step(params, tokens, caches):
+        if slots is not None and caches.kv.k.shape[2] < slots:
+            caches = caches._replace(kv=KVCache(
+                *(pad_seq(t, slots, 2) for t in caches.kv)))
         with torch.no_grad():
             return decode_step(params, tokens, caches, cfg, dist, ring=ring,
                                window_override=window or None)

@@ -50,7 +50,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.shardings import (Sharded, axis_size, collective,
-                                          gather, gather_tree, take)
+                                          gather, gather_tree, position_device,
+                                          take)
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -938,7 +939,10 @@ def _expert_ffn(buf, w1, w2, w3):
 
 
 def _route(xf, router_w, top_k: int):
-    logits = (xf @ router_w).float()                          # (T, E)
+    """Router logits from fp32 operands, as the reference's steps compute
+    them: under jit XLA keeps its ``(xf @ router_w).astype(float32)`` in
+    fp32; only an op-by-op run rounds the product to bf16 first."""
+    logits = xf.float() @ router_w.float()                    # (T, E)
     probs = torch.softmax(logits, dim=-1)
     if _LOGS.replay is not None:
         idx = _LOGS.replay.pop(0).to(probs.device)
@@ -1001,7 +1005,8 @@ def moe_block(x, p, cfg: ModelConfig, dist: Dist = NO_DIST):
 
     ``dist`` active (x a list of data rows or a whole batch): the
     reference's choice of dispatch over all T = B·S tokens — global (all
-    tokens at once, on the first position) at T ≤
+    tokens routed at once on the first position, each expert run where
+    its weights are, ``_moe_global``) at T ≤
     ``MOE_GLOBAL_DISPATCH_MAX_TOKENS`` (``dist.moe_global_max_tokens``
     where set); expert-parallel when the config
     says "ep", the experts divide over ``model`` and T over data × model
@@ -1036,15 +1041,8 @@ def _moe_mesh(rows, p, cfg: ModelConfig, dist: Dist):
     if _LOGS.branches is not None:
         _LOGS.branches.append(branch)
     if branch == "global":
-        dev = grid[0, 0]
-        h = torch.cat([t.to(dev) for t in hs])
-        y, aux = _moe_dispatch_compute(
-            h, gather(p["router"], dev), gather(p["w1"], dev),
-            gather(p["w2"], dev), gather(p["w3"], dev), moe.top_k,
-            moe_capacity(cfg, T_total))
-        ys = [c.to(x.device).view(x.shape) for c, x in
-              zip(y.split([t.shape[0] for t in hs]), rows)]
-        return ys, aux
+        ys, aux = _moe_global(hs, p, cfg, grid, T_total)
+        return [y.view(x.shape) for y, x in zip(ys, rows)], aux
     T_loc = T_total // (dp * ep) if branch == "ep" else T_total // dp
     n_groups = max(T_loc // MOE_GROUP_TOKENS, 1)
     if T_loc % n_groups:
@@ -1061,6 +1059,90 @@ def _moe_mesh(rows, p, cfg: ModelConfig, dist: Dist):
     dev = grid[0, 0]
     with collective("all-reduce"):
         aux = sum(a.to(dev) for a in auxes) / len(auxes)
+    return ys, aux
+
+
+def expert_owners(w1, grid: np.ndarray) -> list:
+    """The positions that hold the experts' weights under
+    ``shard_params``, block-major: each 'model' block of ``w1`` (a block
+    of the experts of an "ep" config, of every expert's hidden columns of
+    a "tp" one), then its FSDP shards over 'data' in order. A leaf not
+    sharded over 'model': the grid's columns, then rows."""
+    if isinstance(w1, Sharded) and "model" in w1.spec:
+        return [position_device(w1.mesh, c) for c in owner_coords(w1)]
+    return [d for m in range(grid.shape[1]) for d in grid[:, m]]
+
+
+def owner_coords(w1: Sharded) -> list:
+    """The mesh coordinates ({axis: index}) of ``expert_owners``'
+    positions, in its order."""
+    j = w1.dims().index(w1.spec.index("model"))
+    return [w1.coords(k) for k in sorted(w1.shards, key=lambda k: (k[j], k))]
+
+
+def owner_experts(n_experts: int, n_owners: int) -> list:
+    """The experts each owner of the global dispatch runs, in
+    ``expert_owners``' order: the experts split evenly, in order (an
+    owner may run none)."""
+    return [slice(i * n_experts // n_owners, (i + 1) * n_experts // n_owners)
+            for i in range(n_owners)]
+
+
+def _moe_global(hs, p, cfg: ModelConfig, grid, T_total: int):
+    """The global dispatch over every data row's normed tokens (``hs``,
+    one (T_r, D) slab a row on its device), with the reference's
+    numerics: routed together on the mesh's first position, at the
+    capacity of all ``T_total`` of them, into one (E, cap, D) buffer,
+    whose expert slabs are run where the weights are. The experts split
+    evenly, in order, over the positions of ``expert_owners`` — for an
+    "ep" config each position's experts are among those it holds — and
+    each position receives its experts' slabs and takes its experts'
+    whole weights (a "tp" config's hidden columns gathered from the
+    shards, as an FSDP gather: no partial sums, so the expert outputs are
+    bitwise those of one product), and sends its outputs back, as
+    ``_moe_ep``'s slabs travel. Each row is sent its choices' outputs,
+    which it weights and sums. No position gathers a whole ``w1``,
+    ``w2`` or ``w3`` unless it is the only one. Returns (y per row,
+    aux)."""
+    moe = cfg.moe
+    E, k = moe.n_experts, moe.top_k
+    dev = grid[0, 0]
+    cap = moe_capacity(cfg, T_total)
+    h = torch.cat([t.to(dev) for t in hs])
+    gates, idx, aux = _route(h, gather(p["router"], dev), k)
+    buf, slot = _dispatch(h, idx, E, cap)                     # (E, cap, D)
+    # each T-sized buffer is freed before the next is made: they all sit
+    # on the first position, whose peak grows with the rows' tokens
+    del h
+    owners = expert_owners(p["w1"], grid)
+    outs = []
+    for d, e in zip(owners, owner_experts(E, len(owners))):
+        if e.stop == e.start:
+            continue
+        with collective("all-to-all"):
+            recv = buf[e].to(d)
+        o = _expert_ffn(recv, *(take(p[n], d, (e,))
+                                for n in ("w1", "w2", "w3")))
+        with collective("all-to-all"):
+            outs.append(o.to(dev))
+    del buf
+    D = outs[0].shape[-1]
+    out_flat = torch.cat([o.reshape(-1, D) for o in outs]
+                         + [outs[0].new_zeros((1, D))])
+    del outs
+    sel = out_flat[slot]                  # (T·k, D); a dropped choice: 0
+    del out_flat
+    # split, not sliced row by row: a slice's backward writes a zero-filled
+    # gradient of the whole, once a row; a split's joins the rows' once
+    sizes = [x.shape[0] for x in hs]
+    ys = []
+    for x, part, g in zip(hs, sel.split([n * k for n in sizes]),
+                          gates.split(sizes)):
+        with collective("all-to-all"):
+            mine = part.to(x.device)
+        g = g.to(x.device)
+        ys.append(torch.sum(mine.view(x.shape[0], k, D) * g[:, :, None],
+                            dim=1))
     return ys, aux
 
 

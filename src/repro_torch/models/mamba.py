@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan.ops import ssd_scan_op
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
-from repro_torch.launch.shardings import Sharded, collective, gather, take
+from repro_torch.launch.shardings import (Sharded, batch_entry, collective,
+                                          gather, take)
 from repro_torch.models import layers
 from repro_torch.models.layers import NO_DIST, Dist, _on_rows, rms_norm
 
@@ -144,15 +145,6 @@ def mamba_block(x, p, cfg: ModelConfig, dist: Dist = NO_DIST, *,
     return out, None
 
 
-def _batch_entry(dist: Dist):
-    """The spec entry of a batch dimension split into ``dist``'s data
-    rows (``cache_specs``' ``b``): None for one unsplit batch."""
-    b = tuple(a for a in dist.batch_axes if a in dist.mesh.axis_names)
-    if not b:
-        return None
-    return b[0] if len(b) == 1 else b
-
-
 def _mamba_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, state,
                 want_state: bool, train: bool):
     """Each data row's mixer, tensor-parallel over its model positions
@@ -252,7 +244,7 @@ def _mamba_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, state,
                     grid[r, j])
     if not want_state:
         return ys, None
-    b = _batch_entry(dist)
+    b = batch_entry(dist)
     if b is None:       # one row: keys name the model block alone
         ssm_shards = {k[1:]: t for k, t in ssm_shards.items()}
         conv_shards = {k[1:]: t for k, t in conv_shards.items()}

@@ -55,8 +55,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.launch.shardings import (Sharded, collective, gather,
-                                          gather_tree, stack_sharded)
+from repro_torch.launch.shardings import (Sharded, batch_entry, collective,
+                                          gather, gather_tree, seq_axes,
+                                          shard_rows, stack_sharded)
 from repro_torch.models.layers import (DTYPE, NO_DIST, Dist, PagedShard,
                                        _model_part, _psum, _row_stripes,
                                        attention_block, join_rows, mlp_block,
@@ -335,26 +336,28 @@ def _first_device(dist: Dist):
     return dist.grid()[0, 0]
 
 
-def _stack_states(ssms: list, convs: list, dist: Dist, whole: bool):
+def _stack_states(ssms: list, convs: list, dist: Dist):
     """Per-layer Mamba2 states → one stacked MambaState: tensors stacked,
-    or on a mesh ``Sharded`` leaves stacked shard by shard — gathered
-    whole on the mesh's first device when ``whole`` (a prefill's
-    caches)."""
+    or on a mesh ``Sharded`` leaves (``cache_specs``' layout) stacked
+    shard by shard."""
     if not dist.active:
         return MambaState(ssm=torch.stack(ssms), conv=torch.stack(convs))
-    st = MambaState(ssm=stack_sharded(ssms), conv=stack_sharded(convs))
-    if whole:
-        dev = _first_device(dist)
-        st = MambaState(ssm=gather(st.ssm, dev), conv=gather(st.conv, dev))
-    return st
+    return MambaState(ssm=stack_sharded(ssms), conv=stack_sharded(convs))
 
 
-def _join_kv(kv, device):
-    """One layer's prefill (k, v): whole, or per data row joined."""
-    if isinstance(kv, list):
-        return (join_rows([k for k, _ in kv], device),
-                join_rows([v for _, v in kv], device))
-    return kv
+def _kv_placer(dist: Dist):
+    """How a prefill keeps one layer's new (k, v): on a mesh, each data
+    row's pair sent to the row's stripes of ``cache_specs``' layout as
+    the layer produces it (``Sharded`` (B, S, KV, Dh) leaves, the
+    sequence over the row's model positions — over every position for a
+    batch of one), so no position holds more than one row's layer whole;
+    without a mesh the pair as it is."""
+    if not dist.active:
+        return lambda kv: kv
+    spec = (batch_entry(dist), seq_axes(dist), None, None)
+    return lambda kv: tuple(
+        shard_rows([pair[i] for pair in kv], spec, dist.mesh)
+        for i in range(2))
 
 
 def _unembedding(params, cfg: ModelConfig, device, m: int = 0,
@@ -416,7 +419,7 @@ def _ssm_stack(params, x, cfg: ModelConfig, caches, mode: str,
             convs.append(new.conv)
     if train:
         return x, None
-    return x, _stack_states(ssms, convs, dist, whole=not has_state)
+    return x, _stack_states(ssms, convs, dist)
 
 
 def _ffn(x, p, cfg: ModelConfig, use_moe: bool, dist: Dist = NO_DIST):
@@ -459,17 +462,18 @@ def build_enc_kv(params, enc_out, cfg: ModelConfig) -> KVCache:
 
 def _self_attention(x, p_a, cfg: ModelConfig, l: int, *, mode: str, caches,
                     q_offset: int, ring: bool, window_override,
-                    dist: Dist = NO_DIST):
+                    dist: Dist = NO_DIST, place_kv=None):
     """Attention layer ``l``'s self-attention: the training form (the
     differentiable plain attention, no KV out), the prefill form (new KV
-    out) or the extend/decode form over ``caches.kv[l]`` at
-    ``caches.length``."""
+    out, kept by ``place_kv``: ``_kv_placer``) or the extend/decode form
+    over ``caches.kv[l]`` at ``caches.length``."""
     if mode == "train":
         return attention_block(x, p_a, cfg, dist, q_offset=q_offset,
                                window_override=window_override, train=True)
     if mode == "prefill":
-        return attention_block(x, p_a, cfg, dist, q_offset=q_offset,
-                               kv_out=True, window_override=window_override)
+        y, kv = attention_block(x, p_a, cfg, dist, q_offset=q_offset,
+                                kv_out=True, window_override=window_override)
+        return y, (kv if place_kv is None else place_kv(kv))
     return attention_block(x, p_a, cfg, dist, cache=(caches.kv.k[l],
                                                      caches.kv.v[l]),
                            cache_len=caches.length, ring=ring,
@@ -490,7 +494,7 @@ def _enc_kv_at(e, l: int, dist: Dist):
 
 def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
                    caches, q_offset: int, ring: bool, window_override,
-                   dist: Dist = NO_DIST):
+                   dist: Dist = NO_DIST, place_kv=None):
     """One attention + FFN (MLP or MoE) block per layer, with a
     cross-attention over ``caches.enc_kv`` after each self-attention of
     an encoder-decoder; returns (x, the summed MoE aux loss, per-layer
@@ -506,7 +510,7 @@ def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
         y, kv = _self_attention(x, _layer(params["attn"], l), cfg, l,
                                 mode=mode, caches=caches, q_offset=q_offset,
                                 ring=ring, window_override=window_override,
-                                dist=dist)
+                                dist=dist, place_kv=place_kv)
         x = _add(x, y)
         if cross:
             y, _ = attention_block(
@@ -526,7 +530,7 @@ def _uniform_stack(params, x, cfg: ModelConfig, *, mode: str,
 
 def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                   q_offset: int, ring: bool, window_override,
-                  dist: Dist = NO_DIST):
+                  dist: Dist = NO_DIST, place_kv=None):
     """The jamba period stack: each period is [attention, Mamba2 ×
     (attn_every - 1)], an FFN after every mixer — MoE at the in-period
     positions ``pos % moe.every == moe.every - 1``, a dense MLP at the
@@ -549,7 +553,8 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                 y, kv = _self_attention(
                     x, _layer(params["attn"], per), cfg, per, mode=mode,
                     caches=caches, q_offset=q_offset, ring=ring,
-                    window_override=window_override, dist=dist)
+                    window_override=window_override, dist=dist,
+                    place_kv=place_kv)
             else:
                 st = MambaState(ssm=caches.ssm.ssm[per][pos - 1],
                                 conv=caches.ssm.conv[per][pos - 1]) \
@@ -569,8 +574,7 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                 y = mlp_block(x, _layer(p_fd, i_d), cfg, dist)
                 i_d += 1
             x = _add(x, y)
-        state = None if train else _stack_states(per_ssm, per_conv, dist,
-                                                 whole=False)
+        state = None if train else _stack_states(per_ssm, per_conv, dist)
         return x, aux, kv, state
 
     period_block = _remat(period_block, cfg, train)
@@ -583,18 +587,19 @@ def _hybrid_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
             convs.append(state.conv)
     if train:
         return x, aux, kvs, None
-    return x, aux, kvs, _stack_states(ssms, convs, dist, whole=not has_state)
+    return x, aux, kvs, _stack_states(ssms, convs, dist)
 
 
 def _run_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                q_offset: int = 0, ring: bool = False, window_override=None,
-               dist: Dist = NO_DIST):
+               dist: Dist = NO_DIST, place_kv=None):
     """The decoder stack of any family → (h, the summed MoE aux loss,
     per-layer kv or None, the new stacked MambaState or None). ``mode``
     "train" returns no caches (kv and state None). On a mesh (``dist``)
     x and h are lists of data rows, a layer's prefill kv one (k, v) per
-    row; in the decode mode the caches are ``Sharded`` and the KV is
-    written in place."""
+    row unless ``place_kv`` keeps it otherwise (``_kv_placer``); in the
+    decode mode the caches are ``Sharded`` and the KV is written in
+    place."""
     if cfg.kind == "ssm":
         h, ssm = _ssm_stack(params, x, cfg, caches, mode, dist)
         return h, 0.0, None, ssm
@@ -603,13 +608,13 @@ def _run_stack(params, x, cfg: ModelConfig, *, mode: str, caches,
                                          caches=caches, q_offset=q_offset,
                                          ring=ring,
                                          window_override=window_override,
-                                         dist=dist)
+                                         dist=dist, place_kv=place_kv)
     else:
         h, aux, kvs = _uniform_stack(params, x, cfg, mode=mode,
                                      caches=caches, q_offset=q_offset,
                                      ring=ring,
                                      window_override=window_override,
-                                     dist=dist)
+                                     dist=dist, place_kv=place_kv)
         ssm = None
     return h, aux, (None if mode == "train" else kvs), ssm
 
@@ -756,8 +761,16 @@ def prefill(params, tokens, cfg: ModelConfig, dist: Dist = NO_DIST, *,
     patch frontend prepends ``patches`` (B, P, D) to the embedded tokens
     (the length counts them). Returns (last-position logits (B, V) fp32,
     Caches holding the exact-length KV, the final SSM state and the
-    encoder's K/V). On a mesh (``dist``) the data rows' logits and caches
-    are joined on the mesh's first device."""
+    encoder's K/V).
+
+    On a mesh (``dist``) the logits are joined on the mesh's first
+    device (the reference's ``P()``) and the caches are ``Sharded`` by
+    ``launch.steps.cache_specs`` (``shard_caches``' layout, which
+    ``decode_step`` takes as it is): each layer's KV sent to its data
+    row's sequence stripes as the layer produces it, the Mamba2 state
+    heads and conv channels over 'model', the encoder's K/V by batch.
+    A sequence that does not split over the stripes raises
+    ``ValueError``."""
     x = _embed(params, tokens, cfg, dist)
     enc_kv = None
     if cfg.encoder_layers:
@@ -771,24 +784,30 @@ def prefill(params, tokens, cfg: ModelConfig, dist: Dist = NO_DIST, *,
                                 caches=Caches(kv=None, length=0,
                                               enc_kv=enc_kv),
                                 q_offset=q_offset,
-                                window_override=window_override, dist=dist)
+                                window_override=window_override, dist=dist,
+                                place_kv=_kv_placer(dist))
+    kv = None
     if dist.active:
-        dev = _first_device(dist)
         logits = join_rows([_logits_at(params, rms_norm(
             hr[:, -1:, :], gather(params["final_ln"], hr.device),
             cfg.norm_eps), cfg, dist.grid()[r])[:, 0]
-            for r, hr in enumerate(h)], dev)
-        kvs = [_join_kv(kv, dev) for kv in kvs or []]
+            for r, hr in enumerate(h)], _first_device(dist))
+        if kvs:
+            kv = KVCache(k=stack_sharded([k for k, _ in kvs]),
+                         v=stack_sharded([v for _, v in kvs]))
         if enc_kv is not None:
-            enc_kv = KVCache(k=torch.cat([e.k.to(dev) for e in enc_kv], 1),
-                             v=torch.cat([e.v.to(dev) for e in enc_kv], 1))
+            spec = (None, batch_entry(dist), None, None, None)
+            enc_kv = KVCache(*(shard_rows([e[i] for e in enc_kv], spec,
+                                          dist.mesh, batch_dim=1)
+                               for i in range(2)))
         n_new = h[0].shape[1]
     else:
         h = rms_norm(h, params["final_ln"], cfg.norm_eps)
         logits = _logits_at(params, h[:, -1:, :], cfg)[:, 0]
         n_new = x.shape[1]
-    kv = None if not kvs else KVCache(k=torch.stack([k for k, _ in kvs]),
-                                      v=torch.stack([v for _, v in kvs]))
+        if kvs:
+            kv = KVCache(k=torch.stack([k for k, _ in kvs]),
+                         v=torch.stack([v for _, v in kvs]))
     return logits, Caches(kv=kv, length=q_offset + n_new, ssm=ssm,
                           enc_kv=enc_kv)
 

@@ -746,22 +746,35 @@ def plan_restore(n_tokens: int, *, reload_s_per_block: Optional[float],
 
 class ChunkedPrefill:
     """A prefill suspended between device chunks — the serving loop's
-    interleave unit. ``advance()`` runs exactly one device chunk and
-    returns True once the request is complete (result in ``.result``).
-    Draining it in one go IS the blocking path."""
+    interleave unit. ``advance()`` runs exactly one device chunk (the
+    first call also does the hashing, fetch planning and pool reads that
+    precede it) and returns True once the request is complete (result in
+    ``.result``); ``chunks_done`` counts the calls that ran, the last one
+    too. Draining it in one go IS the blocking path."""
 
     def __init__(self, worker: "PrefillWorker", tokens: np.ndarray,
                  session=None) -> None:
+        self.worker = worker
+        self.tokens = np.asarray(tokens)
+        self.prompt_len = len(self.tokens)
+        self.chunks_done = 0
         self.result: Optional[PrefillResult] = None
-        self._gen = worker._chunks(np.asarray(tokens), session)
+        self._gen = worker._chunks(self.tokens, session)
+
+    @property
+    def done(self) -> bool:
+        return self.result is not None
 
     def advance(self) -> bool:
+        """Run one device chunk; True once the prefill finished."""
         if self.result is not None:
             return True
         try:
             next(self._gen)
+            self.chunks_done += 1
             return False
         except StopIteration as e:
+            self.chunks_done += 1
             self.result = e.value
             return True
 
@@ -1553,8 +1566,9 @@ class StateCheckpointWorker:
     ``StateCheckpointWorker``, on the device the parameters live on.
 
     Attention-free models have no append-only KVCache; Mooncake's prefix
-    reuse becomes *state checkpointing*: after every 512-token block
-    boundary the (constant-size) recurrent state is snapshotted to host
+    reuse becomes *state checkpointing*: after every ``chunk``-token block
+    boundary (512 by default) the (constant-size) recurrent state is
+    snapshotted to host
     memory, keyed by the same prefix-chained hash as KV blocks. A later
     request sharing a prefix restores the DEEPEST checkpoint on its chain
     and prefills only the suffix — a transfer is O(state), whatever the
@@ -1563,12 +1577,14 @@ class StateCheckpointWorker:
     """
 
     def __init__(self, params, cfg: ModelConfig, *,
-                 capacity_checkpoints: Optional[int] = None) -> None:
+                 capacity_checkpoints: Optional[int] = None,
+                 chunk: int = BLOCK_TOKENS) -> None:
         if cfg.kind != "ssm":
             raise ValueError("state checkpointing is the SSM path; "
                              f"{cfg.name} is {cfg.kind}")
         self.params = params
         self.cfg = cfg
+        self.chunk = chunk
         self.device = params["embed"].device
         self.meta = StateCache(capacity_checkpoints)
         self.data: dict[int, MambaState] = {}   # hash -> host state copy
@@ -1588,12 +1604,12 @@ class StateCheckpointWorker:
         Returns (first_token, final Caches)."""
         cfg = self.cfg
         S = len(tokens)
-        hash_ids = prefix_hash_ids(tokens)
+        hash_ids = prefix_hash_ids(tokens, self.chunk)
         depth = self.meta.lookup(hash_ids)          # deepest checkpoint
-        start = depth * BLOCK_TOKENS
+        start = depth * self.chunk
         if start >= S:                              # full hit: redo last blk
             depth -= 1
-            start = depth * BLOCK_TOKENS
+            start = depth * self.chunk
         t = torch.as_tensor(np.asarray(tokens, np.int64)[None, :],
                             device=self.device)
         caches = None
@@ -1606,7 +1622,7 @@ class StateCheckpointWorker:
         logits = None
         lo = start
         while lo < S:
-            hi = min(lo + BLOCK_TOKENS, S)
+            hi = min(lo + self.chunk, S)
             if caches is None:
                 logits, caches = prefill(self.params, t[:, :hi], cfg)
                 logits = logits[:, None]
@@ -1615,8 +1631,8 @@ class StateCheckpointWorker:
                 logits, caches = decode_step(self.params, t[:, lo:hi],
                                              caches, cfg)
                 self.scan_calls += hi - lo > 1
-            if hi % BLOCK_TOKENS == 0:
-                self._snapshot(hash_ids[hi // BLOCK_TOKENS - 1], caches)
+            if hi % self.chunk == 0:
+                self._snapshot(hash_ids[hi // self.chunk - 1], caches)
             lo = hi
         self.counters["restored_tokens"] += start
         self.counters["computed_tokens"] += S - start

@@ -895,7 +895,7 @@ def test_sharded_prefill_on_the_card(cuda, name, grouped):
     import dataclasses
 
     from repro_torch.configs.base import get_config
-    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.shardings import gather, shard_params
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models.layers import (Dist, plain_attention,
                                            record_routing, replay_routing)
@@ -921,6 +921,7 @@ def test_sharded_prefill_on_the_card(cuda, name, grouped):
     assert (lk - lp).abs().max().item() \
         <= 4 * 2.0 ** (np.floor(np.log2(scale)) - 7)
     for got, ref in ((ck.kv.k, cp.kv.k), (ck.kv.v, cp.kv.v)):
+        got, ref = gather(got, cuda), gather(ref, cuda)   # the stripes
         assert (got.float() - ref.float()).abs().max().item() \
             <= TOL * ref.float().abs().max().item()
 

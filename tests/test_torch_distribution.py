@@ -571,8 +571,8 @@ def test_make_prefill_step_matches_the_unsharded_prefill(name):
     ``prefill``, the MoE layers under the unsharded run's routing:
     last-position logits within 2e-2 of their scale (jamba's hybrid at
     4e-2, ``tests/test_torch_hybrid.py``'s bound: its reduced stack
-    amplifies rounding), the KV of every layer within the same of its
-    scale, the length equal."""
+    amplifies rounding), the KV of every layer — its stripes gathered —
+    within the same of its scale, the length equal."""
     cfg, tp = _port_params(name)
     rng = np.random.default_rng(7)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 48)))
@@ -594,6 +594,7 @@ def test_make_prefill_step_matches_the_unsharded_prefill(name):
     assert (logits - ref).abs().max().item() <= tol * scale
     if rc.kv is not None:
         for a, b in ((caches.kv.k, rc.kv.k), (caches.kv.v, rc.kv.v)):
+            a = gather(a, "cpu")
             assert a.shape == b.shape
             assert (a.float() - b.float()).abs().max().item() \
                 <= tol * b.float().abs().max().item()
@@ -610,7 +611,8 @@ def test_make_prefill_step_on_a_1x1_mesh_is_the_unsharded_prefill():
     logits, caches = make_prefill_step(cfg, Dist(mesh=mesh))(
         shard_params(cfg, tp, mesh), tok, {})
     ref, rc = prefill(tp, tok, cfg)
-    assert torch.equal(logits, ref) and torch.equal(caches.kv.k, rc.kv.k)
+    assert torch.equal(logits, ref) \
+        and torch.equal(gather(caches.kv.k, "cpu"), rc.kv.k)
 
 
 def test_decode_on_a_mesh_is_not_distributed():

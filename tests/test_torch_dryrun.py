@@ -220,10 +220,114 @@ def _hold_reduced_to_whole(arch, shape, dims, units, seq, record_property):
         assert abs(rec["peak_over_arguments"] - w) <= 0.25 * w, lab
 
 
+# global dispatches whose expert owners all sit outside the first row:
+# (arch, shape, mesh dims, cut depth units, seq)
+OWNER_CASES = [
+    ("qwen3-moe-235b-a22b", "decode_32k", (4, 2), 2, 256),
+    ("mixtral-8x7b", "decode_32k", (4, 2), 2, 256),
+    ("jamba-1.5-large-398b", "decode_32k", (2, 2, 2), 3, 256),
+    ("mixtral-8x7b", "train_4k", (4, 2), 3, 64),
+    ("jamba-1.5-large-398b", "train_4k", (4, 2), 3, 64),
+]
+
+
+def _owner_groups(cfg, mesh, train) -> dict:
+    """{label of the first: labels of all} of the global dispatch's
+    owners outside the first row, by model index and experts run."""
+    p = DR._moe_layer(cfg, mesh, train)
+    coords = [tuple(c.get(a, 0) for a in mesh.axis_names)
+              for c in layers.owner_coords(p["w1"])]
+    groups: dict = {}
+    for c, e in zip(coords, layers.owner_experts(cfg.moe.n_experts,
+                                                 len(coords))):
+        r, col = DR._row_col(mesh, c)
+        if r and e.stop > e.start:
+            groups.setdefault((col, e.stop - e.start), []).append(c)
+    return {DR._label(min(m, key=lambda c: DR._row_col(mesh, c))):
+            [DR._label(c) for c in m] for m in groups.values()}
+
+
+@pytest.mark.parametrize("case", OWNER_CASES,
+                         ids=[f"{a}-{s}-{'x'.join(map(str, d))}"
+                              for a, s, d, _, _ in OWNER_CASES])
+def test_the_dispatch_owners_are_counted_as_the_whole_mesh(case,
+                                                           record_property):
+    """``count`` reports the owners of the global dispatch's experts
+    outside the first row — the first of each model index, with how many
+    experts it runs and how many owners are alike — and each one's
+    counts, extrapolated, are those of the whole mesh run at every owner
+    alike (the peak within 25%); the position that receives the most
+    bytes of one global dispatch (``_moe_dispatch_cost`` at the step's
+    tokens) is among those reported."""
+    arch, sname, dims, units, seq = case
+    _hold_reduced_to_whole(arch, INPUT_SHAPES[sname], dims, units, seq,
+                           record_property)
+    cfg = DR.cut_depth(get_config(arch).reduced(), units)
+    rows = int(np.prod(dims[:-1]))
+    shape = dataclasses.replace(INPUT_SHAPES[sname], seq=seq, batch=2 * rows)
+    mesh = _mesh(dims)
+    whole = DR.count(cfg, shape, mesh, whole=True)["per_position"]
+    part = DR.count(cfg, shape, mesh)["per_position"]
+    groups = _owner_groups(cfg, mesh, shape.kind == "train")
+    assert groups
+    for first, members in groups.items():
+        rec = part[first]
+        assert rec["alike"] == len(members) and rec["experts"] >= 1
+        for lab in members:
+            for key in COUNTS:
+                assert whole[lab][key] == rec[key], (lab, key)
+    reported = set(part) | {lab for m in groups.values() for lab in m}
+    train = shape.kind == "train"
+    tokens = shape.batch * (1 if shape.kind == "decode" else shape.seq)
+    got = DR._moe_dispatch_cost(cfg, tokens, train,
+                                DR._moe_layer(cfg, mesh, train),
+                                mesh.devices[(0,) * len(dims)])
+    labels = DR.position_labels(mesh)
+    most = max(got, key=lambda d: sum(v for k, v in got[d].items()
+                                      if k.startswith("coll:")))
+    assert DR._label(labels[most][0]) in reported
+
+
+def test_the_dispatch_owners_on_a_production_mesh(record_property):
+    """mixtral-8x7b's (TP) and qwen3-moe's (EP) ``decode_32k`` on 16x16:
+    every expert runs on a position outside the first row; each owner is
+    reported, its row's work (its first-row position at that model
+    index, past the first: (0, 0) holds the controller's joins) plus, every MoE layer, the (cap, D) slabs of its experts in
+    and the experts' weights it does not hold gathered — the whole
+    expert less its own shard of it. The busiest position is an owner."""
+    mesh = make_production_mesh()
+    shape = INPUT_SHAPES["decode_32k"]
+    for arch, held in (("mixtral-8x7b", 256), ("qwen3-moe-235b-a22b", 16)):
+        cfg = get_config(arch)
+        rec = DR.dry_run(cfg, shape, mesh)
+        per = rec["analysis"]["per_position"]
+        groups = _owner_groups(cfg, mesh, False)
+        assert sum(len(m) for m in groups.values()) == min(
+            cfg.moe.n_experts, 256)
+        cap = layers.moe_capacity(cfg, shape.batch)
+        n_moe = cfg.n_layers // cfg.moe.every
+        expert = 3 * cfg.d_model * cfg.moe.d_ff_expert * 2
+        for first, members in groups.items():
+            r = per[first]
+            col = first.split(", ")[-1].rstrip(")")
+            if col == "0":      # (0, 0) holds the controller's joins too
+                continue
+            row = per[f"(0, {col})"]
+            got = {k: r["collective_bytes"][k]
+                   - row["collective_bytes"][k] for k in COLLECTIVES}
+            assert got["all-to-all"] == n_moe * r["experts"] * cap \
+                * cfg.d_model * 2
+            assert got["all-gather"] == n_moe * r["experts"] * (
+                expert - expert // held)
+        assert rec["analysis"]["position"] in groups
+        record_property(arch, {"position": rec["analysis"]["position"],
+                               "roofline": rec["roofline"]})
+
+
 def test_the_plan_extrapolates_rows_and_depth():
-    """The runs of a production count: one and two rows (two and three
-    for a Mamba2 prefill), 1-2 depth units (1-3 to train), weights that
-    reproduce a polynomial exactly."""
+    """The runs of a production count: one and two rows (a Mamba2 prefill
+    too: its states stay on their rows), 1-2 depth units (1-3 to train),
+    weights that reproduce a polynomial exactly."""
     mesh = make_production_mesh()
     cfg = get_config("smollm-360m")
     train = DR.plan(cfg, INPUT_SHAPES["train_4k"], mesh)
@@ -236,7 +340,7 @@ def test_the_plan_extrapolates_rows_and_depth():
     assert sum(w * f(k, j) for k, j, w, _ in train) == A(32) + 15 * B(32)
     ssm = DR.plan(get_config("mamba2-2.7b"), INPUT_SHAPES["prefill_32k"],
                   mesh)
-    assert {k for k, _, _, _ in ssm} == {2, 3}
+    assert {k for k, _, _, _ in ssm} == {1, 2}
     long = DR.plan(cfg, INPUT_SHAPES["long_500k"], mesh)
     assert {k for k, _, _, _ in long} == {None}
 
@@ -266,13 +370,13 @@ def test_production_meshes_are_stand_in_positions():
 
 
 def test_count_refuses_rows_that_share_stand_ins():
-    """A Mamba2 prefill runs on the first three rows; on a mesh whose
-    second and third rows share stand-ins ``count`` refuses to merge
+    """A count runs on the first two rows (``ROW_NODES``); on a mesh whose
+    first and second rows share stand-ins ``count`` refuses to merge
     them."""
     cfg = DR.cut_depth(get_config("mamba2-2.7b").reduced(), 1)
     shape = ShapeSpec("p", "prefill", 64, 8)
-    assert DR.row_nodes(cfg, shape) == (2, 3)
-    mesh = make_standin_mesh((4, 2), ("data", "model"), rows=1)
+    assert DR.ROW_NODES == (1, 2)
+    mesh = make_standin_mesh((4, 2), ("data", "model"), rows=0)
     with pytest.raises(ValueError, match="share stand-in devices"):
         DR.count(cfg, shape, mesh)
 

@@ -2,9 +2,10 @@
 on the CPU at the reduced configs, with weights from the reference's
 ``init_params`` passed across by ``bridge.params_from_jax``:
 
-* ``_route``: expert ids equal on every token, gates within 2e-2 (bf16),
-  the tokens whose reference k-th and (k+1)-th router logits lie within
-  one bf16 ulp counted and reported; exact ties (duplicated router
+* ``_route`` against the reference's as its steps run it (jitted: the
+  router product in fp32): expert ids equal on every token, gates
+  within 2e-2 (bf16), the tokens whose k-th and (k+1)-th fp32 router
+  logits lie within one bf16 ulp counted and reported; exact ties (duplicated router
   columns) broken as ``jax.lax.top_k`` breaks them, lower index first;
 * ``_dispatch_indices`` equal as integers, drops included;
 * ``moe_block`` at the production capacity factor 1.25 on a slab that
@@ -77,14 +78,16 @@ def test_route_matches_reference(moe, record_property):
     k = cfg.moe.top_k
     xj, xt = _slab(np.random.default_rng(0), 4096, cfg.d_model)
     wj, wt = jp["moe"]["router"][0], tp["moe"]["router"][0]
-    gj, ij, aj = JL._route(xj, wj, k)
+    # the reference as its steps run it: jitted, the router product in fp32
+    gj, ij, aj = jax.jit(JL._route, static_argnums=2)(xj, wj, k)
     gt, it, at = TL._route(xt, wt, k)
     assert np.array_equal(it.numpy(), np.asarray(ij))
     _close(gt, gj, TOL_BF16)
     _close(at, aj, TOL_F32)
     # near-ties of the reference's router logits at the top-k boundary:
     # counted, not skipped — the ids above are equal on them too
-    logits = np.sort(np.asarray((xj @ wj).astype(jnp.float32)), axis=-1)
+    logits = np.sort(np.asarray(xj.astype(jnp.float32)
+                                @ wj.astype(jnp.float32)), axis=-1)
     kth, nxt = logits[:, -k], logits[:, -k - 1]
     ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(kth), 1e-30))) - 7)
     near = int(((kth - nxt) <= ulp).sum())

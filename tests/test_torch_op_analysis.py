@@ -32,10 +32,11 @@ that has it:
     gives each device one (two); a Mamba2 mixer's in_proj columns of B
     and C, which every model position projects whole, and its chunks'
     C·Bᵀ, computed at every model position of a row (the reference
-    splits both over 'model'); the MoE global dispatch (at most 4,096
-    tokens), which runs every row's router and expert products on the
-    first position where a reference device does its share as XLA
-    partitions it (``_moe_global``); whisper's encoder, cross-attention
+    splits both over 'model'); the MoE global dispatch's router (at most
+    4,096 tokens), which routes every row's tokens on the first position
+    where a reference device does its share as XLA partitions it — its
+    expert products run where their weights are, a reference device's
+    share (``_moe_global``); whisper's encoder, cross-attention
     K/V and cross-attention, whole on each row's first position where a
     reference device does 1/M of them (``_encoder_whole``). Each in the
     forward, and in the train step also in its two gradient products.
@@ -380,27 +381,25 @@ def _named_extra(cfg, kind, batch, seq, dims, r, m) -> int:
 
 def _moe_global(cfg, kind, batch, T, dims, r, m) -> int:
     """The MoE global dispatch (all T ≤ 4,096 tokens): the port's first
-    position routes every row's tokens and runs every expert product, R +
-    G (R the router's 2·T·D·E, G the three expert products' 3·2·E·C·D·F
-    at capacity C); a reference device does G / (D·M) and, as XLA
-    partitions the router, R / D (prefill: the row's router, replicated
-    over 'model'), R / (D·M) (decode) or 2·R / D + R / (D·M) (train: the
-    forward and input gradient replicated, the weight gradient split),
-    the expert products' gradients 2·G / (D·M) more."""
-    from repro_torch.models.layers import (MOE_GLOBAL_DISPATCH_MAX_TOKENS,
-                                           moe_capacity)
+    position routes every row's tokens, R (the router's 2·T·D·E; to
+    train also its two gradient products), where a reference device
+    does R / D (prefill: the row's router, replicated over 'model'),
+    R / (D·M) (decode) or 2·R / D + R / (D·M) (train: the forward and
+    input gradient replicated, the weight gradient split), as XLA
+    partitions it. The expert products are not named: each position
+    runs the experts (EP) or hidden columns (TP) it holds, G / (D·M) of
+    G = 3·2·E·C·D·F at capacity C, as a reference device does."""
+    from repro_torch.models.layers import MOE_GLOBAL_DISPATCH_MAX_TOKENS
     assert T <= MOE_GLOBAL_DISPATCH_MAX_TOKENS    # the global branch
     moe = cfg.moe
     rows, M = dims
     n_moe = cfg.n_layers // moe.every if cfg.attn_every else cfg.n_layers
     R = 2 * T * cfg.d_model * moe.n_experts * n_moe
-    G = 3 * 2 * moe.n_experts * moe_capacity(cfg, T) * cfg.d_model \
-        * moe.d_ff_expert * n_moe
     P = rows * M
-    ref = {"prefill": G // P + R // rows, "decode": (G + R) // P,
-           "train": 3 * G // P + 2 * R // rows + R // P}[kind]
+    ref = {"prefill": R // rows, "decode": R // P,
+           "train": 2 * R // rows + R // P}[kind]
     first = (r, m) == (0, 0)
-    return (3 if kind == "train" else 1) * (R + G) * first - ref
+    return (3 if kind == "train" else 1) * R * first - ref
 
 
 def _encoder_whole(cfg, kind, b, seq, dims, m) -> int:

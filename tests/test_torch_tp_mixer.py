@@ -308,8 +308,9 @@ def test_mixer_refuses_heads_that_do_not_split():
 
 def test_ssm_stack_state_stays_sharded_in_decode():
     """``decode_step`` on the mesh continues from ``Sharded`` states and
-    returns them ``Sharded`` the same way; a prefill's come back whole."""
-    from repro_torch.launch.shardings import shard_caches
+    returns them ``Sharded`` the same way; a prefill's come back
+    ``Sharded`` by ``cache_specs`` too, and the decode takes them as
+    they are."""
     from repro_torch.launch.steps import INPUT_SHAPES, cache_specs, make_dist
     cfg = get_config(MAMBA2).reduced()
     params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -318,11 +319,13 @@ def test_ssm_stack_state_stays_sharded_in_decode():
     dist = _dist(mesh)
     sp = shard_params(cfg, params, mesh)
     with torch.no_grad():
-        _, c = T.prefill(sp, tok, cfg, dist)
-        assert isinstance(c.ssm.ssm, torch.Tensor)
+        _, sc = T.prefill(sp, tok, cfg, dist)
         sh = dataclasses.replace(INPUT_SHAPES["decode_32k"], batch=B, seq=64)
-        sc = shard_caches(cfg, c, cache_specs(cfg, sh, make_dist(mesh, sh)),
-                          mesh)
+        specs = cache_specs(cfg, sh, make_dist(mesh, sh))
+        assert isinstance(sc.ssm.ssm, Sharded) and sc.ssm.ssm.spec == \
+            specs.ssm.ssm and sc.ssm.conv.spec == specs.ssm.conv
+        c = sc._replace(ssm=MambaState(ssm=gather(sc.ssm.ssm, "cpu"),
+                                       conv=gather(sc.ssm.conv, "cpu")))
         l1, c1 = T.decode_step(sp, tok[:, :1], sc, cfg, dist)
         l0, c0 = T.decode_step(params, tok[:, :1], c, cfg)
     assert isinstance(c1.ssm.ssm, Sharded) and c1.ssm.ssm.spec == \
