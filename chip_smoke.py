@@ -212,14 +212,29 @@ Phases, each printed as it runs; any failure exits non-zero:
      in the phase), each position's cache bytes, the peak, the launches;
      4 serve steps from them as they are within ``serve_ulps`` of the
      unsharded step; (b) the MoE global dispatch (2 x 1024 tokens) of a
-     full-width qwen3-moe (ep) and mixtral (tp) layer, bit for bit the
-     dispatch on one position, the bytes copied into (0, 0) before and
-     after (the dry run's stand-in count); (c) smollm-360m at full width
+     full-width qwen3-moe (ep) and mixtral (tp) layer, split where the
+     weights lie: within 2 bf16 ulps of the dispatch on one position
+     (the share of outputs that differ logged), no expert weight byte
+     copied between positions and the bytes copied into (0, 0) before
+     and after (the dry run's stand-in count), its time beside the
+     one-position dispatch's; (c) smollm-360m at full width
      through ``ChunkedPrefill`` (one ``advance()`` a 256-token chunk,
      drained bit-exact with the blocking call) and one paged decode
      step, both held against the same pass under ``plain_attention()``
      within phase 5's 4 bf16 ulps, and each op ``repro_torch.kernels``
      exports against its exported oracle.
+ 21. the split dispatch and the pods, every position on the card: (a)
+     mixtral (2 of 32 layers) and qwen3-moe (4 of 94) at full width,
+     ``make_prefill_step`` of 4 x 512 tokens on (2, 2) then 4 serve
+     steps from its caches, every MoE call the split global dispatch,
+     against the unsharded chain under its routing: the prefill logits
+     within 2e-2 of their scale, the serve steps within ``serve_ulps``;
+     ``flash_prefill`` launches counted (none of ``paged_attention``:
+     the serve step's stripes attend plainly); (b) smollm-360m at full
+     width on (2, 1, 2) over (pod, data, model), 3 AdamW steps: the
+     two pods' replicas of every parameter and moment bit for bit equal
+     after each step, the losses within 2e-2 of the unsharded steps',
+     no kernel launched.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and the
 result line. Times are CUDA-event times with the L2 cache flushed before
 every launch; bounds use the H100 SXM peaks (3.35 TB/s, 989 TFLOP/s bf16).
@@ -3815,9 +3830,10 @@ def prefill_stripes(torch, cfg, params, device="cuda", seq=4096,
 
 
 def global_whole(torch, hs, p, cfg, dev, T_total):
-    """The MoE global dispatch before it ran where the experts are, kept
-    here for the comparison only: every row's tokens and every expert's
-    weights gathered on the first position."""
+    """The MoE global dispatch before it was split where the weights lie,
+    kept here for the comparison only: every row's tokens and every
+    expert's weights gathered on the first position, one product an
+    expert."""
     from repro_torch.launch.shardings import gather
     from repro_torch.models import layers as L
     h = torch.cat([t.to(dev) for t in hs])
@@ -3828,11 +3844,14 @@ def global_whole(torch, hs, p, cfg, dev, T_total):
 
 
 def global_moved(torch, cfg, tokens) -> dict:
-    """Bytes copied into (0, 0), and the most into any position, by one
-    global dispatch of 2 rows x ``tokens`` on a 2x2 mesh, before
-    (``global_whole``) and after (``_moe_global``): the dry run's count
-    on stand-in positions (every position of the card's mesh is
-    ``cuda:0``, so no copy shows there)."""
+    """One global dispatch of 2 rows x ``tokens`` on a 2x2 mesh, before
+    (``global_whole``) and after (``_moe_global``), counted by the dry
+    run on stand-in positions (every position of the card's mesh is
+    ``cuda:0``, so no copy shows there): the bytes copied into (0, 0)
+    and into the busiest position, and the bytes of ``w1``, ``w2`` and
+    ``w3`` copied between positions — every plain gather less the
+    router's other half and the second row's tokens into (0, 0) and its
+    gates back out."""
     from repro_torch.launch import dryrun as DR
     from repro_torch.launch.mesh import make_standin_mesh
     from repro_torch.launch.op_analysis import OpAnalysis, standin
@@ -3842,26 +3861,38 @@ def global_moved(torch, cfg, tokens) -> dict:
     p = DR._moe_layer(cfg, mesh, False)
     hs = [standin((tokens, cfg.d_model), L.DTYPE, grid[r, 0])
           for r in range(2)]
+    D, E, k = cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k
+    other = D // 2 * E * 2 + tokens * D * 2 + tokens * k * 2
     out = {}
     for name, fn in (
             ("before", lambda: global_whole(torch, hs, p, cfg, grid[0, 0],
                                             2 * tokens)),
-            ("after", lambda: L._moe_global(hs, p, cfg, grid, 2 * tokens))):
+            ("after", lambda: L._moe_global(hs, p, cfg, mesh, grid[0, 0],
+                                            2 * tokens))):
         mode = OpAnalysis()
         with mode, torch.no_grad():
             fn()
+        recs = [t.record() for t in mode.tallies.values()]
         got = {d: t.record()["collective_total"]
                for d, t in mode.tallies.items()}
-        out[name] = (got.get(grid[0, 0], 0), max(got.values()))
+        gathered = sum(r["collective_bytes"]["all-gather"] for r in recs)
+        out[name] = (got.get(grid[0, 0], 0), max(got.values()),
+                     gathered - other)
     return out
 
 
 def moe_global_case(torch, timer, name, device="cuda", tokens=1024) -> dict:
     """(b): one full-width MoE layer's ``moe_block`` on (2, 2) over 2 x
     ``tokens`` (T = 2048: the global dispatch) from ``shard_params``'
-    slices, against ``global_whole`` on the same inputs: y and aux bit
-    for bit (each position runs whole experts, so no partial sum
-    rounds). ``device="cpu"``: the reduced width."""
+    slices, against ``global_whole`` on the same inputs: aux bit for bit
+    and y within 2 bf16 ulps of its largest (the split sums fp32
+    partials over the positions that hold the weights and rounds once;
+    the share of outputs that differ is logged), and no byte of the
+    expert weights copied between positions (stand-in count); the
+    dispatch's time beside the one-position dispatch's. The same call
+    with TF32 turned on by the caller (``set_float32_matmul_precision(
+    "high")``) gives y bit for bit: the router and the split turn it off
+    around their fp32 products. ``device="cpu"``: the reduced width."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch.shardings import gather, shard_params
     from repro_torch.models import layers as L
@@ -3880,6 +3911,13 @@ def moe_global_case(torch, timer, name, device="cuda", tokens=1024) -> dict:
     with torch.no_grad():
         with L.record_moe_branches() as taken:
             y, aux = L.moe_block(x, spm, cfg, dist)
+        prev = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision("high")
+        try:
+            tf32_same = bool(torch.equal(L.moe_block(x, spm, cfg, dist)[0],
+                                         y))
+        finally:
+            torch.set_float32_matmul_precision(prev)
         hs = [L.rms_norm(r, gather(spm["ln"], r.device), cfg.norm_eps)
               .reshape(-1, cfg.d_model) for r in L.split_rows(x, dist)]
         want, want_aux = global_whole(torch, hs, spm, cfg,
@@ -3892,22 +3930,32 @@ def moe_global_case(torch, timer, name, device="cuda", tokens=1024) -> dict:
             whole_ms = timer.ms(lambda: global_whole(
                 torch, hs, spm, cfg, dist.grid()[0, 0], 2 * tokens),
                 iters=5, warmup=1)
-    same = bool(torch.equal(y, want)) and bool(torch.equal(aux, want_aux))
+    scale = want.float().abs().max().item()
     err = (y.float() - want.float()).abs().max().item()
+    ulps = err / bf16_ulps(1, scale)
+    differ = (y != want).float().mean().item()
+    aux_same = bool(torch.equal(aux, want_aux))
     moved = global_moved(torch, cfg, tokens)
     log(f"(b) {cfg.name} ({cfg.moe.parallelism}) moe_block on 2x2, T = "
-        f"{2 * tokens}: branch {taken}; bitwise the dispatch on one "
-        f"position: {same} (max_abs_err {err:.3e}); bytes copied into "
-        f"(0, 0) {moved['before'][0]} before, {moved['after'][0]} after, "
-        f"into the busiest position {moved['before'][1]} before, "
-        f"{moved['after'][1]} after (stand-in count); the dispatch "
+        f"{2 * tokens}: branch {taken}; against the dispatch on one "
+        f"position {ulps:.2f} bf16 ulps of the largest (tol 2; "
+        f"max_abs_err {err:.3e}), {differ:.4%} of outputs differ, aux bit "
+        f"for bit: {aux_same}; y with the caller's TF32 on bit for bit: "
+        f"{tf32_same}; expert weight bytes copied between "
+        f"positions {moved['before'][2]} before, {moved['after'][2]} after;"
+        f" bytes copied into (0, 0) {moved['before'][0]} before, "
+        f"{moved['after'][0]} after, into the busiest position "
+        f"{moved['before'][1]} before, {moved['after'][1]} after (stand-in "
+        f"count); the dispatch "
         + (f"{ms:.3f} ms vs {whole_ms:.3f} ms on one position"
            if ms is not None else "not timed (cpu)"))
-    if taken != ["global"] or not same \
+    if taken != ["global"] or ulps > 2 or not aux_same or not tf32_same \
+            or moved["after"][2] != 0 \
             or not bool(torch.isfinite(y.float()).all()):
         raise AssertionError(f"(b) {cfg.name}: the global dispatch differs "
                              f"from the one-position dispatch")
-    return dict(same=same, ms=ms, whole_ms=whole_ms, moved=moved)
+    return dict(ulps=ulps, differ=differ, ms=ms, whole_ms=whole_ms,
+                moved=moved)
 
 
 def chunked_pass(torch, params, cfg, prompts, first=None) -> tuple:
@@ -4123,6 +4171,220 @@ def e2e_placements(torch, timer, device="cuda") -> dict:
     return out
 
 
+def moe_serve_mesh(torch, name, n_layers, device="cuda", seq=512,
+                   steps=4) -> dict:
+    """(a): ``name`` at full width, ``n_layers`` of its layers, on the
+    (2, 2) mesh: ``make_prefill_step`` over 4 x ``seq`` tokens (the
+    global dispatch: T = 2,048 at full size), then ``steps`` decode
+    steps of ``make_serve_step`` from its caches as they are, against
+    the unsharded ``prefill`` then ``make_serve_step`` chain,
+    teacher-forced on the unsharded stream, each MoE layer under the
+    unsharded run's routing (``replay_routing``): the prefill logits
+    within 2e-2 of their scale (``tests/test_torch_placement.py``'s
+    rule), every serve step's by ``hold_serve`` at ``serve_ulps``; every
+    MoE call takes the global dispatch, split where the weights lie.
+    The launches returned are the mesh steps' alone, each counted from
+    0 just before it: the sharded prefill launches ``flash_prefill``
+    once a (position, layer); the mesh's serve steps launch no kernel —
+    they attend over their stripes plainly, as phase 18's, and the
+    sharded paged step, which would launch ``paged_attention``, refuses
+    MoE stacks (``paged_shard_reason``). The unsharded chain's launches
+    are logged apart."""
+    import dataclasses
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.steps import (INPUT_SHAPES, make_prefill_step,
+                                          make_serve_step)
+    from repro_torch.models.layers import (NO_DIST, record_moe_branches,
+                                           record_routing, replay_routing)
+    from repro_torch.models.transformer import prefill
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cfg = get_config(name)
+    if not cuda:
+        cfg = cfg.reduced()
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    dist = mesh_dist(torch, device)
+    params = moe_params(torch, cfg, device)
+    sp = shard_params(cfg, params, dist.mesh)
+    gen = torch.Generator(device=device).manual_seed(21)
+    toks = torch.randint(0, cfg.vocab_size, (4, seq), generator=gen,
+                         device=device)
+    shape = dataclasses.replace(INPUT_SHAPES["decode_32k"], batch=4,
+                                seq=seq + steps)
+    zero_kernel_counts()
+    with torch.no_grad(), record_routing() as routes:
+        lw, caches = prefill(params, toks, cfg)
+    sync()
+    whole_launches = kernel_counts()
+    zero_kernel_counts()
+    t0 = time.monotonic()
+    with replay_routing(routes), record_moe_branches() as branches:
+        lm, sc = make_prefill_step(cfg, dist)(sp, toks, {})
+    sync()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    mesh_launches = kernel_counts()
+    scale = lw.abs().max().item()
+    pre_err = (lm - lw).abs().max().item()
+    step = make_serve_step(cfg, dist, shape)
+    whole = make_serve_step(cfg, NO_DIST, shape)
+    nxt = lw.argmax(-1)[:, None].to(torch.int32)
+    errs, ties, walls = [], 0, []
+    serve_launches = dict.fromkeys(mesh_launches, 0)
+    for _ in range(steps):
+        with record_routing() as routes:
+            lw, caches = whole(params, nxt, caches)
+        sync()
+        zero_kernel_counts()
+        t0 = time.monotonic()
+        with replay_routing(routes), record_moe_branches() as b:
+            lm, sc = step(sp, nxt, sc)
+        sync()
+        walls.append(time.monotonic() - t0)
+        for k, v in kernel_counts().items():
+            serve_launches[k] += v
+        branches += b
+        e, n = hold_serve(torch, f"(a) {cfg.name} serve step", lm, lw,
+                          serve_ulps(cfg))
+        errs.append(e)
+        ties += n
+        nxt = lw.argmax(-1).to(torch.int32)
+    n_moe = cfg.n_layers // cfg.moe.every
+    log(f"(a) {cfg.name}, {cfg.n_layers} layers, 2x2: prefill 4 x {seq} "
+        f"tokens on the mesh against the unsharded prefill "
+        f"{pre_err / scale:.3e} of the scale (tol 2e-2; "
+        f"{pre_err / bf16_ulps(1, scale):.2f} ulps), {prefill_ms:.1f} ms; "
+        f"{steps} serve steps: worst {max(errs):.2f} ulps (tol "
+        f"{serve_ulps(cfg):g}), {ties} rows too close to call, median step "
+        f"{1e3 * sorted(walls)[len(walls) // 2]:.1f} ms; dispatch "
+        f"{sorted(set(branches))} on {len(branches)} MoE calls; launches: "
+        f"the mesh prefill {mesh_launches}, the mesh serve steps "
+        f"{serve_launches}, the unsharded prefill (a reference, not "
+        f"counted) {whole_launches}")
+    if set(branches) != {"global"} or len(branches) != n_moe * (steps + 1) \
+            or pre_err > 2e-2 * scale or not bool(torch.isfinite(lm).all()):
+        raise AssertionError(f"(a) {cfg.name}: the mesh steps disagree with "
+                             f"the unsharded chain")
+    if cuda and (mesh_launches["flash_prefill"] != 4 * cfg.n_layers
+                 or sum(mesh_launches.values())
+                 != mesh_launches["flash_prefill"]
+                 or any(serve_launches.values())):
+        raise AssertionError(f"(a) {cfg.name}: launches {mesh_launches}, "
+                             f"{whole_launches}, {serve_launches}")
+    del params, sp, caches, sc
+    return dict(worst_ulps=max(errs), prefill_err=pre_err / scale,
+                step_ms=1e3 * sorted(walls)[len(walls) // 2],
+                prefill_ms=prefill_ms,
+                launches={k: mesh_launches[k] + serve_launches[k]
+                          for k in mesh_launches})
+
+
+def replicas_equal(torch, tree) -> bool:
+    """Every pod-replicated ``Sharded`` leaf of ``tree``: each pod's
+    slices bit for bit the first pod's."""
+    from repro_torch.launch.shardings import Sharded
+    leaves = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, tuple):
+            for v in t:
+                walk(v)
+        elif isinstance(t, Sharded) and t.pod:
+            leaves.append(t)
+    walk(tree)
+    if not leaves:
+        return False
+    for leaf in leaves:
+        for key, t in leaf.shards.items():
+            if not torch.equal(t, leaf.shards[(0,) + key[1:]]):
+                return False
+    return True
+
+
+def pod_training(torch, device="cuda", batch=8, seq=512, steps=3) -> dict:
+    """(b): smollm-360m at full width on a (2, 1, 2) mesh over ('pod',
+    'data', 'model') with AdamW, phase 15's 8 x 512 batches from seed 0,
+    against as many unsharded steps: each pod holds a replica of every
+    parameter slice (``shard_params``), each replica takes its own pod's
+    gradient and the replicas' gradients are summed over 'pod' in fp32
+    (``shardings.pod_sum``), so after every step the two pods' params
+    and optimizer state are bit for bit equal; every loss within 2e-2
+    relative of the unsharded step's; no kernel launched."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import SyntheticLM, batch_spec_for
+    from repro_torch.launch.shardings import shard_params
+    from repro_torch.launch.steps import (INPUT_SHAPES, make_dist,
+                                          make_train_step)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.training.loop import batch_to
+    from repro_torch.training.optim import make_optimizer
+    import dataclasses
+    cuda = device == "cuda"
+    cfg = get_config("smollm-360m")
+    if not cuda:
+        cfg = cfg.reduced()
+    mesh = card_mesh(torch, (2, 1, 2), ("pod", "data", "model"), device)
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], batch=batch,
+                                seq=seq)
+    dist = make_dist(mesh, shape)
+    init, _ = make_optimizer(cfg.optimizer)
+    zero_kernel_counts()
+    params = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device)
+    sp = shard_params(cfg, params, mesh)
+    opt_w, opt_m = init(params), init(sp)
+    whole, mesh_step = make_train_step(cfg), make_train_step(cfg, dist)
+    data = SyntheticLM(batch_spec_for(cfg, batch, seq), seed=0)
+    rels, equal, walls = [], [], []
+    for i in range(steps):
+        nb = batch_to(data.batch(i), device)
+        lw, params, opt_w = whole(params, opt_w, nb)
+        t0 = time.monotonic()
+        lm, sp, opt_m = mesh_step(sp, opt_m, nb)
+        lm = float(lm)
+        walls.append(time.monotonic() - t0)
+        rels.append(abs(lm - float(lw)) / abs(float(lw)))
+        equal.append(replicas_equal(torch, sp)
+                     and replicas_equal(torch, (opt_m.m, opt_m.v)))
+    no_kernel_launched("21 (b)")
+    log(f"(b) {cfg.name} on (2, 1, 2) over (pod, data, model), {batch} x "
+        f"{seq} tokens, {cfg.optimizer}: {steps} steps, losses relative to "
+        f"the unsharded step's {[f'{r:.3e}' for r in rels]} (tol 2e-2); "
+        f"the pods' replicas bit for bit equal after each step: {equal}; "
+        f"step walls {[round(w * 1e3, 1) for w in walls]} ms; no kernel "
+        f"launched")
+    if not all(equal) or max(rels) > 2e-2:
+        raise AssertionError("(b) the pod replicas differ, or the losses "
+                             "leave the unsharded run's")
+    return dict(rels=rels, equal=equal, step_ms=[w * 1e3 for w in walls])
+
+
+def e2e_pods(torch, device="cuda") -> dict:
+    """Phase 21: (a) the MoE serve steps through the global dispatch
+    split where the weights lie, (b) training with the parameters
+    replicated over 'pod'."""
+    t0 = time.monotonic()
+    cuda = device == "cuda"
+    out = {}
+    for name, n_layers in (("mixtral-8x7b", 2), ("qwen3-moe-235b-a22b", 4)):
+        out[name] = moe_serve_mesh(torch, name, n_layers, device,
+                                   seq=512 if cuda else 64)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+    out["pods"] = pod_training(torch, device, seq=512 if cuda else 64)
+    out["launches"] = {k: sum(out[n]["launches"][k]
+                              for n in ("mixtral-8x7b",
+                                        "qwen3-moe-235b-a22b"))
+                       for k in out["mixtral-8x7b"]["launches"]}
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4330,18 +4592,29 @@ def main() -> int:
     log(f"phase 20 launches: {json.dumps(t20['launches'])}; phase 20 took "
         f"{t20['seconds']:.1f} s ({smi})")
 
+    phase("21 the MoE serve steps through the global dispatch split where "
+          "the weights lie; training with the parameters replicated over "
+          "'pod'")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t21 = e2e_pods(torch)
+    log(f"phase 21 launches: {json.dumps(t21['launches'])}; phase 21 took "
+        f"{t21['seconds']:.1f} s ({smi})")
+
     kernels = [
         dict(name="paged_attention", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:76",
              launches=launches["paged_attention"]
-             + t20["launches"]["paged_attention"], **paged),
+             + t20["launches"]["paged_attention"]
+             + t21["launches"]["paged_attention"], **paged),
         dict(name="flash_prefill", route="cuda",
              source="src/repro_torch/csrc/flash_prefill.cu",
              replaces="src/repro/kernels/flash_prefill/kernel.py:83",
              launches=launches["flash_prefill"] + t17["launches"]
              + t19["launches"]["flash_prefill"]
-             + t20["launches"]["flash_prefill"], **pre),
+             + t20["launches"]["flash_prefill"]
+             + t21["launches"]["flash_prefill"], **pre),
         dict(name="paged_attention_layers", route="cuda",
              source="src/repro_torch/csrc/paged_attention.cu",
              replaces="src/repro/kernels/paged_attention/kernel.py:157",

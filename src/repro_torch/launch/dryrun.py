@@ -25,31 +25,32 @@ extrapolates, exactly (``plan``):
     polynomial in the depth — affine for a forward; quadratic for a train
     step, whose backward through each layer's view of a stacked leaf
     writes a zero-filled gradient of the whole stack. The step runs at
-    1 and 2 units (1, 2 and 3 to train) and the counts are evaluated at
-    the config's depth;
+    1, 2 and 3 units and the counts are evaluated at the config's depth
+    (through 1 and 2 for a forward, 1-3 to train);
   * rows: the data rows (every index of the batch axes) do the same work
-    on their own batch share. The step runs on the mesh's first rows (1
-    and 2, ``ROW_NODES``), the parameters and optimizer state still
-    sharded over the whole mesh (so the FSDP gathers over 'data', the
-    gradients sent back to every shard and the optimizer's shards are
-    the real ones), and every count of the first row — which also holds
-    the controller's joins — is affine in the number of rows. A cut
-    run's MoE layers take the whole step's dispatch
+    on their own batch share. The step runs on the first rows of each
+    pod (1 and 2, ``ROW_NODES``; a remat layer's recompute run whole on
+    a mesh, ``_run``), the parameters and optimizer state still sharded
+    over the whole mesh (so the FSDP gathers over 'data', the gradients
+    sent back to every shard, the gradient sum over 'pod' and the
+    optimizer's shards are the real ones), and every count of each pod's first row — the first
+    pod's also holds the controller's joins — is affine in the number of
+    rows a pod. A cut run's MoE layers take the whole step's dispatch
     (``Dist.moe_global_max_tokens``); the global dispatch, whose
     capacity rounds, is priced at every position by running it at the
-    full token count (``_moe_dispatch_correction``). The reported
-    positions are the first row's, and the positions outside it that run
-    the global dispatch's experts (``_owner_records``: a later row's
-    work is the second row's, plus its own part of the dispatch). A
-    batch of one (``long_500k``)
-    stripes its cache over every position: it runs whole, later rows
-    sharing a stand-in per model index (a class, reported as its mean
-    position);
+    full token count (``_moe_dispatch_correction``). Its expert products
+    run where the weights lie, the same share at every position of a
+    model column, so the reported positions — the first row of each pod
+    — are the busiest. A batch of one (``long_500k``) stripes its cache
+    over every position: it runs whole, later rows sharing a stand-in
+    per model index (a class, reported as its mean position);
   * the optimizer update does not depend on the rows: it runs once a
     depth, on the reported positions' shards (AdamW's update is per
     shard; Adafactor's sums partials across shards, so it runs on all);
-  * the peak of live bytes is not a polynomial: it is estimated
-    bilinear in (rows, depth) over the arguments (``plan``).
+  * the peak of live bytes is not a polynomial: it is estimated over
+    the arguments, affine in the depth through 2 and 3 units (the first
+    layer adds a one-off: the embedding's output stays live beside the
+    residual) plus the rows' increment, affine in depth (``plan``).
 
 ``count(cfg, shape, mesh)`` does the work for any config, ``ShapeSpec``
 and mesh; ``lower_one`` is the reference's entry, on the production
@@ -58,8 +59,12 @@ meshes. The record keeps the reference's keys where they mean something:
 ``memory`` is per position (the busiest reported, ``per_position``
 beside it), ``cost`` and ``analysis`` are ``op_analysis``'s,
 ``roofline`` prices them on an H100 — all of the plain path
-(``"path": "plain"``, ``dry_run``). ``--hlo-out`` becomes ``--ops-out``
-(each position's op tally); ``--no-compile`` has no meaning here. The
+(``"path": "plain"``, ``dry_run``). ``collective_held`` is the part of
+each kind's bytes held against the reference's compiled collectives
+(``launch.shardings.collective``); ``held_kinds`` and ``own_kinds`` name
+the kinds that are all held and all the port's own copies.
+``--hlo-out`` becomes ``--ops-out`` (each position's op tally);
+``--no-compile`` has no meaning here. The
 reference's ``REPRO_DONATE`` has no counterpart: the port's steps return
 fresh tensors (a decode writes its caches in place).
 """
@@ -75,6 +80,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import set_checkpoint_early_stop
 
 from repro_torch.configs.base import ModelConfig, get_config, list_configs
 from repro_torch.core.costmodel import H100
@@ -83,7 +89,8 @@ from repro_torch.launch.op_analysis import (COLLECTIVES, OpAnalysis,
                                             _storage, roofline_terms, standin)
 from repro_torch.launch.shardings import (Sharded, _map_paths, _tree_paths,
                                           check_divisibility, param_shapes,
-                                          param_specs, shard_caches)
+                                          param_specs, pod_replicated,
+                                          shard_caches)
 from repro_torch.launch.steps import (INPUT_SHAPES, ShapeSpec,
                                       applicability, cache_specs,
                                       input_specs,
@@ -115,6 +122,13 @@ def n_rows(mesh) -> int:
     return math.prod(mesh.shape.get(a, 1) for a in BATCH_AXES)
 
 
+def rows_a_pod(mesh) -> int:
+    """The data rows of one pod: the size of the mesh's last batch
+    axis."""
+    batch = [a for a in mesh.axis_names if a in BATCH_AXES]
+    return mesh.shape[batch[-1]] if batch else 1
+
+
 def _by_rows(mesh: Mesh) -> tuple:
     """(the devices as (rows, the other axes' sizes...) — a row per index
     of the batch axes, the first major —, the axis order that gives
@@ -127,18 +141,13 @@ def _by_rows(mesh: Mesh) -> tuple:
     return arr.reshape((-1,) + arr.shape[lead:]), order, arr.shape[:lead]
 
 
-def _of_rows(mesh: Mesh, rows: np.ndarray, order, lead) -> Mesh:
-    """``_by_rows``' inverse: a mesh of ``mesh``'s axes, the batch axes'
-    sizes ``lead``."""
-    arr = rows.reshape(tuple(lead) + rows.shape[1:])
-    return Mesh(arr.transpose(np.argsort(order)), mesh.axis_names)
-
-
 def row_mesh(mesh: Mesh, k: int) -> Mesh:
-    """The first ``k`` data rows of ``mesh`` (first batch axis major) as
-    a mesh of the same axes: the batch axes' sizes 1, ..., k."""
+    """The first ``k`` data rows of each pod of ``mesh`` as a mesh of the
+    same axes: the last batch axis k long."""
     rows, order, lead = _by_rows(mesh)
-    return _of_rows(mesh, rows[:k], order, [1] * (len(lead) - 1) + [k])
+    sub = rows.reshape((-1, lead[-1]) + rows.shape[1:])[:, :k]
+    arr = sub.reshape(tuple(lead[:-1]) + (k,) + rows.shape[1:])
+    return Mesh(arr.transpose(np.argsort(order)), mesh.axis_names)
 
 
 def row_devices(mesh: Mesh) -> np.ndarray:
@@ -148,35 +157,9 @@ def row_devices(mesh: Mesh) -> np.ndarray:
     return rows.reshape(len(rows), -1)
 
 
-def _row_col(mesh: Mesh, coords: tuple) -> tuple:
-    """(row, position in the row) of a position's coordinates, in
-    ``row_devices``' order."""
-    row = col = 0
-    for a, i in zip(mesh.axis_names, coords):
-        if a in BATCH_AXES:
-            row = row * mesh.shape[a] + i
-        else:
-            col = col * mesh.shape[a] + i
-    return row, col
-
-
-def _with_row_distinct(mesh: Mesh, row: int) -> Mesh:
-    """``mesh`` with its row ``row`` given stand-ins of its own: where it
-    shares them (a later row of ``make_standin_mesh``), it trades
-    devices with the last row that has its own (never the first)."""
-    rows, order, lead = _by_rows(mesh)
-    uses: dict = {}
-    for d in rows.flat:
-        uses[d] = uses.get(d, 0) + 1
-    own = [r for r in range(len(rows))
-           if all(uses[d] == 1 for d in rows[r].flat)]
-    if row in own:
-        return mesh
-    if len(own) < 2:
-        raise ValueError("the mesh has no row of its own stand-ins to trade")
-    rows = rows.copy()
-    rows[[row, own[-1]]] = rows[[own[-1], row]]
-    return _of_rows(mesh, rows, order, lead)
+def first_rows(mesh: Mesh) -> set:
+    """The devices of each pod's first data row."""
+    return set(row_devices(mesh)[::rows_a_pod(mesh)].flat)
 
 
 def depth_units(cfg: ModelConfig) -> int:
@@ -249,7 +232,8 @@ class _Params:
                 spec = spec[k]
             return Sharded.build(mesh, spec, meta.shape, lambda index, dev: (
                 standin([len(range(*s.indices(n))) for s, n in
-                         zip(index, meta.shape)], meta.dtype, dev)))
+                         zip(index, meta.shape)], meta.dtype, dev)),
+                pod_replicated(mesh))
         self.params = _map_paths(place, shapes)
         self.opt = None
         if train:
@@ -261,7 +245,8 @@ class _Params:
 def step_call(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, k,
               held: _Params) -> tuple:
     """(step, arguments) of ``shape.kind`` for the first ``k`` rows of
-    ``mesh`` (all of them when ``k`` is None), on stand-in inputs. A
+    each pod of ``mesh`` (all of them when ``k`` is None), on stand-in
+    inputs. A
     train step is ``loss_and_grads``; its optimizer update is
     ``_run_update``. The step picks each MoE layer's dispatch for the
     whole step's tokens, as the whole mesh would."""
@@ -270,7 +255,8 @@ def step_call(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, k,
     if sub is not mesh:                 # the first k rows of the mesh
         whole = shape.batch * (1 if shape.kind == "decode" else shape.seq)
         most = layers.MOE_GLOBAL_DISPATCH_MAX_TOKENS
-        shape = dataclasses.replace(shape, batch=shape.batch // rows * k)
+        shape = dataclasses.replace(shape,
+                                    batch=shape.batch // rows * n_rows(sub))
         dist = dataclasses.replace(make_dist(sub, shape),
                                    moe_global_max_tokens=most
                                    if whole <= most else 0)
@@ -304,7 +290,13 @@ def _run(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, k, held: _Params,
     step, call = step_call(cfg, shape, mesh, k, held)
     mode = OpAnalysis(ops=ops)
     mode.hold(call)
-    with layers.record_moe_branches() as branches, mode:
+    # on a mesh a remat layer's recompute runs whole: checkpoint's early
+    # stop ends it once the saved tensors it needs are back, before the
+    # last data row's tail, so a row's counts would hang on whether it
+    # is a cut run's last row (on the whole mesh a reported row never
+    # is); one row keeps the early stop, as XLA drops the unused tail
+    with layers.record_moe_branches() as branches, mode, \
+            set_checkpoint_early_stop(mesh is None):
         out = step(*call)
     return mode, out, list(branches)
 
@@ -331,8 +323,8 @@ def _run_update(cfg: ModelConfig, held: _Params, grads, keep, ops: bool):
 
 
 def _keep_shards(leaf, keep):
-    return Sharded(leaf.mesh, leaf.spec, leaf.shape,
-                   {k: t for k, t in leaf.shards.items() if keep(t.device)})
+    return leaf.with_shards({k: t for k, t in leaf.shards.items()
+                             if keep(t.device)})
 
 
 def _map_sharded(fn, tree):
@@ -378,6 +370,7 @@ def _flat(rec: dict) -> dict:
     for c in COLLECTIVES:
         out["coll:" + c] = rec["collective_bytes"][c]
         out["count:" + c] = rec["collective_counts"][c]
+        out["held:" + c] = rec["collective_held"][c]
     return out
 
 
@@ -388,6 +381,7 @@ def _unflat(flat: dict) -> dict:
             "collective_bytes": coll,
             "collective_counts": {c: flat["count:" + c]
                                   for c in COLLECTIVES},
+            "collective_held": {c: flat["held:" + c] for c in COLLECTIVES},
             "collective_total": sum(coll.values()),
             "peak_over_arguments": max(flat["peak_a"], flat["peak_b"]),
             "output_bytes": flat["output_bytes"]}
@@ -434,19 +428,21 @@ def _label(coords) -> str:
 # argument bytes, from the specs and the port's placement
 # ---------------------------------------------------------------------------
 
-def _place(acc: dict, mesh, spec, meta) -> None:
+def _place(acc: dict, mesh, spec, meta, pod: bool = False) -> None:
     """Add a leaf stored by ``Sharded.build`` over ``spec`` — one block per
-    index of its spec'd axes, on the position with those coordinates and
-    0 on every other axis — to ``acc`` {coords: bytes} (all of it at ()
-    without a mesh)."""
+    index of its spec'd axes, once per index of 'pod' with ``pod``, on
+    the position with those coordinates and 0 on every
+    other axis — to ``acc`` {coords: bytes} (all of it at () without a
+    mesh)."""
     if mesh is None:
         acc[()] = acc.get((), 0) + meta.numel() * meta.element_size()
         return
     spec = tuple(spec) + (None,) * (meta.dim() - len(spec))
-    axes = [a for e in spec if e is not None
-            for a in (e if isinstance(e, tuple) else (e,))]
-    blocks = math.prod(mesh.shape[a] for a in axes)
+    named = [a for e in spec if e is not None
+             for a in (e if isinstance(e, tuple) else (e,))]
+    blocks = math.prod(mesh.shape[a] for a in named)
     nbytes = meta.numel() * meta.element_size() // blocks
+    axes = ["pod"] * pod + named
     for idx in np.ndindex(*(mesh.shape[a] for a in axes)):
         c = dict(zip(axes, idx))
         pos = tuple(c.get(a, 0) for a in mesh.axis_names)
@@ -456,8 +452,8 @@ def _place(acc: dict, mesh, spec, meta) -> None:
 def argument_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh) -> dict:
     """{position coords: bytes} of what the step receives, as the port
     places it: parameters and optimizer state as ``shard_params`` and the
-    optimizer's init store them (a leaf once, as the blocks its spec names:
-    a replicated leaf on the mesh's first position), caches as
+    optimizer's init store them (a leaf once per pod, as the blocks its
+    spec names: a replicated leaf on each pod's first position), caches as
     ``shard_caches`` stores them by ``cache_specs``, and the step's
     inputs (tokens, labels, frames, patches) whole on the mesh's first
     position, where the step splits them into data rows."""
@@ -466,9 +462,10 @@ def argument_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh) -> dict:
     acc: dict = {first: 0}
     p_shapes = param_shapes(cfg)
     p_specs = param_specs(cfg, p_shapes)
+    pod = mesh is not None and pod_replicated(mesh)
     for (_, meta), (_, spec) in zip(_tree_paths(p_shapes),
                                     _tree_paths(p_specs)):
-        _place(acc, mesh, spec, meta)
+        _place(acc, mesh, spec, meta, pod)
     args, _ = input_specs(cfg, shape, dist)
     if shape.kind == "train":
         o_shapes = opt_state_shapes(cfg, p_shapes)
@@ -477,7 +474,7 @@ def argument_bytes(cfg: ModelConfig, shape: ShapeSpec, mesh) -> dict:
         for part, specs in ((o_shapes.m, o_specs.m), (o_shapes.v, o_specs.v)):
             for (_, meta), (_, spec) in zip(_leaf_pairs(part),
                                             _leaf_pairs(specs)):
-                _place(acc, mesh, spec, meta)
+                _place(acc, mesh, spec, meta, pod)
         inputs = args["batch"]
     else:
         inputs = {n: t for n, t in args.items() if n != "caches"}
@@ -528,175 +525,79 @@ def _moe_layer(cfg: ModelConfig, mesh: Mesh, train: bool) -> dict:
 
 
 def _moe_dispatch_cost(cfg: ModelConfig, tokens: int, train: bool,
-                       p: dict, ctrl) -> dict:
+                       p: dict, mesh: Mesh) -> dict:
     """{position: counts} of one global dispatch (``layers._moe_global``)
-    over ``tokens`` rows routed on ``ctrl``, the experts where ``p``'s
-    leaves hold them (its backward too when ``train``)."""
+    over ``tokens`` rows routed on ``mesh``'s first position, the experts
+    split where ``p``'s leaves hold them (its backward too when
+    ``train``)."""
+    ctrl = mesh.devices[(0,) * mesh.devices.ndim]
     h = standin((tokens, cfg.d_model), layers.DTYPE, ctrl)
     leaves = [h.requires_grad_(train)] + [
         t for leaf in p.values() for _, t in sorted(leaf.shards.items())]
     mode = OpAnalysis()
     with mode, torch.enable_grad():
-        (y,), aux = layers._moe_global([h], p, cfg, np.array([[ctrl]]),
-                                       tokens)
+        (y,), aux = layers._moe_global([h], p, cfg, mesh, ctrl, tokens)
         if train:
             torch.autograd.grad(y.float().sum() + aux, leaves)
     return {dev: _flat({**t.record(), "output_bytes": 0, "peak_a": 0,
                         "peak_b": 0}) for dev, t in mode.tallies.items()}
 
 
-def _moe_dispatch_correction(cfg, t: int, rows: int, mesh: Mesh,
-                             train) -> dict:
+def _moe_dispatch_correction(cfg, t: int, mesh: Mesh, train,
+                             nodes: tuple) -> dict:
     """{position: what the row extrapolation misses of one global
     dispatch}: its counts at all rows' tokens less their affine
-    interpolation through the runs' row counts (``ROW_NODES``)."""
-    ctrl = mesh.devices[(0,) * mesh.devices.ndim]
+    interpolation through the runs' rows a pod (``nodes``)."""
+    rows, per = n_rows(mesh), rows_a_pod(mesh)
     p = _moe_layer(cfg, mesh, train)
-    exact = _moe_dispatch_cost(cfg, rows * t, train, p, ctrl)
-    approx = _combine([(w, _moe_dispatch_cost(cfg, k * t, train, p, ctrl))
-                       for w, k in zip(lagrange(ROW_NODES, rows),
-                                       ROW_NODES)])
+    exact = _moe_dispatch_cost(cfg, rows * t, train, p, mesh)
+    approx = _combine([(w, _moe_dispatch_cost(cfg, rows // per * k * t,
+                                              train, p, mesh))
+                       for w, k in zip(lagrange(nodes, per), nodes)])
     return {dev: {key: v - approx.get(dev, {}).get(key, 0)
                   for key, v in rec.items()
                   if key not in ("peak_a", "peak_b", "output_bytes")}
             for dev, rec in exact.items()}
 
 
-def _owner_records(cfg, mesh: Mesh, rows: int, t: int, train: bool,
-                   per_unit: int, runs: list) -> dict:
-    """{label: (flat record, experts run, owners alike)} of the global
-    dispatch's expert owners outside the first row
-    (``layers.owner_coords``; the first row's are reported already): one
-    for each model index and number of experts run, labelled by the
-    first such owner, its record that of every one of them.
-
-    A later row does what the second row does, on its own batch share,
-    so each record is built from the cut runs' second and third rows at
-    that model index (``runs``: [(rows k, depth j, update?, {device:
-    record})]). A position of a later row runs W, its row's work, only
-    where its row runs; H, the zero-filled gradients of its shards'
-    stacked leaves, once whatever the rows; G, the gradients of its
-    shards from each row that runs (H and G only to train); and D, its
-    part of the ``per_unit`` global dispatches a depth unit at the
-    step's tokens. So the k0 = 1 row runs count H + G + D(t) at the
-    second row, and the k1 = 2 row runs W + H + 2G + D(2t), the third
-    row's increment between them being G + D(2t) − D(t). Each is taken
-    to the config's depth as ``plan`` takes the first row's (a run on
-    k0 rows through its depth nodes, a further row's increment affine),
-    and the owner at all R rows counts W + H + R·G + D'(R·t), D' its own
-    part of the dispatch (``_moe_dispatch_cost``, run where it has a
-    stand-in of its own: ``_with_row_distinct``). The peak is the second
-    row's in the k1 row runs (the update's too), taken to the config's
-    depth."""
-    nd = mesh.devices.ndim
-    p = _moe_layer(cfg, mesh, train)
-    coords = [tuple(c.get(a, 0) for a in mesh.axis_names)
-              for c in layers.owner_coords(p["w1"])]
-    shares = layers.owner_experts(cfg.moe.n_experts, len(coords))
-    groups: dict = {}
-    for c, e in zip(coords, shares):
-        r, col = _row_col(mesh, c)
-        if r and e.stop > e.start:
-            groups.setdefault((col, e.stop - e.start), []).append(c)
-    if not groups:
-        return {}
-    by_row = row_devices(mesh)
-    if len(set(by_row[:3].flat)) != by_row[:3].size:
-        raise ValueError("the owners' counts read the mesh's first three "
-                         "rows, which share stand-in devices")
-    last = [a for a in mesh.axis_names if a in BATCH_AXES][-1]
-    if train and mesh.shape[last] < 3:
-        # the third row is then in another pod, whose positions hold no
-        # shards (``shard_params`` stores a leaf on the first pod): its G
-        # is not the owner's
-        raise ValueError(f"a train step's owners are counted through the "
-                         f"third row, which needs 3 indices of '{last}'")
-    k0, k1 = ROW_NODES
-    units = depth_units(cfg)
-
-    def weights(k, update=False):
-        nodes = sorted({j for kk, j, u, _ in runs
-                        if u == update and (update or kk == k)})
-        return dict(zip(nodes, lagrange(nodes, units)))
-    a, b, upd = weights(k0), weights(k1), weights(k0, True)
-    second, inc, peaks = [], [], []
-    for k, j, u, recs in runs:
-        if u:
-            second.append((upd[j], recs))
-            peaks.append((upd[j], recs))
-        elif k == k1:
-            second.append((b[j], recs))
-            inc.append((b[j], recs))
-            peaks.append((b[j], recs))
-        else:
-            second.append((a[j] - b.get(j, 0), recs))
-            inc.append((-b.get(j, 0), recs))
-    second, inc, peaks = _combine(second), _combine(inc), _combine(peaks)
-    ctrl = mesh.devices[(0,) * nd]
-    n = per_unit * units
-    own = {k: _moe_dispatch_cost(cfg, k * t, train, p, ctrl)
-           for k in (k0, k1)}
-    at_all: dict = {}
-    out = {}
-    for (col, n_exp), members in sorted(groups.items()):
-        rep = min(members, key=lambda c: _row_col(mesh, c))
-        r = _row_col(mesh, rep)[0]
-        if r not in at_all:
-            m2 = _with_row_distinct(mesh, r)
-            labels = position_labels(m2)
-            got = _moe_dispatch_cost(cfg, rows * t, train,
-                                     _moe_layer(cfg, m2, train),
-                                     m2.devices[(0,) * nd])
-            at_all[r] = {labels[d][0]: rec for d, rec in got.items()
-                         if labels[d][1] == 1}
-        d1, d2 = by_row[1, col], by_row[2, col]
-        new = at_all[r].get(rep, {})
-        rec = {}
-        for key in second.get(d1, {}):
-            if key in ("peak_a", "peak_b"):
-                rec[key] = peaks.get(d1, {}).get(key, 0)
-                continue
-            d = lambda k, dev: own[k].get(dev, {}).get(key, 0)
-            g = inc.get(d2, {}).get(key, 0) - n * (d(k1, d2) - d(k0, d2))
-            rec[key] = second[d1][key] + (rows - k1) * g \
-                + n * (new.get(key, 0) - d(k1, d1))
-        out[_label(rep)] = (rec, n_exp, len(members))
-    return out
-
-
 # ---------------------------------------------------------------------------
 # count: one (config, shape, mesh)
 # ---------------------------------------------------------------------------
 
-# the row counts the first row's counts are taken through: every row's
+# the rows a pod the first rows' counts are taken through: every row's
 # caches and states stay on its own positions and the global dispatch's
-# outputs return to them, so the first row's counts are affine from one
-# row (the experts run on their owners, ``_owner_records``)
+# outputs return to them, so each pod's first row's counts are affine in
+# the rows from one
 ROW_NODES = (1, 2)
 
 
 def plan(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
          whole: bool = False) -> list:
-    """The runs ``count`` makes and their weights: [(rows k — None for
-    all —, depth units j, count weight, peak weight)].
+    """The runs ``count`` makes and their weights: [(rows k a pod — None
+    for all —, depth units j, count weight, peak weight)].
 
-    The counts of the first row are A(L) + (R − k0)·B(L) at R rows and
-    depth L (``ROW_NODES``: k0, k1): A — a run on k0 rows — is affine in
-    L (quadratic to train: the gradient of each layer's view of a stacked
-    leaf is a zero-filled stack, once per layer whatever the rows), B —
-    a further row's increment — affine; each is taken through its depth
-    nodes and evaluated at the config's depth. The peak of live bytes is
-    not a polynomial: it is taken bilinear in (rows, depth) through the
-    runs at k0 and k1 rows and 1 and 2 units (the bytes that stay live
-    per layer and per row, over a transient that does not grow)."""
+    The counts of a pod's first row are A(L) + (R − k0)·B(L) at R rows a
+    pod and depth L (``ROW_NODES``: k0, k1; a pod of at most k1 rows
+    runs whole): A — a run on k0 rows a pod — is affine in L (quadratic
+    to train: the gradient of each layer's view of a stacked leaf is a
+    zero-filled stack, once per layer whatever the rows), B — a further
+    row's increment — affine; each is taken through its depth nodes (A
+    through 1 and 2 units, 1-3 to train; B through 1 and 2) and
+    evaluated at the config's depth. The
+    peak of live bytes is not a polynomial: it is taken as P(L) + (R −
+    k0)·ΔP(L), P the k0 runs' peak affine through 2 and 3 units — past
+    the first layer's one-off growth (the embedding's output, live
+    beside the residual) — and ΔP a further row's, affine through 1 and
+    2. A config of at most 3 units runs at its depth."""
     units = depth_units(cfg)
     rows = n_rows(mesh) if shape.batch > 1 else 1
+    per = rows_a_pod(mesh) if rows > 1 else 1
     k0, k1 = ROW_NODES
     ja = (1, 2, 3) if shape.kind == "train" else (1, 2)
-    jb = (1, 2)
-    if whole or units <= ja[-1]:
-        ja = jb = (units,)
-    ks = (None,) if whole or rows <= k1 else (k0, k1)
+    jb, jp = (1, 2), (2, 3)
+    if whole or units <= 3:
+        ja = jb = jp = (units,)
+    ks = (None,) if whole or per <= k1 else (k0, k1)
     acc: dict = {}
 
     def put(k, j, w, pw):
@@ -704,12 +605,13 @@ def plan(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
         acc[(k, j)] = (c + w, p + pw)
     a = dict(zip(ja, lagrange(ja, units)))
     b = dict(zip(jb, lagrange(jb, units)))
-    r = rows - k0
-    for j in ja:
-        put(ks[0], j, a[j], b.get(j, 0) if len(ks) == 1 else 0)
+    pk = dict(zip(jp, lagrange(jp, units)))
+    r = per - k0
+    for j in sorted(set(ja) | set(jp)):
+        put(ks[0], j, a.get(j, 0), pk.get(j, 0))
     if len(ks) == 2:
         for j in jb:
-            put(k0, j, -r * b[j], (1 - r) * b[j])
+            put(k0, j, -r * b[j], -r * b[j])
             put(k1, j, r * b[j], r * b[j])
     return [(k, j, w, pw) for (k, j), (w, pw) in
             sorted(acc.items(), key=lambda kv: (kv[0][0] or 0, kv[0][1]))
@@ -720,14 +622,10 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
           ops: bool = False, whole: bool = False) -> dict:
     """Every reported position's counts for ``cfg``'s step at ``shape`` on
     ``mesh`` (stand-in positions, ``make_standin_mesh``): runs at cut
-    depth and on the first rows (``plan``), combined exactly (module
-    docstring); ``whole`` runs every row at full depth instead. The
-    reported positions are those with a stand-in of their own — of the
-    first row only when the rows are extrapolated, with the global
-    dispatch's expert owners outside it (``_owner_records``: a record
-    for each model index and number of experts, labelled by its first
-    owner, with ``experts`` and ``alike``, the owners it stands for).
-    Returns
+    depth and on the first rows of each pod (``plan``), combined exactly
+    (module docstring); ``whole`` runs every row at full depth instead.
+    The reported positions are those with a stand-in of their own — of
+    each pod's first row only when the rows are extrapolated. Returns
     {"per_position": {label: record}, "classes": {label: record},
     "ops": {label: op tally} (``ops``), "trace_s", "runs"}."""
     train = shape.kind == "train"
@@ -739,9 +637,7 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
     reduced = runs[0][0] is not None
     labels = position_labels(mesh)
     # (an unsharded step is never reduced)
-    first_row = set(row_devices(mesh)[0]) if reduced else None
-    # the second and third rows' positions, which ``_owner_records`` reads
-    later_rows = set(row_devices(mesh)[1:3].flat) if reduced else set()
+    reported = first_rows(mesh) if reduced else None
     if reduced:
         k1 = max(k for k, _, _, _ in runs)
         first = row_mesh(mesh, k1).devices
@@ -750,27 +646,22 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
                              f"stand-in devices: the plan runs on them")
     t0 = time.time()
     terms, peaks, op_terms, per_unit = [], [], [], 0
-    # the second and third rows' positions in each run: [(k, j, update?,
-    # {device: record with its peak})], combined by ``_owner_records``
-    later = []
-    upd_nodes = sorted({j for k, j, _, _ in runs if k == runs[0][0]})[:2]
+    # the optimizer update's depth nodes: the last two the k0 runs take
+    # (its peak, like the step's, past the first layer's one-off)
+    upd_nodes = sorted({j for k, j, _, _ in runs if k == runs[0][0]})[-2:]
     upd_w = dict(zip(upd_nodes, lagrange(upd_nodes, depth_units(cfg))))
     t_row = shape.batch // rows * (shape.seq if shape.kind != "decode"
                                    else 1)
     held_j, held = None, None
 
-    def add(w, pw, mode, out, run, phase="peak_a"):
+    def add(w, pw, mode, out, phase="peak_a"):
         outb = _output_bytes(out)
-        recs = {dev: _flat({**t.record(), "peak_a": 0, "peak_b": 0,
-                            "output_bytes": outb.get(dev, 0)})
-                for dev, t in mode.tallies.items()}
-        terms.append((w, recs))
+        terms.append((w, {dev: _flat({**t.record(), "peak_a": 0,
+                                      "peak_b": 0,
+                                      "output_bytes": outb.get(dev, 0)})
+                          for dev, t in mode.tallies.items()}))
         peaks.append((pw, {dev: {phase: t.peak - t.held}
                            for dev, t in mode.tallies.items()}))
-        if reduced:
-            later.append(run + ({dev: {**recs[dev], phase: t.peak - t.held}
-                                for dev, t in mode.tallies.items()
-                                if dev in later_rows},))
         if ops:
             op_terms.append((w, mode.op_tallies(lambda d: d)))
     for k, j, w, pw in runs:
@@ -781,18 +672,16 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
         if j:
             per_unit = branches.count("global") // j
         if not train:
-            add(w, pw, mode, out, (k, j, False))
+            add(w, pw, mode, out)
             continue
         loss, grads = out
-        add(w, pw, mode, loss, (k, j, False))
+        add(w, pw, mode, loss)
         del mode, out
         if k in (runs[0][0], None) and j in upd_w:
-            # the owners' records read the later rows' updates too
-            keep = (lambda d: d in first_row
-                    or (per_unit and d in later_rows)) \
-                if reduced else (lambda d: True)
+            keep = (lambda d: d in reported) if reduced \
+                else (lambda d: True)
             mode, out = _run_update(c, held, grads, keep, ops)
-            add(upd_w[j], upd_w[j], mode, out, (k, j, True), "peak_b")
+            add(upd_w[j], upd_w[j], mode, out, "peak_b")
         del grads
     per_dev = _combine(terms)
     for dev, pk in _combine([(pw, {d: {"peak_a": 0, "peak_b": 0, **r}
@@ -800,19 +689,17 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
                              for pw, recs in peaks if pw]).items():
         if dev in per_dev:
             per_dev[dev].update(pk)
-    owners = {}
     if reduced and per_unit:
-        fix = _moe_dispatch_correction(cfg, t_row, rows, mesh, train)
+        fix = _moe_dispatch_correction(cfg, t_row, mesh, train,
+                                       ROW_NODES)
         for dev, rec in fix.items():
             for key, v in rec.items():
                 if dev in per_dev:      # a position the cut runs reach
                     per_dev[dev][key] += per_unit * depth_units(cfg) * v
-        owners = _owner_records(cfg, mesh, rows, t_row, train,
-                                per_unit, later)
     per_position, classes = {}, {}
     for dev, rec in per_dev.items():
         coords, n = labels[dev]
-        if reduced and dev not in first_row:
+        if reduced and dev not in reported:
             continue
         if n == 1:
             per_position[_label(coords)] = _unflat(rec)
@@ -820,8 +707,6 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
             classes[_label(coords)] = dict(
                 _unflat({key: v / n for key, v in rec.items()}),
                 positions=n)
-    for lab, (rec, n_exp, n) in owners.items():
-        per_position[lab] = dict(_unflat(rec), experts=n_exp, alike=n)
     out = {"per_position": per_position, "classes": classes,
            "trace_s": time.time() - t0,
            "runs": [[k, j] for k, j, _, _ in runs]}
@@ -831,7 +716,7 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
                            for w, t in op_terms])
         for dev, tal in merged.items():
             coords, n = labels[dev]
-            if n == 1 and (not reduced or dev in first_row):
+            if n == 1 and (not reduced or dev in reported):
                 out["ops"][_label(coords)] = _unflat_ops(tal)
     return out
 
@@ -881,7 +766,13 @@ def dry_run(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
         rec["peak_bytes"] = rec["argument_bytes"] + rec["peak_over_arguments"]
     r = per[top]
     analysis = {k: r[k] for k in ("flops", "bytes", "collective_bytes",
-                                  "collective_counts", "collective_total")}
+                                  "collective_counts", "collective_total",
+                                  "collective_held")}
+    moved = [c for c in COLLECTIVES if r["collective_bytes"][c]]
+    analysis["held_kinds"] = [c for c in moved if r["collective_held"][c]
+                              == r["collective_bytes"][c]]
+    analysis["own_kinds"] = [c for c in moved
+                             if not r["collective_held"][c]]
     analysis["position"] = top
     analysis["per_position"] = per
     if counted["classes"]:

@@ -125,39 +125,44 @@ MAX_STANDINS = 127
 
 def make_standin_mesh(shape, axes, *, rows=None) -> Mesh:
     """A mesh of stand-in positions for the dry run: host-only devices
-    ``cpu:k``, never a GPU. Rows are the positions of one index of the
-    batch axes (``pod``, ``data``; the first major); the first ``rows``
-    rows (all of them by default) take a device each per position, and
-    every later row shares its model index's device with the other later
-    rows — a class of positions that the dry run reads as one (the
-    device index has 8 bits: at most ``MAX_STANDINS`` distinct
-    devices)."""
+    ``cpu:k``, never a GPU. A row is the positions of one index of the
+    batch axes (``pod``, ``data``; the first major); in every pod, the
+    first ``rows`` rows (all of them by default) take a device each per
+    position, and every later row, of any pod, shares its model index's
+    device with the other later rows — a class of positions that the dry
+    run reads as one (the device index has 8 bits: at most
+    ``MAX_STANDINS`` distinct devices)."""
     axes = tuple(axes)
     shape = tuple(shape)
     size = dict(zip(axes, shape))
-    n_rows = math.prod(size.get(a, 1) for a in axes if a in ("pod", "data"))
-    rows = n_rows if rows is None else min(rows, n_rows)
-    per_row = math.prod(shape) // n_rows
-    if (rows + (rows < n_rows)) * per_row > MAX_STANDINS:
-        raise ValueError(f"a {shape} mesh with {rows} distinct rows needs "
-                         f"more than {MAX_STANDINS} stand-in devices")
+    batch = [a for a in axes if a in ("pod", "data")]
+    per_pod = size[batch[-1]] if batch else 1
+    pods = math.prod(size[a] for a in batch[:-1])
+    rows = per_pod if rows is None else min(rows, per_pod)
+    per_row = math.prod(shape) // (pods * per_pod)
+    own = pods * rows
+    if (own + (rows < per_pod)) * per_row > MAX_STANDINS:
+        raise ValueError(f"a {shape} mesh with {rows} distinct rows a pod "
+                         f"needs more than {MAX_STANDINS} stand-in devices")
     arr = np.empty(shape, dtype=object)
     for idx in np.ndindex(*shape):
         c = dict(zip(axes, idx))
-        row = 0
-        for a in axes:
-            if a in ("pod", "data"):
-                row = row * size[a] + c[a]
+        pod = 0
+        for a in batch[:-1]:
+            pod = pod * size[a] + c[a]
+        row = c[batch[-1]] if batch else 0
         rest = 0
         for a in axes:
             if a not in ("pod", "data"):
                 rest = rest * size[a] + c[a]
-        arr[idx] = torch.device("cpu", min(row, rows) * per_row + rest)
+        slot = pod * rows + row if row < rows else own
+        arr[idx] = torch.device("cpu", slot * per_row + rest)
     return Mesh(arr, axes)
 
 
-# the data rows of a production mesh whose positions have stand-ins of
-# their own: the most rows the dry run runs a step on (``dryrun.plan``)
+# the data rows a pod of a production mesh whose positions have
+# stand-ins of their own: the most rows a pod the dry run runs a step on
+# (``dryrun.plan``)
 PRODUCTION_ROWS = 3
 
 
@@ -165,8 +170,8 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """The reference's production meshes (its ``mesh.py:44-47``): (16, 16)
     over ("data", "model"), or (2, 16, 16) over ("pod", "data",
     "model"), as stand-in positions (``make_standin_mesh``): the first
-    ``PRODUCTION_ROWS`` data rows each position its own device, the
-    later rows one device per model index."""
+    ``PRODUCTION_ROWS`` data rows of each pod each position its own
+    device, the later rows one device per model index."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return make_standin_mesh(shape, axes, rows=PRODUCTION_ROWS)

@@ -46,8 +46,13 @@ Per position it returns:
     gradient sent back to the position that holds the shard — is
     ``reduce-scatter``. Bytes are what the receiving position takes in.
     There is no ring factor: the port's sum is a gather to one
-    position. These are the port's own transfers; they are not XLA's,
-    whose partitioner picks its collectives for the reference's step;
+    position (or, in the MoE global dispatch, a chunk of it to each).
+    These are the port's own transfers; XLA's partitioner picks the
+    reference's. ``collective_held`` is the part of each kind made under
+    a held scope (``collective(kind, held=True)``): the copies whose
+    counterparts in the reference have a fixed algorithm, which
+    ``tests/test_torch_op_analysis.py`` holds per position against the
+    reference's compiled collectives;
   * ``peak_bytes``: the most bytes live on the position at once, from
     the lifetimes of the storages it allocated (and what ``hold`` was
     given before the run).
@@ -75,7 +80,8 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.core.costmodel import H100
-from repro_torch.launch.shardings import Sharded, collective_kind
+from repro_torch.launch.shardings import (Sharded, collective_held,
+                                          collective_kind)
 
 aten = torch.ops.aten
 
@@ -164,7 +170,7 @@ class Tally:
     """One position's counts."""
 
     __slots__ = ("flops", "bytes", "transcendentals", "coll", "counts",
-                 "live", "peak", "held", "ops")
+                 "coll_held", "live", "peak", "held", "ops")
 
     def __init__(self) -> None:
         self.flops = 0
@@ -172,6 +178,7 @@ class Tally:
         self.transcendentals = 0
         self.coll = dict.fromkeys(COLLECTIVES, 0)
         self.counts = dict.fromkeys(COLLECTIVES, 0)
+        self.coll_held = dict.fromkeys(COLLECTIVES, 0)
         self.live = 0
         self.peak = 0
         self.held = 0       # bytes given to ``hold``
@@ -182,6 +189,7 @@ class Tally:
                 "transcendentals": self.transcendentals,
                 "collective_bytes": dict(self.coll),
                 "collective_counts": dict(self.counts),
+                "collective_held": dict(self.coll_held),
                 "collective_total": sum(self.coll.values()),
                 "peak_bytes": self.peak}
 
@@ -404,6 +412,8 @@ class OpAnalysis(TorchDispatchMode):
                     else _nbytes(src)
                 tl.coll[kind] += n
                 tl.counts[kind] += 1
+                if kind != "reduce-scatter" and collective_held():
+                    tl.coll_held[kind] += n
         if tl.ops is not None:
             tl.ops[(op.name, "n")] += 1
             tl.ops[(op.name, "flops")] += flops

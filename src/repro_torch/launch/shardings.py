@@ -9,16 +9,22 @@ plain tuple with one mesh axis name (or None) per leaf dimension — the
 reference's ``PartitionSpec`` read as a tuple.
 
 Where the reference hands a spec tree to XLA (``named``), the port
-stores the slices itself: ``shard_params`` keeps each leaf ONCE, as the
-slices its spec names, each slice on the device of its mesh position (the
-position whose spec'd axes take the slice's index, the other axes 0), in
-a ``Sharded`` leaf. A consumer takes what it needs with ``gather``: the
-full leaf, or the full leaf's slice along 'model' — a ``torch.cat`` of
-shards moved to the consumer's device (the FSDP all-gather) — or with
-``take`` any slice of the full leaf, from the shards that hold it.
-Autograd through those copies sends each shard its part of the gradient,
-summed over every consumer (the reduce-scatter), with no code of its
-own.
+stores the slices itself: ``shard_params`` keeps each leaf as the slices
+its spec names, once per index of 'pod' (the reference's replication
+over 'pod', so that no step reads a parameter across pods), each slice
+on the device of its mesh position (the position whose spec'd axes take
+the slice's index, 'pod' its replica's, the other axes 0), in a
+``Sharded`` leaf. An axis other than 'pod' that a spec leaves unnamed
+keeps one copy, at index 0 (the norms, the biases and the router on
+'data' or 'model'). A consumer takes what it needs, from its own pod's
+replica (``reading_pod``: the mesh code enters each data row's pod), with
+``gather``: the full leaf, or the full leaf's slice along
+'model' — a ``torch.cat`` of shards moved to the consumer's device (the
+FSDP all-gather) — or with ``take`` any slice of the full leaf, from the
+shards that hold it. Autograd through those copies sends each shard its
+part of the gradient, summed over every consumer of its pod (the
+reduce-scatter), with no code of its own; a train step then sums the
+replicas' gradients over 'pod' (``pod_sum``).
 
 Decode caches are placed the same way by ``shard_caches``, from
 ``launch.steps.cache_specs``: a spec entry there may name several axes
@@ -30,6 +36,7 @@ reference's. A copy that is not a gather names its kind with
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import math
 import threading
@@ -197,39 +204,64 @@ def axis_size(mesh, entry) -> int:
 
 
 class Sharded:
-    """One leaf stored once over a mesh: the slices its spec names.
+    """One leaf stored over a mesh: the slices its spec names, once per
+    index of 'pod' where ``pod`` is set (the parameters' replicas).
 
     ``spec`` has one entry per dimension of the full ``shape``: None, a
     mesh axis name, or a tuple of names (the dimension split over their
     product, the first axis major — XLA's layout of ``P(("data",
-    "model"))``); ``shards`` maps a key — one block index per sharded
-    dimension, in dimension order — to that slice, on the device of its
-    position. Indexing (``leaf[l]``) takes one entry of an unsharded
-    leading axis (a layer of a stack) off every shard, as views."""
+    "model"))``); ``shards`` maps a key — the replica's 'pod' index where ``pod`` is
+    set, then one block index per sharded dimension, in dimension order — to
+    that slice, on the device of its position. Indexing (``leaf[l]``)
+    takes one entry of an unsharded leading axis (a layer of a stack)
+    off every shard, as views."""
 
-    __slots__ = ("mesh", "spec", "shape", "shards")
+    __slots__ = ("mesh", "spec", "shape", "shards", "pod", "_replicas")
 
-    def __init__(self, mesh, spec: Spec, shape, shards: dict) -> None:
+    def __init__(self, mesh, spec: Spec, shape, shards: dict,
+                 pod: bool = False) -> None:
         self.mesh = mesh
         self.shape = tuple(shape)
         # a rule shorter than the leaf leaves its trailing dims unsharded
         self.spec = tuple(spec) + (None,) * (len(self.shape) - len(spec))
         self.shards = shards
+        self.pod = pod
+        self._replicas = None
 
     @classmethod
-    def build(cls, mesh, spec: Spec, shape, make) -> "Sharded":
+    def build(cls, mesh, spec: Spec, shape, make,
+              pod: bool = False) -> "Sharded":
         """``make(index, device)`` → the slice at ``index`` (a tuple of
-        slices into the full shape) for its position's device."""
-        leaf = cls(mesh, spec, shape, {})
+        slices into the full shape) for its position's device, once per
+        index of 'pod' with ``pod``."""
+        leaf = cls(mesh, spec, shape, {}, pod)
         for dim, a in zip(leaf.shape, leaf.spec):
             if dim % axis_size(mesh, a):
                 raise ValueError(f"a {leaf.shape} leaf does not split evenly "
                                  f"over {leaf.spec} on {mesh.shape}")
-        for key in itertools.product(*(range(axis_size(mesh, leaf.spec[i]))
-                                       for i in leaf.dims())):
+        for key in itertools.product(
+                *([range(mesh.shape["pod"])] if pod else []),
+                *(range(axis_size(mesh, leaf.spec[i]))
+                  for i in leaf.dims())):
             leaf.shards[key] = make(leaf.index(key), position_device(
                 mesh, leaf.coords(key)))
         return leaf
+
+    def with_shards(self, shards: dict) -> "Sharded":
+        """A leaf laid out like this one holding ``shards``."""
+        return Sharded(self.mesh, self.spec, self.shape, shards, self.pod)
+
+    def local(self) -> dict:
+        """{block key: slice} of the replica the reads in scope take: the
+        pod's that ``reading_pod`` names (the first's outside every
+        scope)."""
+        if not self.pod:
+            return self.shards
+        if self._replicas is None:
+            self._replicas = {}
+            for k, t in self.shards.items():
+                self._replicas.setdefault(k[0], {})[k[1:]] = t
+        return self._replicas[_READS.pod]
 
     @property
     def ndim(self) -> int:
@@ -248,8 +280,8 @@ class Sharded:
 
     def coords(self, key) -> dict:
         """{mesh axis: index} of a key."""
-        out = {}
-        for i, k in zip(self.dims(), key):
+        out = {"pod": key[0]} if self.pod else {}
+        for i, k in zip(self.dims(), key[self.pod:]):
             for a in reversed(_axes(self.spec[i])):
                 out[a] = k % self.mesh.shape[a]
                 k //= self.mesh.shape[a]
@@ -258,7 +290,7 @@ class Sharded:
     def part(self, coords: dict, device) -> torch.Tensor:
         """This leaf's slice at the mesh position ``coords`` (axes this
         leaf is not sharded over are ignored), moved to ``device``."""
-        key = []
+        key = [coords.get("pod", 0)] if self.pod else []
         for i in self.dims():
             k = 0
             for a in _axes(self.spec[i]):
@@ -271,19 +303,19 @@ class Sharded:
             raise ValueError(f"indexing a leaf sharded on its first axis "
                              f"({self.spec})")
         return Sharded(self.mesh, self.spec[1:], self.shape[1:],
-                       {k: t[i] for k, t in self.shards.items()})
+                       {k: t[i] for k, t in self.shards.items()}, self.pod)
 
     def block(self, dim: int, i: int) -> "Sharded":
         """Block ``i`` of sharded dimension ``dim`` (a data row's part of
         a batch-sharded leaf): the shards that hold it, that dimension
         no longer sharded."""
-        j = self.dims().index(dim)
+        j = self.pod + self.dims().index(dim)
         shape = list(self.shape)
         shape[dim] //= axis_size(self.mesh, self.spec[dim])
         spec = self.spec[:dim] + (None,) + self.spec[dim + 1:]
         return Sharded(self.mesh, spec, shape,
                        {k[:j] + k[j + 1:]: t for k, t in self.shards.items()
-                        if k[j] == i})
+                        if k[j] == i}, self.pod)
 
     def map(self, fn, *others: "Sharded"):
         """``fn`` over the aligned shards of this leaf and ``others`` (same
@@ -292,15 +324,14 @@ class Sharded:
                for k, t in self.shards.items()}
         first = next(iter(out.values()))
         if isinstance(first, tuple):
-            return tuple(Sharded(self.mesh, self.spec, self.shape,
-                                 {k: v[j] for k, v in out.items()})
+            return tuple(self.with_shards({k: v[j] for k, v in out.items()})
                          for j in range(len(first)))
-        return Sharded(self.mesh, self.spec, self.shape, out)
+        return self.with_shards(out)
 
     def like(self, full: torch.Tensor) -> "Sharded":
         """``full`` (this leaf's shape) split the way this leaf is, each
         slice on its shard's device in its shard's dtype."""
-        return Sharded(self.mesh, self.spec, self.shape, {
+        return self.with_shards({
             k: full[self.index(k)].to(device=t.device, dtype=t.dtype,
                                       copy=True)
             for k, t in self.shards.items()})
@@ -308,14 +339,15 @@ class Sharded:
     def index(self, key) -> tuple:
         """The slices of the full leaf that shard ``key`` holds."""
         index = [slice(None)] * self.ndim
-        for i, k in zip(self.dims(), key):
+        for i, k in zip(self.dims(), key[self.pod:]):
             w = self.shape[i] // axis_size(self.mesh, self.spec[i])
             index[i] = slice(k * w, (k + 1) * w)
         return tuple(index)
 
     def __repr__(self) -> str:
+        pod = ", replicated over 'pod'" if self.pod else ""
         return (f"Sharded(shape={self.shape}, spec={self.spec}, "
-                f"{len(self.shards)} shards)")
+                f"{len(self.shards)} shards{pod})")
 
 
 def position_device(mesh, coords: dict) -> torch.device:
@@ -324,8 +356,60 @@ def position_device(mesh, coords: dict) -> torch.device:
     return mesh.devices[tuple(coords.get(a, 0) for a in mesh.axis_names)]
 
 
+def pod_replicated(mesh) -> bool:
+    """Whether ``shard_params`` keeps a replica of each leaf per index of
+    'pod': where the mesh has that axis (no rule names it)."""
+    return "pod" in mesh.axis_names
+
+
+class _Reads(threading.local):
+    pod = 0
+
+
+_READS = _Reads()
+
+
+@contextlib.contextmanager
+def reading_pod(pod: int):
+    """``with reading_pod(q):`` — the reads of a pod-replicated leaf made
+    inside (``gather``, ``take``) take pod ``q``'s replica. The mesh code
+    enters it for each data row with the row's 'pod' coordinate
+    (``layers.each_row``), so a row reads its own pod's replica whatever
+    device its positions are on; outside every scope the reads take the
+    first pod's."""
+    prev, _READS.pod = _READS.pod, pod
+    try:
+        yield
+    finally:
+        _READS.pod = prev
+
+
+def pod_sum(grads):
+    """A dict of gradients (``loss_and_grads``') with each sharded leaf's
+    pod replicas summed over 'pod': every replica's slice receives the
+    others' (one all-reduce), adds them in fp32 in pod order and rounds
+    once to the gradient's dtype — so every replica takes the same
+    update and the replicas stay equal bit for bit. A leaf without
+    replicas is returned as it is."""
+    if isinstance(grads, dict):
+        return {k: pod_sum(v) for k, v in grads.items()}
+    if not isinstance(grads, Sharded) or not grads.pod:
+        return grads
+    out = {}
+    for key, t in grads.shards.items():
+        parts = [grads.shards[(q,) + key[1:]]
+                 for q in range(grads.mesh.shape["pod"])]
+        with collective("all-reduce", held=True):
+            acc = parts[0].to(t.device).float()
+            for u in parts[1:]:
+                acc = acc + u.to(t.device).float()
+        out[key] = acc.to(t.dtype)
+    return grads.with_shards(out)
+
+
 def shard_params(cfg: ModelConfig, params, mesh) -> dict:
-    """``params`` stored once over ``mesh`` by the rules: a dict of
+    """``params`` stored over ``mesh`` by the rules, a replica per index
+    of 'pod' (``pod_replicated``): a dict of
     ``Sharded`` leaves (copies: ``params`` is left as it is). Raises
     ``ValueError`` with ``check_divisibility``'s findings when a sharded
     dimension does not divide by its axis."""
@@ -337,7 +421,8 @@ def shard_params(cfg: ModelConfig, params, mesh) -> dict:
     return _map_paths(
         lambda path, t: Sharded.build(
             mesh, _lookup(specs, path), t.shape,
-            lambda index, dev: t[index].to(dev, copy=True)), params)
+            lambda index, dev: t[index].to(dev, copy=True),
+            pod_replicated(mesh)), params)
 
 
 def _lookup(tree, path):
@@ -348,6 +433,7 @@ def _lookup(tree, path):
 
 class _Kind(threading.local):
     kind = None
+    held = False
 
 
 _KIND = _Kind()
@@ -362,18 +448,28 @@ class collective:
     (a pipeline stage's hand-off). A copy outside any scope is a gather
     (``gather``, ``take``, a row split or join, a value sent to a model
     position) — "all-gather" to the dry run, which reads the kind
-    (``collective_kind``); nothing else does."""
+    (``collective_kind``); nothing else does.
 
-    __slots__ = ("kind", "prev")
+    ``held=True`` marks the copies of a collective whose algorithm the
+    reference fixes — one it writes by hand (``_moe_ep``'s all-to-all
+    pair, ``_moe_tp``'s psum, the MoE aux pmean) or one XLA computes by
+    a fixed rule (the global dispatch's fp32 partial sums, the gradient
+    sum over 'pod'): ``tests/test_torch_op_analysis.py`` holds their
+    bytes per position against the reference's compiled collectives, and
+    the dry run reports them apart (``collective_held``)."""
 
-    def __init__(self, kind: str) -> None:
+    __slots__ = ("kind", "held", "prev")
+
+    def __init__(self, kind: str, held: bool = False) -> None:
         self.kind = kind
+        self.held = held
 
     def __enter__(self) -> None:
-        self.prev, _KIND.kind = _KIND.kind, self.kind
+        self.prev = (_KIND.kind, _KIND.held)
+        _KIND.kind, _KIND.held = self.kind, self.held
 
     def __exit__(self, *exc) -> None:
-        _KIND.kind = self.prev
+        _KIND.kind, _KIND.held = self.prev
 
 
 def collective_kind():
@@ -382,17 +478,24 @@ def collective_kind():
     return _KIND.kind
 
 
+def collective_held() -> bool:
+    """Whether the innermost ``collective`` scope is a held one."""
+    return _KIND.held
+
+
 def gather(leaf, device, model=None, model_axis: str = "model"):
     """A consumer's view of one leaf, on ``device``: the full leaf, or
     with ``model`` the full leaf's slice ``model`` along ``model_axis``
-    (every other sharded axis gathered). A plain tensor is taken whole;
+    (every other sharded axis gathered), from the replica of the
+    consumer's pod (``reading_pod``). A plain tensor is taken whole;
     ``model`` then needs a sharded leaf."""
     if not isinstance(leaf, Sharded):
         if model is not None:
             raise ValueError("a model slice of an unsharded leaf")
         return leaf.to(device)
     dims = leaf.dims()
-    keys = sorted(leaf.shards)
+    shards = leaf.local()
+    keys = sorted(shards)
     if model is not None:
         if model_axis not in leaf.spec:
             raise ValueError(f"{leaf} is not sharded over {model_axis!r}")
@@ -401,7 +504,7 @@ def gather(leaf, device, model=None, model_axis: str = "model"):
 
     def assemble(keys, i):
         if i == len(dims):
-            return leaf.shards[keys[0]].to(device)
+            return shards[keys[0]].to(device)
         parts = [assemble([k for k in keys if k[i] == g], i + 1)
                  for g in sorted({k[i] for k in keys})]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dims[i])
@@ -411,9 +514,10 @@ def gather(leaf, device, model=None, model_axis: str = "model"):
 def take(leaf, device, index: tuple) -> torch.Tensor:
     """``leaf``'s full-leaf slice ``index`` (a tuple of step-1 slices, one
     per leading dimension) on ``device``, copied only from the shards
-    that hold part of it — a column range of a weight gathered over
-    'data' from the 'model' stripes it crosses, a data row of a
-    batch-sharded state. A plain tensor is sliced."""
+    that hold part of it in the consumer's pod's replica
+    (``reading_pod``) — a column range of a weight gathered over 'data' from the 'model' stripes it
+    crosses, a data row of a batch-sharded state. A plain tensor is
+    sliced."""
     if not isinstance(leaf, Sharded):
         return leaf[index].to(device)
     want = []
@@ -422,6 +526,7 @@ def take(leaf, device, index: tuple) -> torch.Tensor:
                      else slice(None)).indices(n)
         want.append((lo, hi))
     dims = leaf.dims()
+    shards = leaf.local()
     widths = [leaf.shape[d] // axis_size(leaf.mesh, leaf.spec[d])
               for d in dims]
     blocks = [[g for g in range(axis_size(leaf.mesh, leaf.spec[d]))
@@ -434,7 +539,7 @@ def take(leaf, device, index: tuple) -> torch.Tensor:
             for d, g, w in zip(dims, key, widths):
                 local[d] = (max(want[d][0] - g * w, 0),
                             min(want[d][1] - g * w, w))
-            t = leaf.shards[tuple(key)]
+            t = shards[tuple(key)]
             return t[tuple(slice(lo, hi) for lo, hi in local)].to(device)
         parts = [assemble(key + [g], i + 1) for g in blocks[i]]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dims[i])
@@ -448,7 +553,7 @@ def stack_sharded(leaves: list) -> "Sharded":
     return Sharded(first.mesh, (None,) + first.spec,
                    (len(leaves),) + first.shape,
                    {k: torch.stack([x.shards[k] for x in leaves])
-                    for k in first.shards})
+                    for k in first.shards}, first.pod)
 
 
 def shard_caches(cfg: ModelConfig, caches, specs, mesh):

@@ -28,7 +28,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.shardings import (Sharded, batch_entry, pad_seq,
-                                          seq_axes)
+                                          pod_sum, seq_axes)
 from repro_torch.models.layers import NO_DIST, Dist
 from repro_torch.models.mamba import MambaState
 from repro_torch.models.transformer import (Caches, KVCache, decode_step,
@@ -198,18 +198,39 @@ def loss_and_grads(params, batch, cfg: ModelConfig, dist: Dist = NO_DIST):
     """(loss, grads) of ``loss_fn`` at ``params``: the loss a detached
     fp32 scalar tensor, the gradients a dict like the params (a sharded
     leaf's gradient sharded like it, each shard where it lives — autograd
-    through the gathers sums every consumer's part). ``loss_fn`` runs in
-    its train mode, so no kernel is launched."""
+    through the gathers sums every consumer's part, each pod's replica
+    its own pod's; then the replicas' gradients are summed over 'pod'
+    (``shardings.pod_sum``), so every replica takes the same update).
+    ``loss_fn`` runs in its train mode, so no kernel is launched."""
     live = tree_map(_live, params)
     with torch.enable_grad():
         loss = loss_fn(live, batch, cfg, dist)
-        grads = iter(torch.autograd.grad(loss, list(tree_leaves(live))))
+        grads = iter(torch.autograd.grad(loss, list(tree_leaves(live)),
+                                         allow_unused=True))
 
     def take(p):
-        if isinstance(p, Sharded):
-            return p.map(lambda _: next(grads))
-        return next(grads)
-    return loss.detach(), tree_map(take, live)
+        if not isinstance(p, Sharded):
+            return _used(next(grads), p)
+        g = p.map(lambda _: next(grads))
+        for key, t in g.shards.items():
+            # a pod's replica none of its rows read — the global MoE
+            # dispatch runs on the first pod — takes a zero gradient and,
+            # through the pod sum, the others'; any other leaf must be read
+            if t is None and p.pod and any(
+                    g.shards[(q,) + key[1:]] is not None
+                    for q in range(p.mesh.shape["pod"])):
+                g.shards[key] = torch.zeros_like(p.shards[key])
+            else:
+                _used(t, p)
+        return g
+    return loss.detach(), pod_sum(tree_map(take, live))
+
+
+def _used(grad, leaf):
+    if grad is None:
+        raise RuntimeError(f"no gradient reaches a {tuple(leaf.shape)} "
+                           f"parameter: the loss does not read it")
+    return grad
 
 
 def make_train_step(cfg: ModelConfig, dist: Dist = NO_DIST):

@@ -51,7 +51,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch.shardings import (Sharded, axis_size, collective,
                                           gather, gather_tree, position_device,
-                                          take)
+                                          reading_pod, take)
 from repro_torch.kernels.flash_prefill.ops import flash_prefill_attention
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.kernels.paged_attention.ref import paged_attention_ref
@@ -182,6 +182,16 @@ class Dist:
         arr = arr[(slice(None),) * len(lead) + (0,) * len(rest)]
         return arr.reshape(-1, self.axis_size(self.model_axis))
 
+    def row_pod(self, r: int) -> int:
+        """The 'pod' coordinate of data row ``r`` (``grid``'s order); 0
+        where the batch does not run over 'pod'."""
+        lead = [a for a in self.batch_axes if a in self.mesh.axis_names]
+        if "pod" not in lead:
+            return 0
+        inner = math.prod(self.mesh.shape[a]
+                          for a in lead[lead.index("pod") + 1:])
+        return r // inner % self.mesh.shape["pod"]
+
 
 NO_DIST = Dist()
 
@@ -200,16 +210,31 @@ def join_rows(rows, device) -> torch.Tensor:
     return torch.cat([r.to(device) for r in rows])
 
 
-def _psum(parts: list, device) -> torch.Tensor:
+def each_row(dist: Dist, rows):
+    """``enumerate(rows)`` over a mesh's data rows, each row's body run
+    inside ``reading_pod`` of the row's 'pod' coordinate: the row reads
+    its own pod's parameter replica, whatever device its positions are
+    on."""
+    for r, x in enumerate(rows):
+        with reading_pod(dist.row_pod(r)):
+            yield r, x
+
+
+def _psum(parts: list, device, held: bool = False,
+          dtype=None) -> torch.Tensor:
     """The sum of the model positions' partials on ``device``: fp32
-    accumulation, one rounding (a single partial is returned as is)."""
-    with collective("all-reduce"):
-        if len(parts) == 1:
+    accumulation in order, one rounding to ``dtype`` (the partials' by
+    default; a single partial of that dtype is returned as is).
+    ``held``: a collective whose algorithm the reference fixes
+    (``collective``)."""
+    dtype = parts[0].dtype if dtype is None else dtype
+    with collective("all-reduce", held):
+        if len(parts) == 1 and parts[0].dtype == dtype:
             return parts[0].to(device)
         acc = parts[0].to(device).float()
         for t in parts[1:]:
             acc = acc + t.to(device).float()
-    return acc.to(parts[0].dtype)
+    return acc.to(dtype)
 
 
 def _model_part(leaf, device, dim: int, m: int, n: int) -> torch.Tensor:
@@ -483,7 +508,7 @@ def attention_block(x, p, cfg: ModelConfig, dist: Dist = NO_DIST, *,
                 enc_kv=None if ekv is None else tuple(
                     t.to(xr.device) for t in ekv[r]),
                 window_override=window_override)
-                for r, xr in enumerate(rows)]
+                for r, xr in each_row(dist, rows)]
             return [o[0] for o in outs], [o[1] for o in outs]
         return _on_rows(x, dist, whole)
 
@@ -642,7 +667,7 @@ def _attention_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, q_offset: int,
     hl = Hp // M
     attend = chunked_attention if train else causal_attention
     ys, kvs = [], []
-    for r, x in enumerate(rows):
+    for r, x in each_row(dist, rows):
         B, S, D = x.shape
         h = rms_norm(x, gather(p["ln"], x.device), cfg.norm_eps)
         parts, ks, vs = [], [], []
@@ -720,7 +745,7 @@ def _attention_cache_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, cache,
     S_cache = k_leaf.shape[1]
     scale = 1.0 / (Dh ** 0.5)
     ys = []
-    for r, x in enumerate(rows):
+    for r, x in each_row(dist, rows):
         B, S, _ = x.shape
         if ring and S != 1:
             raise ValueError("the ring-buffer cache takes one token per step")
@@ -887,7 +912,7 @@ def mlp_block(x, p, cfg: ModelConfig, dist: Dist = NO_DIST):
     if dist.active:
         return _on_rows(x, dist, lambda rows: (
             [_mlp_mesh(xr, p, cfg, dist.grid()[r]) for r, xr in
-             enumerate(rows)], None))[0]
+             each_row(dist, rows)], None))[0]
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     gate = F.silu(h @ p["w1"])
     up = h @ p["w3"]
@@ -938,11 +963,27 @@ def _expert_ffn(buf, w1, w2, w3):
     return torch.bmm(gate * up, w2)
 
 
+@contextlib.contextmanager
+def _ieee_fp32_matmul():
+    """fp32 products at full precision inside, whatever the caller set:
+    TF32 (``torch.set_float32_matmul_precision("high")``, common on the
+    card) rounds the operands to 10 bits, which would move the router's
+    logits and take the global dispatch's split past its 2-ulp bound."""
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
 def _route(xf, router_w, top_k: int):
     """Router logits from fp32 operands, as the reference's steps compute
     them: under jit XLA keeps its ``(xf @ router_w).astype(float32)`` in
-    fp32; only an op-by-op run rounds the product to bf16 first."""
-    logits = xf.float() @ router_w.float()                    # (T, E)
+    fp32; only an op-by-op run rounds the product to bf16 first (and
+    TF32 is turned off around it, whatever the caller set)."""
+    with _ieee_fp32_matmul():
+        logits = xf.float() @ router_w.float()                # (T, E)
     probs = torch.softmax(logits, dim=-1)
     if _LOGS.replay is not None:
         idx = _LOGS.replay.pop(0).to(probs.device)
@@ -1005,8 +1046,8 @@ def moe_block(x, p, cfg: ModelConfig, dist: Dist = NO_DIST):
 
     ``dist`` active (x a list of data rows or a whole batch): the
     reference's choice of dispatch over all T = B·S tokens — global (all
-    tokens routed at once on the first position, each expert run where
-    its weights are, ``_moe_global``) at T ≤
+    tokens routed at once on the first position, each expert's products
+    split where its weights lie, ``_moe_global``) at T ≤
     ``MOE_GLOBAL_DISPATCH_MAX_TOKENS`` (``dist.moe_global_max_tokens``
     where set); expert-parallel when the config
     says "ep", the experts divide over ``model`` and T over data × model
@@ -1028,7 +1069,7 @@ def _moe_mesh(rows, p, cfg: ModelConfig, dist: Dist):
     dp, ep = grid.shape
     T_total = sum(r.shape[0] * r.shape[1] for r in rows)
     hs = [rms_norm(x, gather(p["ln"], x.device), cfg.norm_eps).reshape(
-        -1, x.shape[-1]) for x in rows]
+        -1, x.shape[-1]) for _, x in each_row(dist, rows)]
     most = MOE_GLOBAL_DISPATCH_MAX_TOKENS if dist.moe_global_max_tokens \
         is None else dist.moe_global_max_tokens
     if T_total <= most:
@@ -1041,7 +1082,7 @@ def _moe_mesh(rows, p, cfg: ModelConfig, dist: Dist):
     if _LOGS.branches is not None:
         _LOGS.branches.append(branch)
     if branch == "global":
-        ys, aux = _moe_global(hs, p, cfg, grid, T_total)
+        ys, aux = _moe_global(hs, p, cfg, dist.mesh, grid[0, 0], T_total)
         return [y.view(x.shape) for y, x in zip(ys, rows)], aux
     T_loc = T_total // (dp * ep) if branch == "ep" else T_total // dp
     n_groups = max(T_loc // MOE_GROUP_TOKENS, 1)
@@ -1051,85 +1092,41 @@ def _moe_mesh(rows, p, cfg: ModelConfig, dist: Dist):
     cap = moe_capacity(cfg, T_loc // n_groups)
     run = _moe_ep if branch == "ep" else _moe_tp
     ys, auxes = [], []
-    for r, (x, h) in enumerate(zip(rows, hs)):
+    for r, (x, h) in each_row(dist, zip(rows, hs)):
         y, a = run(h, p, cfg, grid[r], cap, n_groups)
         ys.append(y.view(x.shape))
         auxes.extend(a)
     # the reference's pmean over the token axes (EP) / batch axes (TP)
     dev = grid[0, 0]
-    with collective("all-reduce"):
+    with collective("all-reduce", held=True):
         aux = sum(a.to(dev) for a in auxes) / len(auxes)
     return ys, aux
 
 
-def expert_owners(w1, grid: np.ndarray) -> list:
-    """The positions that hold the experts' weights under
-    ``shard_params``, block-major: each 'model' block of ``w1`` (a block
-    of the experts of an "ep" config, of every expert's hidden columns of
-    a "tp" one), then its FSDP shards over 'data' in order. A leaf not
-    sharded over 'model': the grid's columns, then rows."""
-    if isinstance(w1, Sharded) and "model" in w1.spec:
-        return [position_device(w1.mesh, c) for c in owner_coords(w1)]
-    return [d for m in range(grid.shape[1]) for d in grid[:, m]]
-
-
-def owner_coords(w1: Sharded) -> list:
-    """The mesh coordinates ({axis: index}) of ``expert_owners``'
-    positions, in its order."""
-    j = w1.dims().index(w1.spec.index("model"))
-    return [w1.coords(k) for k in sorted(w1.shards, key=lambda k: (k[j], k))]
-
-
-def owner_experts(n_experts: int, n_owners: int) -> list:
-    """The experts each owner of the global dispatch runs, in
-    ``expert_owners``' order: the experts split evenly, in order (an
-    owner may run none)."""
-    return [slice(i * n_experts // n_owners, (i + 1) * n_experts // n_owners)
-            for i in range(n_owners)]
-
-
-def _moe_global(hs, p, cfg: ModelConfig, grid, T_total: int):
+def _moe_global(hs, p, cfg: ModelConfig, mesh, ctrl, T_total: int):
     """The global dispatch over every data row's normed tokens (``hs``,
     one (T_r, D) slab a row on its device), with the reference's
-    numerics: routed together on the mesh's first position, at the
-    capacity of all ``T_total`` of them, into one (E, cap, D) buffer,
-    whose expert slabs are run where the weights are. The experts split
-    evenly, in order, over the positions of ``expert_owners`` — for an
-    "ep" config each position's experts are among those it holds — and
-    each position receives its experts' slabs and takes its experts'
-    whole weights (a "tp" config's hidden columns gathered from the
-    shards, as an FSDP gather: no partial sums, so the expert outputs are
-    bitwise those of one product), and sends its outputs back, as
-    ``_moe_ep``'s slabs travel. Each row is sent its choices' outputs,
-    which it weights and sums. No position gathers a whole ``w1``,
-    ``w2`` or ``w3`` unless it is the only one. Returns (y per row,
-    aux)."""
+    numerics: routed together on ``ctrl`` (the mesh's first position), at
+    the capacity of all ``T_total`` of them, into one (E, cap, D) buffer,
+    whose expert products run where ``shard_params`` put the weights
+    (``_expert_split``): only activations travel, never a slice of
+    ``w1``, ``w2`` or ``w3``. Each row is sent its choices' outputs,
+    which it weights and sums. Returns (y per row, aux)."""
     moe = cfg.moe
     E, k = moe.n_experts, moe.top_k
-    dev = grid[0, 0]
     cap = moe_capacity(cfg, T_total)
-    h = torch.cat([t.to(dev) for t in hs])
-    gates, idx, aux = _route(h, gather(p["router"], dev), k)
+    h = torch.cat([t.to(ctrl) for t in hs])
+    gates, idx, aux = _route(h, gather(p["router"], ctrl), k)
     buf, slot = _dispatch(h, idx, E, cap)                     # (E, cap, D)
     # each T-sized buffer is freed before the next is made: they all sit
     # on the first position, whose peak grows with the rows' tokens
     del h
-    owners = expert_owners(p["w1"], grid)
-    outs = []
-    for d, e in zip(owners, owner_experts(E, len(owners))):
-        if e.stop == e.start:
-            continue
-        with collective("all-to-all"):
-            recv = buf[e].to(d)
-        o = _expert_ffn(recv, *(take(p[n], d, (e,))
-                                for n in ("w1", "w2", "w3")))
-        with collective("all-to-all"):
-            outs.append(o.to(dev))
+    with _ieee_fp32_matmul():
+        out = _expert_split(buf, p, cfg, mesh, ctrl)
     del buf
-    D = outs[0].shape[-1]
-    out_flat = torch.cat([o.reshape(-1, D) for o in outs]
-                         + [outs[0].new_zeros((1, D))])
-    del outs
+    D = out.shape[-1]
+    out_flat = torch.cat([out.reshape(E * cap, D), out.new_zeros((1, D))])
+    del out
     sel = out_flat[slot]                  # (T·k, D); a dropped choice: 0
     del out_flat
     # split, not sliced row by row: a slice's backward writes a zero-filled
@@ -1144,6 +1141,106 @@ def _moe_global(hs, p, cfg: ModelConfig, grid, T_total: int):
         ys.append(torch.sum(mine.view(x.shape[0], k, D) * g[:, :, None],
                             dim=1))
     return ys, aux
+
+
+def _blocks(n: int, parts: int) -> list:
+    """``n`` split into ``parts`` contiguous slices, in order."""
+    return [slice(i * n // parts, (i + 1) * n // parts)
+            for i in range(parts)]
+
+
+def _expert_split(buf, p, cfg: ModelConfig, mesh, ctrl) -> torch.Tensor:
+    """The expert FFN of the global dispatch's (E, cap, D) buffer on
+    ``ctrl``, split where the weights lie — as XLA partitions the
+    reference's ``ecd,edf->ecf`` and ``ecf,efd->ecd`` — and returned to
+    ``ctrl``. Position (d, m) (data d, model m, the first pod) holds
+    D_d, the d-th of the 'data' blocks of the hidden columns, of w1 and
+    w3 and of w2's outputs, and the 'model' block m of the experts ("ep":
+    E_m) or of their FF width ("tp": F_m):
+
+      * it receives the D_d columns of its experts' slabs and computes
+        fp32 partials of ``slab @ w1`` and ``slab @ w3``;
+      * the partials are summed over 'data' in fp32 and rounded once —
+        F split into one chunk a data index, each chunk summed on its
+        position, the SwiGLU run on the chunk and the chunks gathered
+        back (a reduce-scatter and an all-gather: one all-reduce);
+      * "ep": it computes the D_d output columns of its experts; "tp":
+        fp32 partials of ``h[:, :, F_m] @ w2[:, F_m, D_d]``, summed over
+        'model' the same way (D_d split into one chunk a model index),
+        rounded once.
+
+    Each expert slab and output travels as an all-to-all, each sum as an
+    all-reduce. The operands of the summed products are fp32: a bf16
+    product is exact there, so each partial is its slice's fp32 sum and
+    the output is within rounding of one bf16 product's. TF32 would round
+    the operands to 10 bits on the card: ``_moe_global`` turns it off
+    around this call. The positions are those of the mesh the weights
+    are stored over (``mesh`` for whole leaves)."""
+    if isinstance(p["w1"], Sharded):
+        mesh = p["w1"].mesh
+    Dd, M = mesh.shape.get("data", 1), mesh.shape.get("model", 1)
+    E, _, D = buf.shape
+    ep = cfg.moe.parallelism == "ep"
+    Ff = p["w1"].shape[-1]
+    whole = slice(None)
+    e_of = _blocks(E, M) if ep else [whole] * M
+    f_of = [whole] * M if ep else _blocks(Ff, M)
+    d_of = _blocks(D, Dd)
+    pos = [[position_device(mesh, {"data": d, "model": m})
+            for m in range(M)] for d in range(Dd)]
+    hid = {}                      # (d, m) → the FF activations h there
+    for m in range(M):
+        em, fm = e_of[m], f_of[m]
+        gu = []
+        for d in range(Dd):
+            dev = pos[d][m]
+            with collective("all-to-all"):
+                slab = buf[em, :, d_of[d]].to(dev).float()
+            gu.append([torch.bmm(slab, take(p[n], dev, (em, d_of[d], fm))
+                                 .float()) for n in ("w1", "w3")])
+            del slab
+        chunks = _blocks(gu[0][0].shape[-1], Dd)
+        hc = []
+        for c in range(Dd):
+            dev = pos[c][m]
+            g, u = (_psum([part[i][..., chunks[c]] for part in gu], dev,
+                          held=True, dtype=DTYPE) for i in (0, 1))
+            hc.append(F.silu(g) * u)
+        del gu
+        for d in range(Dd):
+            dev = pos[d][m]
+            with collective("all-reduce", held=True):
+                hid[d, m] = torch.cat([x.to(dev) for x in hc], dim=-1)
+        del hc
+    cols = []
+    if ep:
+        for m in range(M):
+            outs = []
+            for d in range(Dd):
+                dev = pos[d][m]
+                o = torch.bmm(hid.pop((d, m)),
+                              take(p["w2"], dev, (e_of[m], whole, d_of[d])))
+                with collective("all-to-all"):
+                    outs.append(o.to(ctrl))
+            cols.append(torch.cat(outs, dim=-1))
+        return torch.cat(cols)
+    for d in range(Dd):
+        parts = []
+        for m in range(M):
+            dev = pos[d][m]
+            parts.append(torch.bmm(
+                hid.pop((d, m)).float(),
+                take(p["w2"], dev, (whole, f_of[m], d_of[d])).float()))
+        chunks = _blocks(parts[0].shape[-1], M)
+        outs = []
+        for c in range(M):
+            o = _psum([t[..., chunks[c]] for t in parts], pos[d][c],
+                      held=True, dtype=DTYPE)
+            with collective("all-to-all"):
+                outs.append(o.to(ctrl))
+        del parts
+        cols.append(torch.cat(outs, dim=-1))
+    return torch.cat(cols, dim=-1)
 
 
 def _group_combine(out, slot, gates, E: int, cap: int):
@@ -1193,12 +1290,12 @@ def _moe_ep(h, p, cfg: ModelConfig, devices, cap: int, n_groups: int):
             gates.append(gt[sl])
         outs = []
         for m, d in enumerate(devices):
-            with collective("all-to-all"):
+            with collective("all-to-all", held=True):
                 recv = torch.cat([b[m * E_loc:(m + 1) * E_loc].to(d)
                                   for b in bufs], dim=1)   # (E_loc, ep·C, D)
             outs.append(_expert_ffn(recv, *w[m]))
         for i, d in enumerate(devices):
-            with collective("all-to-all"):
+            with collective("all-to-all", held=True):
                 back = torch.cat([o[:, i * cap:(i + 1) * cap].to(d)
                                   for o in outs])           # (E, C, D)
             ys[i].append(_group_combine(back, slots[i], gates[i], E, cap))
@@ -1224,6 +1321,6 @@ def _moe_tp(h, p, cfg: ModelConfig, devices, cap: int, n_groups: int):
         sl = slice(g * G, (g + 1) * G)
         buf, slot = _dispatch(h[sl], idx[sl], E, cap)
         out = _psum([_expert_ffn(buf.to(d), *w[m])
-                     for m, d in enumerate(devices)], h.device)
+                     for m, d in enumerate(devices)], h.device, held=True)
         ys.append(_group_combine(out, slot, gates[sl], E, cap))
     return torch.cat(ys), [aux]

@@ -27,7 +27,8 @@ from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.launch.shardings import (Sharded, batch_entry, collective,
                                           gather, take)
 from repro_torch.models import layers
-from repro_torch.models.layers import NO_DIST, Dist, _on_rows, rms_norm
+from repro_torch.models.layers import (NO_DIST, Dist, _on_rows, each_row,
+                                       rms_norm)
 
 
 class MambaState(NamedTuple):
@@ -182,7 +183,7 @@ def _mamba_mesh(rows, p, cfg: ModelConfig, dist: Dist, *, state,
     every = slice(None)
     ys, ssm_shards, conv_shards = [], {}, {}
     row0 = 0
-    for r, x in enumerate(rows):
+    for r, x in each_row(dist, rows):
         B_, S, _ = x.shape
         rs = slice(row0, row0 + B_)
         row0 += B_

@@ -60,9 +60,10 @@ from repro_torch.launch.shardings import (Sharded, batch_entry, collective,
                                           shard_rows, stack_sharded)
 from repro_torch.models.layers import (DTYPE, NO_DIST, Dist, PagedShard,
                                        _model_part, _psum, _row_stripes,
-                                       attention_block, join_rows, mlp_block,
-                                       moe_block, paged_attention_block,
-                                       rms_norm, split_rows)
+                                       attention_block, each_row, join_rows,
+                                       mlp_block, moe_block,
+                                       paged_attention_block, rms_norm,
+                                       split_rows)
 from repro_torch.models.mamba import MambaState, mamba_block
 
 # Sequence-chunk length of the chunked cross-entropy (bounds the fp32
@@ -311,7 +312,7 @@ def _embed(params, tokens: torch.Tensor, cfg: ModelConfig,
     M = grid.shape[1]
     Vm = cfg.padded_vocab // M
     out = []
-    for r, t in enumerate(split_rows(tokens, dist)):
+    for r, t in each_row(dist, split_rows(tokens, dist)):
         parts = []
         for m in range(M):
             dev = grid[r, m]
@@ -699,7 +700,7 @@ def _encoder_kv(params, frames, cfg: ModelConfig, dist: Dist, train: bool):
         return build_enc_kv(params, encode(params, frames, cfg, train=train),
                             cfg)
     out = []
-    for f in split_rows(frames, dist):
+    for _, f in each_row(dist, split_rows(frames, dist)):
         sub = gather_tree({k: params[k] for k in _ENCODER_KEYS}, f.device)
         out.append(build_enc_kv(sub, encode(sub, f, cfg, train=train), cfg))
     return out
@@ -746,7 +747,7 @@ def loss_fn(params, batch: dict, cfg: ModelConfig,
     sums = [_ce_sums(params, rms_norm(hr, gather(params["final_ln"],
                                                  hr.device), cfg.norm_eps),
                      lr, cfg, grid[r]) for r, (hr, lr) in
-            enumerate(zip(h, split_rows(labels, dist)))]
+            each_row(dist, zip(h, split_rows(labels, dist)))]
     with collective("all-reduce"):
         tot = sum(t.to(dev) for t, _ in sums)
         cnt = sum(c.to(dev) for _, c in sums)
@@ -791,7 +792,7 @@ def prefill(params, tokens, cfg: ModelConfig, dist: Dist = NO_DIST, *,
         logits = join_rows([_logits_at(params, rms_norm(
             hr[:, -1:, :], gather(params["final_ln"], hr.device),
             cfg.norm_eps), cfg, dist.grid()[r])[:, 0]
-            for r, hr in enumerate(h)], _first_device(dist))
+            for r, hr in each_row(dist, h)], _first_device(dist))
         if kvs:
             kv = KVCache(k=stack_sharded([k for k, _ in kvs]),
                          v=stack_sharded([v for _, v in kvs]))
@@ -834,7 +835,7 @@ def decode_step(params, tokens, caches: Caches, cfg: ModelConfig,
         grid = dist.grid()
         logits = join_rows([_logits_at(params, rms_norm(
             hr, gather(params["final_ln"], hr.device), cfg.norm_eps), cfg,
-            grid[r]) for r, hr in enumerate(h)], _first_device(dist))
+            grid[r]) for r, hr in each_row(dist, h)], _first_device(dist))
     else:
         h = rms_norm(h, params["final_ln"], cfg.norm_eps)
         logits = _logits_at(params, h, cfg)

@@ -10,11 +10,12 @@ arithmetic in the bf16 parameter dtype). ``OptState.step`` is an int32
 tensor, and the learning rate is computed from it in fp32.
 
 A ``launch.shardings.Sharded`` parameter keeps its state sharded like it
-and is updated where each shard lives. AdamW is elementwise. Adafactor
-reduces across a leaf's shards wherever the whole-leaf update reduces —
-the row and column means of the squared gradient, the mean of the row
-mean, the RMS clip over the whole leaf: each shard's partial sums are
-summed on the device of the reduced state's slice and sent back.
+(a replica per pod, as the parameter) and is updated where each shard
+lives. AdamW is elementwise. Adafactor reduces across a leaf's shards
+wherever the whole-leaf update reduces — the row and column means of the
+squared gradient, the mean of the row mean, the RMS clip over the whole
+leaf: each shard's partial sums are summed, within its replica, on the
+device of the reduced state's slice and sent back.
 """
 from __future__ import annotations
 
@@ -152,11 +153,17 @@ def _reduced_zeros(p: Sharded, dim: int) -> Sharded:
     shape = p.shape[:dim] + p.shape[dim + 1:]
     return Sharded.build(p.mesh, spec, shape, lambda index, dev: torch.zeros(
         [len(range(*s.indices(n))) for s, n in zip(index, shape)],
-        dtype=torch.float32, device=dev))
+        dtype=torch.float32, device=dev), p.pod)
 
 
-def _reduced_key(spec, coords: dict) -> tuple:
-    return tuple(coords[a] for a in spec if a is not None)
+def _reduced_axes(p: Sharded, spec) -> tuple:
+    """The axes of a key of ``p``'s state reduced to ``spec``: 'pod' for
+    a replicated leaf, then the spec's."""
+    return ("pod",) * p.pod + tuple(a for a in spec if a is not None)
+
+
+def _reduced_key(p: Sharded, spec, coords: dict) -> tuple:
+    return tuple(coords[a] for a in _reduced_axes(p, spec))
 
 
 def _mean_over(p: Sharded, parts, spec, n: int) -> dict:
@@ -167,9 +174,8 @@ def _mean_over(p: Sharded, parts, spec, n: int) -> dict:
     acc: dict = {}
     for key in p.shards:
         c = p.coords(key)
-        k = _reduced_key(spec, c)
-        dev = position_device(p.mesh, {a: c[a] for a in spec
-                                       if a is not None})
+        k = _reduced_key(p, spec, c)
+        dev = position_device(p.mesh, {a: c[a] for a in _reduced_axes(p, spec)})
         t = parts(key)
         with collective("all-reduce"):
             t = t.to(dev)
@@ -187,14 +193,13 @@ def _adafactor_sharded(p: Sharded, g: Sharded, m: Sharded, v, *, lr, b1,
         t = g.shards[key].float()
         return t * t + eps
 
-    first = position_device(p.mesh, {})
     if _factored(p):
         vr, vc = v
         rows = _mean_over(p, lambda k: g2(k).sum(-1), vr.spec, p.shape[-1])
         cols = _mean_over(p, lambda k: g2(k).sum(-2), vc.spec, p.shape[-2])
-        vr2 = Sharded(p.mesh, vr.spec, vr.shape, {
+        vr2 = vr.with_shards({
             k: decay * t + (1 - decay) * rows[k] for k, t in vr.shards.items()})
-        vc2 = Sharded(p.mesh, vc.spec, vc.shape, {
+        vc2 = vc.with_shards({
             k: decay * t + (1 - decay) * cols[k] for k, t in vc.shards.items()})
         rm_spec = vr.spec[:-1]
         row_mean = _mean_over(vr2, lambda k: vr2.shards[k].sum(-1), rm_spec,
@@ -205,29 +210,37 @@ def _adafactor_sharded(p: Sharded, g: Sharded, m: Sharded, v, *, lr, b1,
             c = p.coords(key)
             dev = p.shards[key].device
             denom = (vr2.part(c, dev)[..., None]
-                     / row_mean[_reduced_key(rm_spec, c)].to(dev)[
+                     / row_mean[_reduced_key(p, rm_spec, c)].to(dev)[
                          ..., None, None]) * vc2.part(c, dev)[..., None, :]
             return g.shards[key].float() * torch.rsqrt(denom + eps)
     else:
-        v2 = Sharded(p.mesh, v.spec, v.shape, {
+        v2 = v.with_shards({
             k: decay * t + (1 - decay) * g2(k) for k, t in v.shards.items()})
 
         def u_of(key):
             return g.shards[key].float() * torch.rsqrt(v2.shards[key] + eps)
-    # update clipping at RMS 1.0, over the whole leaf
-    sq = [(u * u).sum() for u in map(u_of, p.shards)]
-    with collective("all-reduce"):
-        ss = sum(t.to(first) for t in sq)
-    rms = torch.sqrt(ss / p.numel() + eps)
+    # update clipping at RMS 1.0, over the whole leaf (each replica's)
+    sq: dict = {}
+    for key in p.shards:
+        u = u_of(key)
+        sq.setdefault(_reduced_key(p, (), p.coords(key)), []).append(
+            (u * u).sum())
+        del u
+    rms = {}
+    for r, parts in sq.items():
+        first = position_device(p.mesh, dict(zip(("pod",) * p.pod, r)))
+        with collective("all-reduce"):
+            ss = sum(t.to(first) for t in parts)
+        rms[r] = torch.sqrt(ss / p.numel() + eps)
     new_p, new_m = {}, {}
     for key, t in p.shards.items():
-        u = u_of(key) / torch.clamp(rms.to(t.device), min=1.0)
+        u = u_of(key) / torch.clamp(
+            rms[_reduced_key(p, (), p.coords(key))].to(t.device), min=1.0)
         m2 = b1 * m.shards[key].float() + (1 - b1) * u
         del u
         out = t.float() - _on(lr, t.device) * (m2 + weight_decay * t.float())
         new_p[key], new_m[key] = out.to(t.dtype), m2.to(torch.bfloat16)
-    return (Sharded(p.mesh, p.spec, p.shape, new_p),
-            Sharded(p.mesh, p.spec, p.shape, new_m), v2)
+    return p.with_shards(new_p), p.with_shards(new_m), v2
 
 
 def adafactor_update(params, grads, state: OptState, *, lr=None, b1=0.9,

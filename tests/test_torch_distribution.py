@@ -72,6 +72,10 @@ MOE_CASES = [
     ("global", QWEN3, 2048, 8192, "global"),      # T = 4096: global
     ("ep_as_tp", QWEN3, 2051, 8192, "tp"),        # T % (dp·ep) = 2: TP
 ]
+# (tag, config, S at B = 2) of the global dispatch run from the weights'
+# shards: the reference jitted with ``param_specs`` in-shardings, so XLA
+# partitions its expert products where the weights lie
+SPLIT_CASES = [("split_ep", QWEN3, 512), ("split_tp", MIXTRAL, 512)]
 # (tag, config, B, S) of the sharded loss
 LOSS_CASES = [("smollm", SMOLLM, 4, 64), ("qwen3", QWEN3, 2, 4096)]
 # the routed positions, in the port's call order, of each branch
@@ -87,6 +91,7 @@ from repro.launch.mesh import make_test_mesh
 from repro.models.transformer import init_params, loss_fn
 
 MOE_CASES, LOSS_CASES, out_dir = eval(sys.argv[1]), eval(sys.argv[2]), sys.argv[3]
+SPLIT_CASES = eval(sys.argv[4])
 mesh = make_test_mesh(2, 2)
 dist = L.Dist(mesh=mesh, batch_axes=("data",))
 rec = {}
@@ -167,6 +172,30 @@ for tag, name, S, group in MOE_CASES:
     out[f"{tag}/y"] = np.asarray(y.astype(jnp.float32))
     out[f"{tag}/aux"] = np.asarray(aux)
 save("moe", out)
+
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.launch.shardings import param_specs
+out = {}
+for tag, name, S in SPLIT_CASES:
+    cfg = get_config(name).reduced()
+    full = init_params(cfg, jax.random.PRNGKey(0))
+    pm = jax.tree.map(lambda t: t[0], full["moe"])
+    specs = jax.tree.map(lambda s: NamedSharding(mesh, P(*tuple(s)[1:])),
+                         param_specs(cfg, full)["moe"],
+                         is_leaf=lambda s: isinstance(s, P))
+    rng = np.random.default_rng(3)
+    x = jnp.asarray((rng.standard_normal((2, S, cfg.d_model)) * 0.3
+                     ).astype(np.float32)).astype(jnp.bfloat16)
+    with mesh:
+        f = jax.jit(lambda x_, p_: L.moe_block(x_, p_, cfg, dist),
+                    in_shardings=(NamedSharding(mesh, P("data", None, None)),
+                                  specs))
+        y, aux = f(x, pm)
+        y.block_until_ready()
+    take_routes(out, tag)
+    out[f"{tag}/y"] = np.asarray(y.astype(jnp.float32))
+    out[f"{tag}/aux"] = np.asarray(aux)
+save("split", out)
 '''
 
 
@@ -238,7 +267,7 @@ def results(tmp_path_factory):
     moe = [c[:4] for c in MOE_CASES]
     proc = subprocess.Popen(
         [sys.executable, "-c", REFERENCE, repr(moe), repr(LOSS_CASES),
-         out_dir], env=env, stdout=subprocess.DEVNULL,
+         out_dir, repr(SPLIT_CASES)], env=env, stdout=subprocess.DEVNULL,
         stderr=subprocess.PIPE, text=True)
     try:
         ref, port = {}, {}
@@ -272,7 +301,7 @@ def results(tmp_path_factory):
                 th.join()
             port[tag] = {k: (float(v[0]), _grad_table(v[1]))
                          for k, v in got.items()}
-        for name in [c[0] for c in LOSS_CASES] + ["moe"]:
+        for name in [c[0] for c in LOSS_CASES] + ["moe", "split"]:
             ref.update(_wait_for(proc, os.path.join(out_dir,
                                                     name + ".npz")))
         proc.wait(timeout=600)
@@ -317,6 +346,37 @@ def test_moe_block_matches_the_reference_sharded(results, case, monkeypatch,
     record_property("aux_err", aux_err)
     assert y.shape == (2, S, cfg.d_model) and y.dtype == torch.bfloat16
     assert y_err <= Y_TOL and aux_err <= AUX_RTOL, (y_err, aux_err)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES, ids=[c[0] for c in SPLIT_CASES])
+def test_global_dispatch_split_matches_the_reference_sharded(
+        results, case, record_property):
+    """The global dispatch (2 x 512 tokens) from ``shard_params``'
+    slices, split where the weights lie — fp32 partials summed over
+    'data' (and, "tp", over 'model') and rounded once — against the
+    reference's jitted ``moe_block`` with ``param_specs`` in-shardings
+    on 4 devices, whose expert products XLA partitions the same way,
+    under the reference's routing: y within 2 bf16 ulps of its largest
+    (the share of outputs that differ is recorded), aux within 2e-3
+    relative, for "ep" (qwen3-moe) and "tp" (mixtral)."""
+    ref, _ = results
+    tag, name, S = case
+    cfg, tp = _port_params(name)
+    sp = shard_params(cfg, tp, _mesh())
+    pm = {k: v[0] for k, v in sp["moe"].items()}
+    with L.record_moe_branches() as taken, \
+            L.replay_routing(_routes(ref, tag, "global")):
+        y, aux = L.moe_block(_moe_input(cfg, S), pm, cfg, _dist())
+    assert taken == ["global"]
+    ry, raux = ref[f"{tag}/y"], float(ref[f"{tag}/aux"])
+    scale = float(np.abs(ry).max())
+    ulp = float(2.0 ** (np.floor(np.log2(scale)) - 7))
+    got = y.float().numpy()
+    err = float(np.abs(got - ry).max())
+    record_property("ulps", err / ulp)
+    record_property("differ", float((got != ry).mean()))
+    assert err <= 2 * ulp, err / ulp
+    assert abs(float(aux) - raux) <= AUX_RTOL * abs(raux)
 
 
 @pytest.mark.parametrize("case", MOE_CASES[:2], ids=["ep", "tp"])

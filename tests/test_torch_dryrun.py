@@ -173,6 +173,33 @@ def test_reduced_runs_give_the_whole_mesh_counts(case, record_property):
                            record_property)
 
 
+@pytest.mark.parametrize("dims", [(4, 2), (2, 4, 2)], ids=["4x2", "2x4x2"])
+def test_remat_rows_are_counted_as_the_whole_mesh(dims, record_property):
+    """A remat config's train step (smollm-360m.reduced() with ``remat``
+    on: each layer recomputed in the backward pass) on 4 rows a pod: the
+    cut runs, extrapolated, give each pod's first row the whole mesh's
+    counts exactly — the recompute runs whole, so a row's counts do not
+    depend on whether it is a run's last row — and the second pod's
+    first row the first pod's, up to the controller's joins."""
+    cfg = dataclasses.replace(DR.cut_depth(
+        get_config("smollm-360m").reduced(), 4), remat=True)
+    rows = int(np.prod(dims[:-1]))
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq=64,
+                                batch=2 * rows)
+    mesh = _mesh(dims)
+    whole = DR.count(cfg, shape, mesh, whole=True)["per_position"]
+    part = DR.count(cfg, shape, mesh)
+    record_property("runs", part["runs"])
+    assert len(part["per_position"]) == dims[-1] * (len(dims) - 1)
+    for lab, rec in part["per_position"].items():
+        for key in COUNTS:
+            assert rec[key] == whole[lab][key], (lab, key)
+    if len(dims) == 3:
+        per = part["per_position"]
+        assert per["(0, 0, 1)"]["collective_bytes"] \
+            == per["(1, 0, 1)"]["collective_bytes"]
+
+
 # MoE steps of more than MOE_GLOBAL_DISPATCH_MAX_TOKENS tokens, whose cut
 # runs have fewer: (arch, shape, mesh dims, cut depth units, seq, branch)
 PAST_GLOBAL_CASES = [
@@ -220,8 +247,9 @@ def _hold_reduced_to_whole(arch, shape, dims, units, seq, record_property):
         assert abs(rec["peak_over_arguments"] - w) <= 0.25 * w, lab
 
 
-# global dispatches whose expert owners all sit outside the first row:
-# (arch, shape, mesh dims, cut depth units, seq)
+# global dispatches whose experts used to run on owners outside the first
+# row; now every position runs a share of each: (arch, shape, mesh dims,
+# cut depth units, seq)
 OWNER_CASES = [
     ("qwen3-moe-235b-a22b", "decode_32k", (4, 2), 2, 256),
     ("mixtral-8x7b", "decode_32k", (4, 2), 2, 256),
@@ -231,34 +259,19 @@ OWNER_CASES = [
 ]
 
 
-def _owner_groups(cfg, mesh, train) -> dict:
-    """{label of the first: labels of all} of the global dispatch's
-    owners outside the first row, by model index and experts run."""
-    p = DR._moe_layer(cfg, mesh, train)
-    coords = [tuple(c.get(a, 0) for a in mesh.axis_names)
-              for c in layers.owner_coords(p["w1"])]
-    groups: dict = {}
-    for c, e in zip(coords, layers.owner_experts(cfg.moe.n_experts,
-                                                 len(coords))):
-        r, col = DR._row_col(mesh, c)
-        if r and e.stop > e.start:
-            groups.setdefault((col, e.stop - e.start), []).append(c)
-    return {DR._label(min(m, key=lambda c: DR._row_col(mesh, c))):
-            [DR._label(c) for c in m] for m in groups.values()}
-
-
 @pytest.mark.parametrize("case", OWNER_CASES,
                          ids=[f"{a}-{s}-{'x'.join(map(str, d))}"
                               for a, s, d, _, _ in OWNER_CASES])
 def test_the_dispatch_owners_are_counted_as_the_whole_mesh(case,
                                                            record_property):
-    """``count`` reports the owners of the global dispatch's experts
-    outside the first row — the first of each model index, with how many
-    experts it runs and how many owners are alike — and each one's
-    counts, extrapolated, are those of the whole mesh run at every owner
-    alike (the peak within 25%); the position that receives the most
-    bytes of one global dispatch (``_moe_dispatch_cost`` at the step's
-    tokens) is among those reported."""
+    """The global dispatch splits every expert's products over the
+    positions that hold its weights (every position of the first pod),
+    so the reported positions — each pod's first row — are counted, by
+    the cut runs and the dispatch's correction, exactly as the whole
+    mesh run counts them (the peak within 25%); every position of the
+    mesh does a share of each dispatch (``_moe_dispatch_cost`` at the
+    step's tokens), and the one that receives the most bytes of it is
+    among those reported."""
     arch, sname, dims, units, seq = case
     _hold_reduced_to_whole(arch, INPUT_SHAPES[sname], dims, units, seq,
                            record_property)
@@ -266,71 +279,98 @@ def test_the_dispatch_owners_are_counted_as_the_whole_mesh(case,
     rows = int(np.prod(dims[:-1]))
     shape = dataclasses.replace(INPUT_SHAPES[sname], seq=seq, batch=2 * rows)
     mesh = _mesh(dims)
-    whole = DR.count(cfg, shape, mesh, whole=True)["per_position"]
     part = DR.count(cfg, shape, mesh)["per_position"]
-    groups = _owner_groups(cfg, mesh, shape.kind == "train")
-    assert groups
-    for first, members in groups.items():
-        rec = part[first]
-        assert rec["alike"] == len(members) and rec["experts"] >= 1
-        for lab in members:
-            for key in COUNTS:
-                assert whole[lab][key] == rec[key], (lab, key)
-    reported = set(part) | {lab for m in groups.values() for lab in m}
     train = shape.kind == "train"
     tokens = shape.batch * (1 if shape.kind == "decode" else shape.seq)
     got = DR._moe_dispatch_cost(cfg, tokens, train,
-                                DR._moe_layer(cfg, mesh, train),
-                                mesh.devices[(0,) * len(dims)])
+                                DR._moe_layer(cfg, mesh, train), mesh)
     labels = DR.position_labels(mesh)
+    pod0 = [d for d in mesh.distinct_devices()
+            if labels[d][0][0] == 0 or len(dims) == 2]
+    assert set(pod0) <= set(got)
+    for dev in pod0:
+        assert got[dev]["flops"] > 0, labels[dev]
     most = max(got, key=lambda d: sum(v for k, v in got[d].items()
                                       if k.startswith("coll:")))
-    assert DR._label(labels[most][0]) in reported
+    assert DR._label(labels[most][0]) in part
+
+
+def test_the_second_pod_reads_its_own_replica(record_property):
+    """smollm-360m.reduced()'s ``decode_32k`` (8 slots of 256) run whole
+    on a (2, 2, 2) mesh: every parameter slice has a replica in each pod,
+    so the second pod's first position (1, 0, 0) receives what the first
+    pod's (0, 0, 0) receives, less the controller's joins — the other
+    three rows' fp32 logits into (0, 0, 0), its row's int32 tokens into
+    (1, 0, 0) — and every other position what its first-pod counterpart
+    receives; the reduced count reports both pods' first rows."""
+    cfg = DR.cut_depth(get_config("smollm-360m").reduced(), 4)
+    shape = dataclasses.replace(INPUT_SHAPES["decode_32k"], seq=256, batch=8)
+    mesh = _mesh((2, 2, 2))
+    per = DR.count(cfg, shape, mesh, whole=True)["per_position"]
+    b = shape.batch // 4
+    joins = 3 * b * cfg.padded_vocab * 4 - b * 4
+    got = {lab: r["collective_total"] for lab, r in per.items()}
+    record_property("received", got)
+    assert got["(0, 0, 0)"] - got["(1, 0, 0)"] == joins
+    for d, m in ((1, 0), (0, 1), (1, 1)):
+        assert per[f"(0, {d}, {m})"]["collective_bytes"] \
+            == per[f"(1, {d}, {m})"]["collective_bytes"], (d, m)
+    wide = dataclasses.replace(shape, batch=16)
+    part = DR.count(cfg, wide, _mesh((2, 4, 2)))["per_position"]
+    assert set(part) == {"(0, 0, 0)", "(0, 0, 1)", "(1, 0, 0)", "(1, 0, 1)"}
 
 
 def test_the_dispatch_owners_on_a_production_mesh(record_property):
     """mixtral-8x7b's (TP) and qwen3-moe's (EP) ``decode_32k`` on 16x16:
-    every expert runs on a position outside the first row; each owner is
-    reported, its row's work (its first-row position at that model
-    index, past the first: (0, 0) holds the controller's joins) plus, every MoE layer, the (cap, D) slabs of its experts in
-    and the experts' weights it does not hold gathered — the whole
-    expert less its own shard of it. The busiest position is an owner."""
+    every position runs its share of each expert's products; a reported
+    position (0, m) past the first receives, every MoE layer, only
+    activations — the D_d columns of its experts' (cap, D) slabs
+    (all-to-all), the other data positions' fp32 partials of its chunk
+    of F and the bf16 chunks of the SwiGLU back ("tp" also the other
+    model positions' fp32 partials of its chunk of D_d): no weight. The
+    busiest position is reported."""
     mesh = make_production_mesh()
     shape = INPUT_SHAPES["decode_32k"]
-    for arch, held in (("mixtral-8x7b", 256), ("qwen3-moe-235b-a22b", 16)):
+    Dd = M = 16
+    for arch in ("mixtral-8x7b", "qwen3-moe-235b-a22b"):
         cfg = get_config(arch)
+        moe = cfg.moe
         rec = DR.dry_run(cfg, shape, mesh)
         per = rec["analysis"]["per_position"]
-        groups = _owner_groups(cfg, mesh, False)
-        assert sum(len(m) for m in groups.values()) == min(
-            cfg.moe.n_experts, 256)
         cap = layers.moe_capacity(cfg, shape.batch)
-        n_moe = cfg.n_layers // cfg.moe.every
-        expert = 3 * cfg.d_model * cfg.moe.d_ff_expert * 2
-        for first, members in groups.items():
-            r = per[first]
-            col = first.split(", ")[-1].rstrip(")")
-            if col == "0":      # (0, 0) holds the controller's joins too
-                continue
-            row = per[f"(0, {col})"]
-            got = {k: r["collective_bytes"][k]
-                   - row["collective_bytes"][k] for k in COLLECTIVES}
-            assert got["all-to-all"] == n_moe * r["experts"] * cap \
-                * cfg.d_model * 2
-            assert got["all-gather"] == n_moe * r["experts"] * (
-                expert - expert // held)
-        assert rec["analysis"]["position"] in groups
+        n_moe = cfg.n_layers // moe.every
+        ep = moe.parallelism == "ep"
+        E = moe.n_experts // M if ep else moe.n_experts
+        F = moe.d_ff_expert if ep else moe.d_ff_expert // M
+        D_d = cfg.d_model // Dd
+        sums = 2 * (Dd - 1) * E * cap * F // Dd * 4 \
+            + (Dd - 1) * E * cap * F // Dd * 2
+        if not ep:
+            sums += (M - 1) * E * cap * D_d // M * 4
+        for m in range(1, M):
+            r = per[f"(0, {m})"]
+            assert r["collective_held"]["all-reduce"] == n_moe * sums, m
+            assert r["collective_bytes"]["all-to-all"] \
+                == n_moe * E * cap * D_d * 2, m
+        assert "all-reduce" in rec["analysis"]["own_kinds"] + [
+            c for c in COLLECTIVES
+            if c not in rec["analysis"]["held_kinds"]]
+        assert rec["analysis"]["position"] in per
         record_property(arch, {"position": rec["analysis"]["position"],
                                "roofline": rec["roofline"]})
 
 
 def test_the_plan_extrapolates_rows_and_depth():
     """The runs of a production count: one and two rows (a Mamba2 prefill
-    too: its states stay on their rows), 1-2 depth units (1-3 to train),
-    weights that reproduce a polynomial exactly."""
+    too: its states stay on their rows; a remat train step too: its
+    recompute runs whole), 1-2 depth units (1-3 to train),
+    weights that reproduce a polynomial exactly; a prefill's peak is fit
+    through 2 and 3 units on one row (a run whose counts weigh 0) plus
+    the rows' increment through 1 and 2."""
     mesh = make_production_mesh()
     cfg = get_config("smollm-360m")
     train = DR.plan(cfg, INPUT_SHAPES["train_4k"], mesh)
+    assert cfg.remat
     assert sorted((k, j) for k, j, _, _ in train) == [
         (1, 1), (1, 2), (1, 3), (2, 1), (2, 2)]
     # the count weights evaluate A(L) + 15 B(L) at L = 32
@@ -338,6 +378,14 @@ def test_the_plan_extrapolates_rows_and_depth():
     B = lambda j: 5 + 11 * j
     f = lambda k, j: A(j) + (k - 1) * B(j)
     assert sum(w * f(k, j) for k, j, w, _ in train) == A(32) + 15 * B(32)
+    pre = DR.plan(cfg, INPUT_SHAPES["prefill_32k"], mesh)
+    assert sorted((k, j) for k, j, _, _ in pre) == [
+        (1, 1), (1, 2), (1, 3), (2, 1), (2, 2)]
+    assert {j: w for k, j, w, _ in pre if k == 1}[3] == 0
+    P = lambda j: 11 + 5 * j
+    dP = lambda j: 3 + 2 * j
+    peak = lambda k, j: P(j) + (k - 1) * dP(j) + (j == 1) * 99
+    assert sum(pw * peak(k, j) for k, j, _, pw in pre) == P(32) + 15 * dP(32)
     ssm = DR.plan(get_config("mamba2-2.7b"), INPUT_SHAPES["prefill_32k"],
                   mesh)
     assert {k for k, _, _, _ in ssm} == {1, 2}
@@ -349,10 +397,10 @@ def test_the_plan_extrapolates_rows_and_depth():
 
 def test_production_meshes_are_stand_in_positions():
     """(16, 16) over (data, model) and (2, 16, 16) over (pod, data,
-    model), as the reference's; the first ``PRODUCTION_ROWS`` rows —
-    every row the plan runs a step on — each position its own ``cpu:k``,
-    the later rows one stand-in per model index."""
-    assert PRODUCTION_ROWS == 3
+    model), as the reference's; the first ``PRODUCTION_ROWS`` rows of
+    each pod — every row the plan runs a step on — each position its own
+    ``cpu:k``, the later rows one stand-in per model index."""
+    assert PRODUCTION_ROWS == 3 > DR.ROW_NODES[-1]
     m = make_production_mesh()
     assert m.shape == {"data": 16, "model": 16}
     assert m.devices[0, 3] == torch.device("cpu", 3)
@@ -360,11 +408,13 @@ def test_production_meshes_are_stand_in_positions():
     assert m.devices[3, 0] == m.devices[15, 0] != m.devices[2, 0]
     m3 = make_production_mesh(multi_pod=True)
     assert m3.shape == {"pod": 2, "data": 16, "model": 16}
-    assert len(m3.distinct_devices()) == 64
+    assert len(m3.distinct_devices()) == 112
     assert m3.devices[1, 5, 2] == m3.devices[0, 9, 2]
+    assert len({m3.devices[p, d, 2] for p in (0, 1) for d in (0, 1, 2)}) == 6
     labels = DR.position_labels(m3)
     assert labels[torch.device("cpu", 18)] == ((0, 1, 2), 1)
-    assert labels[m3.devices[1, 5, 2]] == (("*", "*", 2), 32 - 3)
+    assert labels[torch.device("cpu", 50)] == ((1, 0, 2), 1)
+    assert labels[m3.devices[1, 5, 2]] == (("*", "*", 2), 32 - 6)
     with pytest.raises(ValueError):
         make_standin_mesh((16, 16), ("data", "model"), rows=MAX_STANDINS)
 
@@ -382,10 +432,14 @@ def test_count_refuses_rows_that_share_stand_ins():
 
 
 def test_row_mesh_takes_the_first_rows_in_order():
-    m = make_standin_mesh((2, 2, 4), ("pod", "data", "model"))
-    sub = DR.row_mesh(m, 3)
-    assert sub.shape == {"pod": 1, "data": 3, "model": 4}
-    assert list(sub.devices[0, 2]) == list(m.devices[1, 0])
+    """The first k data rows of each pod, in order; the first row of
+    each pod is what a reduced count reports."""
+    m = make_standin_mesh((2, 3, 4), ("pod", "data", "model"))
+    sub = DR.row_mesh(m, 2)
+    assert sub.shape == {"pod": 2, "data": 2, "model": 4}
+    assert list(sub.devices[1, 0]) == list(m.devices[1, 0])
+    assert list(sub.devices[0, 1]) == list(m.devices[0, 1])
+    assert DR.first_rows(m) == set(m.devices[0, 0]) | set(m.devices[1, 0])
 
 
 # ------------------------------------------------- the production meshes --
@@ -415,7 +469,8 @@ def test_lower_one_on_a_production_mesh(args, record_property):
     assert lo <= mem["peak_bytes"] <= hi
     assert mem["fits"] == ("yes" if hi <= 80e9 else "no" if lo > 80e9
                            else "unsure")
-    assert len(rec["analysis"]["per_position"]) == 16
+    per = rec["analysis"]["per_position"]
+    assert len(per) == (32 if multi else 16)
 
 
 def test_main_reports_skips_and_writes_json(tmp_path, capsys):

@@ -43,18 +43,25 @@ that has it:
 
 ROADMAP §3 records these with the measured FLOPs.
 
-Collective bytes are not held against the reference's: XLA's
-partitioner picks the reference's collectives (it also gathers
-activations and reshards attention with all-to-all and permutes), the
-port's are the copies its mesh code makes. The per-position test
-records both side by side; the collectives test holds the port's kinds
-to the copies the model makes, in closed form.
+Collective bytes in general are not held against the reference's:
+XLA's partitioner picks most of the reference's collectives (it also
+gathers activations and reshards attention with all-to-all and
+permutes), the port's are the copies its mesh code makes. The
+per-position test records both side by side; the collectives test holds
+the port's kinds to the copies the model makes, in closed form. The
+collectives whose algorithm the reference fixes — its hand-written
+``shard_map`` collectives, the MoE global dispatch's fp32 partial sums
+and the gradient sum over 'pod' — are held per kind and per position
+against the reference's compiled ones (``test_held_collectives_*``,
+``test_the_pod_gradient_sum_*``: one MoE layer lowered alone, and the
+2x2x2 train step), each difference named.
 """
 import json
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -88,24 +95,113 @@ MESH = [(f"{a}-{k}-2x2", a, True, k, 4, 256 if k == "decode" else 128,
 MESH3 = [("smollm-360m-train-2x2x2", "smollm-360m", True, "train", 8, 128,
           (2, 2, 2))]
 CASES = NO_MESH + FULL + MESH + MESH3
+# one MoE layer's moe_block lowered alone on 2x2: (tag, arch, batch, seq,
+# dims, branch) — past the global dispatch (8,192 tokens) and in it (256)
+ALONE = [("ep-alone", "qwen3-moe-235b-a22b", 4, 2048, (2, 2), "ep"),
+         ("tp-alone", "mixtral-8x7b", 4, 2048, (2, 2), "tp"),
+         ("global-ep-alone", "qwen3-moe-235b-a22b", 4, 64, (2, 2), "global"),
+         ("global-tp-alone", "mixtral-8x7b", 4, 64, (2, 2), "global")]
 
 REFERENCE = r'''
 import json
+import re
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from repro.configs.base import get_config
+from repro.launch import hlo_analysis as HA
 from repro.launch.hlo_analysis import analyze
 from repro.launch.shardings import param_specs
 from repro.launch.steps import (ShapeSpec, cache_specs, input_specs,
                                 make_dist, make_prefill_step,
                                 make_serve_step, make_train_step,
                                 opt_state_shapes, opt_state_specs)
-from repro.models.layers import NO_DIST
+from repro.models.layers import NO_DIST, Dist, moe_block
 from repro.models.transformer import init_params
+
+GROUPS = re.compile(r"replica_groups=(\{\{[\d,{}]*\}\}|"
+                    r"\[\d+,\d+\]<=\[[\d,]+\](?:T\([\d,]+\))?)")
+IOTA = re.compile(r"\[(\d+),(\d+)\]<=\[([\d,]+)\](?:T\(([\d,]+)\))?")
+
+
+def groups(rest):
+    """An op's replica groups as sorted device-id lists (None: all)."""
+    m = GROUPS.search(rest)
+    if not m:
+        return None
+    g = m.group(1)
+    if g.startswith("{{"):
+        return [sorted(int(x) for x in grp.split(","))
+                for grp in g[2:-2].split("},{")]
+    a, b, dims, perm = IOTA.match(g).groups()
+    ids = np.arange(int(np.prod([int(x) for x in dims.split(",")])))
+    ids = ids.reshape([int(x) for x in dims.split(",")])
+    if perm:
+        ids = ids.transpose([int(x) for x in perm.split(",")])
+    return [sorted(r) for r in ids.reshape(int(a), int(b)).tolist()]
+
+
+def collectives(text):
+    """Every collective of a compiled step: its kind, how many times it
+    runs (loop trip counts multiplied down the call graph), the dtype and
+    shape of each tuple element, its replica groups and its op name."""
+    comps = HA.parse_hlo(text)
+    entry = next(c for c in comps.values() if c.is_entry)
+    mult, order = {entry.name: 1}, [entry.name]
+    for name in order:
+        c = comps[name]
+        edges = [(k, 1) for k in c.calls] + [
+            (body, HA._trip_count(comps[cond]) if cond in comps else 1)
+            for cond, body in c.whiles]
+        for callee, trips in edges:
+            if callee in comps:
+                mult[callee] = mult.get(callee, 0) + mult[name] * trips
+                if callee not in order:
+                    order.append(callee)
+    out = []
+    for name, k in mult.items():
+        for op in comps[name].ops:
+            for kind in HA.COLLECTIVES:
+                if op.opcode in (kind, kind + "-start"):
+                    on = re.search(r'op_name="([^"]*)"', op.rest)
+                    out.append({"kind": kind, "mult": k, "parts": [
+                        (m.group(1), [int(d) for d in m.group(2).split(",")
+                                      if d])
+                        for m in HA._SHAPE_RE.finditer(op.type_str)
+                        if m.group(1) in HA._DTYPE_BYTES],
+                        "groups": groups(op.rest),
+                        "op_name": on.group(1) if on else ""})
+    return out
+
+
+def moe_alone(cfg, batch, seq, dims):
+    """One MoE layer's ``moe_block`` lowered alone on a (data, model)
+    mesh: x's batch over 'data', the weights by ``param_specs``."""
+    n = int(np.prod(dims))
+    mesh = Mesh(np.asarray(jax.devices()[:n]).reshape(dims),
+                ("data", "model"))
+    p_shapes = jax.eval_shape(lambda k: init_params(cfg, k),
+                              jax.random.PRNGKey(0))
+    specs = param_specs(cfg, p_shapes)
+    one = jax.tree.map(lambda s: jax.ShapeDtypeStruct(s.shape[1:], s.dtype),
+                       p_shapes["moe"])
+    one_specs = jax.tree.map(lambda s: P(*tuple(s)[1:]), specs["moe"],
+                             is_leaf=lambda s: isinstance(s, P))
+    dist = Dist(mesh=mesh, batch_axes=("data",))
+    x = jax.ShapeDtypeStruct((batch, seq, cfg.d_model), jnp.bfloat16)
+    ns = lambda t: jax.tree.map(lambda s: NamedSharding(mesh, s), t,
+                                is_leaf=lambda s: isinstance(s, P))
+    rows = NamedSharding(mesh, P("data", None, None))
+    with mesh:
+        comp = jax.jit(lambda x, p: moe_block(x, p, cfg, dist),
+                       in_shardings=(rows, ns(one_specs)),
+                       out_shardings=(rows, NamedSharding(mesh, P()))
+                       ).lower(x, one).compile()
+    return {"collectives": collectives(comp.as_text())}
 
 
 def lower(cfg, shape, dims):
@@ -163,14 +259,19 @@ def lower(cfg, shape, dims):
                     p_shapes, args["tokens"], args["caches"])
             comp = low.compile()
     a = analyze(comp.as_text())
-    return {"flops": a["flops"],
-            "collective_bytes": a["collective_bytes"],
-            "collective_counts": a["collective_counts"],
-            "argument_bytes": int(
-                comp.memory_analysis().argument_size_in_bytes)}
+    out = {"flops": a["flops"],
+           "collective_bytes": a["collective_bytes"],
+           "collective_counts": a["collective_counts"],
+           "argument_bytes": int(
+               comp.memory_analysis().argument_size_in_bytes)}
+    if dims is not None and len(dims) == 3:
+        out["collectives"] = collectives(comp.as_text())
+    return out
 
 
 out = {}
+for tag, arch, batch, seq, dims in json.loads(sys.argv[3]):
+    out[tag] = moe_alone(get_config(arch).reduced(), batch, seq, dims)
 for tag, arch, reduced, kind, batch, seq, dims in json.loads(sys.argv[1]):
     cfg = get_config(arch)
     if reduced:
@@ -191,7 +292,8 @@ def reference(tmp_path_factory):
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                JAX_PLATFORMS="cpu")
     proc = subprocess.Popen(
-        [sys.executable, "-c", REFERENCE, json.dumps(CASES), path],
+        [sys.executable, "-c", REFERENCE, json.dumps(CASES), path,
+         json.dumps([(t, a, b, s, d) for t, a, b, s, d, _ in ALONE])],
         env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
         text=True)
     got = {}
@@ -326,7 +428,11 @@ def test_argument_bytes_on_a_mesh_equal_the_reference(reference, case,
     or patch input the reference also splits over 'model'), the
     reference passes a decode's cache length as an int32 scalar, and
     its jit drops arguments the step never reads (whisper's encoder and
-    cross-attention K/V weights in a decode)."""
+    cross-attention K/V weights in a decode). On 2x2x2 the second pod's
+    first position (1, 0, 0) holds its own replica of every parameter
+    and optimizer slice, so it equals the reference's device too, less
+    that device's share of the inputs and the optimizer's int32 step
+    counter, which the port keeps on the mesh's first position only."""
     tag, arch, _, kind, batch, seq, dims = case
     cfg, rec = _port(case)
     ref = reference(tag)
@@ -343,6 +449,10 @@ def test_argument_bytes_on_a_mesh_equal_the_reference(reference, case,
         named += _unread_bytes(cfg, mesh)
     record_property("bytes", (port, ref["argument_bytes"], named))
     assert port == ref["argument_bytes"] + named
+    if len(dims) == 3:
+        second = rec["analysis"]["per_position"]["(1, 0, 0)"]
+        assert second["argument_bytes"] == ref["argument_bytes"] \
+            - tokens // rows - 4 * (kind == "train")
     assert rec["memory"]["argument_bytes"] == max(
         r["argument_bytes"] for r in rec["analysis"]["per_position"].values())
 
@@ -500,3 +610,169 @@ def test_collectives_are_the_copies_the_mesh_code_makes(case):
         got = {c: (r["collective_bytes"][c], r["collective_counts"][c])
                for c in want}
         assert got == want, lab
+
+
+# ------------------------- the collectives the reference's algorithm fixes --
+
+def _elems(parts, ndim=None) -> int:
+    """The elements of a collective's tuple parts (of rank ``ndim``)."""
+    return sum(int(np.prod(shape)) for _, shape in parts
+               if ndim is None or len(shape) == ndim)
+
+
+def _of(ref, kind, name=None, ndim=None, size=None) -> list:
+    """The reference's collectives of ``kind`` whose op name ends with or
+    holds ``name``, with a part of rank ``ndim``, over groups of
+    ``size`` devices."""
+    return [c for c in ref["collectives"] if c["kind"] == kind
+            and (name is None or name in c["op_name"])
+            and (ndim is None or any(len(s) == ndim for _, s in c["parts"]))
+            and (size is None or (c["groups"] is not None
+                                  and len(c["groups"][0]) == size))]
+
+
+def _moe_alone_port(arch, batch, seq, dims):
+    """The port's ``moe_block`` on a 2x2 stand-in mesh, one MoE layer's
+    ``shard_params`` slices: (cfg, {(row, model): record}, branch)."""
+    from repro_torch.models import layers as L
+    cfg = get_config(arch).reduced()
+    mesh = make_standin_mesh(dims, ("data", "model"))
+    held = DR._Params(DR.cut_depth(cfg, 1), mesh, False).params
+    p = {k: v[0] for k, v in held["moe"].items()}
+    x = OA.standin((batch, seq, cfg.d_model), L.DTYPE, mesh.devices[0, 0])
+    mode = OA.OpAnalysis()
+    dist = L.Dist(mesh=mesh, batch_axes=("data",))
+    with mode, torch.no_grad(), L.record_moe_branches() as taken:
+        L.moe_block(x, p, cfg, dist)
+    where = {mesh.devices[r, m]: (r, m) for r in range(dims[0])
+             for m in range(dims[1])}
+    return cfg, {where[d]: t.record() for d, t in mode.tallies.items()}, \
+        taken
+
+
+@pytest.mark.parametrize("case", ALONE, ids=[c[0] for c in ALONE])
+def test_held_collectives_equal_the_references(reference, case,
+                                               record_property):
+    """One MoE layer's ``moe_block`` lowered alone on 2x2 in the
+    reference (XLA:CPU, forced host devices) and run on 2x2 stand-ins in
+    the port: the collectives whose algorithm the reference fixes —
+    written by hand in its ``shard_map`` (``_moe_ep_local``'s tiled
+    all-to-all both ways, ``_moe_tp_local``'s psum, the aux ``pmean``),
+    or the global dispatch's fp32 partial sums as XLA partitions
+    ``ecd,edf->ecf`` and ``ecf,efd->ecd`` — are the port's held copies
+    (``collective(kind, held=True)``), per kind and per position,
+    exactly, up to these named differences:
+
+      * XLA prices an all-reduce as a ring, twice its result's bytes,
+        and gives every device the result; XLA:CPU carries bf16 as f32.
+        So elements are compared, not bytes, and each side's bytes
+        follow from them in closed form;
+      * an all-to-all's result holds the device's own slab (1/ep of it),
+        which the port does not copy;
+      * the psum and the aux pmean are gathered to one position (the
+        row's first, where its residual lives; the mesh's first for the
+        aux), the other positions receiving nothing;
+      * the global dispatch's all-reduce is a reduce-scatter of fp32
+        chunks (one a data index) and an all-gather of the chunks' bf16
+        SwiGLU (of D_d columns chunks for "tp"'s w2 sums, then sent to
+        the first position as an all-to-all): (n − 1)/n of the fp32
+        partial a product, and (n − 1)/n of the bf16 result; XLA also
+        fuses the router's two f32[E] aux means into it, which the port
+        computes whole on the first position.
+
+    Copies the port makes besides (the token split and join of
+    ``_moe_ep``, the dispatch's slabs and outputs) are its own: not held,
+    not compared."""
+    tag, arch, batch, seq, dims, branch = case
+    ref = reference(tag)
+    cfg, got, taken = _moe_alone_port(arch, batch, seq, dims)
+    assert taken == [branch]
+    rows, M = dims
+    P = rows * M
+    record_property("held", {str(k): r["collective_held"]
+                             for k, r in got.items()})
+    record_property("reference", ref["collectives"])
+    if branch in ("ep", "tp"):
+        aux = _of(ref, "all-reduce", "psum", ndim=0)
+        assert len(aux) == 1 and _elems(aux[0]["parts"]) == 1
+        size = len(aux[0]["groups"][0])
+        assert size == (P if branch == "ep" else rows)
+        want_aux = {(0, 0): (size - 1) * 4}
+    if branch == "ep":
+        a2a = _of(ref, "all-to-all", "all_to_all")
+        assert len(a2a) == 2 and all(c["mult"] == 1 for c in a2a)
+        for pos, rec in got.items():
+            n = sum(_elems(c["parts"]) for c in a2a)
+            assert rec["collective_held"]["all-to-all"] \
+                == n * (M - 1) // M * 2, pos
+            assert rec["collective_held"]["all-reduce"] \
+                == want_aux.get(pos, 0), pos
+    elif branch == "tp":
+        psum = _of(ref, "all-reduce", "psum", ndim=3, size=M)
+        assert len(psum) == 1
+        n = _elems(psum[0]["parts"]) * psum[0]["mult"]
+        for (r, m), rec in got.items():
+            assert rec["collective_held"]["all-reduce"] \
+                == (M - 1) * n * 2 * (m == 0) + want_aux.get((r, m), 0), \
+                (r, m)
+            assert rec["collective_held"]["all-to-all"] == 0
+    else:
+        ep = cfg.moe.parallelism == "ep"
+        up = _of(ref, "all-reduce", "ecd,edf->ecf", ndim=3, size=rows)
+        assert len(up) == 1
+        s1 = [int(np.prod(sh)) for _, sh in up[0]["parts"] if len(sh) == 3]
+        assert len(s1) == 2 and s1[0] == s1[1]
+        aux = _elems(up[0]["parts"], ndim=1)
+        assert aux == 2 * cfg.moe.n_experts
+        want = 2 * (rows - 1) * s1[0] // rows * 4 \
+            + (rows - 1) * s1[0] // rows * 2
+        down = _of(ref, "all-reduce", "ecf,efd->ecd", ndim=3)
+        if ep:
+            assert not down
+        else:
+            assert len(down) == 1 and len(down[0]["groups"][0]) == M
+            want += (M - 1) * _elems(down[0]["parts"]) // M * 4
+        for pos, rec in got.items():
+            assert rec["collective_held"]["all-reduce"] == want, pos
+            assert rec["collective_held"]["all-to-all"] == 0
+
+
+def test_the_pod_gradient_sum_equals_the_references(reference,
+                                                    record_property):
+    """smollm-360m.reduced()'s train step on 2x2x2: XLA's all-reduces
+    over the 'pod' axis alone (groups {i, i + 4}) sum, per device, the
+    gradients of every leaf sharded over 'data' — its shard's elements,
+    times the layer loop's trips; the port's gradient sum over 'pod'
+    (``shardings.pod_sum``, held) takes at every position the other
+    pod's gradient of every slice it holds: the same elements, plus
+    those of the leaves no rule shards over 'data' (the norms) at the
+    positions that hold them, which XLA reduces over ('pod', 'data')
+    together. Bytes: the port's are its bf16 gradients, once; XLA's the
+    ring's twice its f32 result. The port's counts are a copy a leaf
+    (stacked over layers); XLA's a combined all-reduce a layer."""
+    from repro_torch.launch.shardings import (_tree_paths, param_shapes,
+                                              param_specs, pod_replicated)
+    case = MESH3[0]
+    tag, arch, _, kind, batch, seq, dims = case
+    ref = reference(tag)
+    cfg, rec = _port(case)
+    mesh = make_standin_mesh(dims, ("pod", "data", "model"))
+    pod = [c for c in ref["collectives"] if c["kind"] == "all-reduce"
+           and c["groups"] is not None
+           and all(len(g) == 2 and g[1] - g[0] == 4 for g in c["groups"])]
+    assert pod
+    n = sum(_elems(c["parts"]) * c["mult"] for c in pod)
+    shapes = param_shapes(cfg)
+    specs = param_specs(cfg, shapes)
+    unsharded: dict = {}
+    for (_, meta), (_, spec) in zip(_tree_paths(shapes), _tree_paths(specs)):
+        if "data" not in spec:
+            DR._place(unsharded, mesh, spec, meta, pod_replicated(mesh))
+    per = rec["analysis"]["per_position"]
+    record_property("pod", {"reference_elements": n, "port": {
+        lab: r["collective_held"]["all-reduce"] for lab, r in per.items()}})
+    assert len(per) == 8
+    for lab, r in per.items():
+        pos = tuple(int(x) for x in lab.strip("()").split(", "))
+        assert r["collective_held"]["all-reduce"] \
+            == 2 * n + unsharded.get(pos, 0), lab

@@ -20,7 +20,7 @@ from repro_torch.launch.mesh import make_decode_mesh
 from repro_torch.launch.shardings import (Sharded, check_divisibility,
                                           gather, gather_tree, keystr,
                                           param_shapes, param_specs,
-                                          shard_params)
+                                          reading_pod, shard_params)
 from repro_torch.models.transformer import init_params
 
 torch.set_num_threads(1)
@@ -134,3 +134,126 @@ def test_shard_params_refuses_an_uneven_split():
     mesh = make_decode_mesh(3, 1, device="cpu")
     with pytest.raises(ValueError, match="does not shard"):
         shard_params(cfg, params, mesh)
+
+
+def _pod_mesh(device_of):
+    """A (2, 2, 2) mesh over ('pod', 'data', 'model') whose position
+    (p, d, m) is ``device_of(p, d, m)``."""
+    import numpy as np
+
+    from repro_torch.launch.mesh import Mesh
+    arr = np.empty((2, 2, 2), dtype=object)
+    for idx in np.ndindex(2, 2, 2):
+        arr[idx] = device_of(*idx)
+    return Mesh(arr, ("pod", "data", "model"))
+
+
+def test_parameters_are_replicated_over_pod():
+    """On a mesh with a 'pod' axis every leaf is kept once per pod: each
+    pod's slices on that pod's positions (the spec's axes at their
+    index, 'data'/'model' at 0 where the spec leaves them out), a copy
+    of the first pod's; a consumer reads its own pod's replica
+    (``reading_pod``; stand-in positions, one device each: nothing
+    crosses pods), and gathered whole, the leaf is the original bit for
+    bit."""
+    from repro_torch.launch.op_analysis import OpAnalysis, standin
+    cfg = get_config("smollm-360m").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh = _pod_mesh(lambda p, d, m: torch.device("cpu"))
+    sp = shard_params(cfg, params, mesh)
+    for k, leaf in _flat(sp).items():
+        assert leaf.pod
+        blocks = len(leaf.shards) // 2
+        for key, t in leaf.shards.items():
+            assert torch.equal(t, leaf.shards[(0,) + key[1:]]), k
+            assert leaf.coords(key)["pod"] == key[0]
+        assert blocks and torch.equal(gather(leaf, "cpu"), _flat(params)[k])
+    stand = _pod_mesh(lambda p, d, m: torch.device("cpu", 4 * p + 2 * d + m))
+    w = Sharded.build(stand, ("data", "model"), (8, 4), lambda index, dev:
+                      standin((4, 2), torch.bfloat16, dev), pod=True)
+    assert {t.device for k, t in w.shards.items() if k[0] == 1} == {
+        torch.device("cpu", i) for i in range(4, 8)}
+    mode = OpAnalysis()
+    with mode:
+        with reading_pod(1):
+            gather(w, torch.device("cpu", 4))
+        gather(w, torch.device("cpu", 0))
+    received = {d.index: t.record()["collective_total"]
+                for d, t in mode.tallies.items()}
+    assert received[0] == received[4] == 3 * 4 * 2 * 2
+
+
+def test_each_pod_reads_its_own_replica_on_a_shared_device():
+    """On a (2, 2, 2) mesh whose eight positions are all the CPU, a data
+    row reads its own pod's replica, chosen by the row's 'pod'
+    coordinate and not by its device: the second pod's replica of
+    ``embed`` doubled moves the second pod's rows' prefill logits and
+    leaves the first pod's bit for bit; and a train step's gradient
+    reaches every replica of every leaf from its own pod's rows (the
+    gradient taken without ``allow_unused``), the two pods' replicas of
+    ``embed`` taking different gradients (different tokens)."""
+    import dataclasses
+
+    from repro_torch.launch.steps import INPUT_SHAPES, _live, make_dist
+    from repro_torch.models.transformer import loss_fn, prefill
+    from repro_torch.training.optim import tree_leaves, tree_map
+    cfg = get_config("smollm-360m").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh = _pod_mesh(lambda p, d, m: torch.device("cpu"))
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], batch=8, seq=16)
+    dist = make_dist(mesh, shape)
+    sp = shard_params(cfg, params, mesh)
+    tok = torch.randint(0, cfg.vocab_size, (8, 16),
+                        generator=torch.Generator().manual_seed(3))
+    emb = sp["embed"]
+    moved = dict(sp, embed=emb.with_shards({
+        k: t * 2 if k[0] == 1 else t for k, t in emb.shards.items()}))
+    with torch.no_grad():
+        base, _ = prefill(sp, tok, cfg, dist)
+        got, _ = prefill(moved, tok, cfg, dist)
+    assert torch.equal(got[:4], base[:4])        # rows 0, 1: the first pod
+    assert (got[4:] - base[4:]).abs().amax(-1).min() > 0
+    live = tree_map(_live, sp)
+    leaves = list(tree_leaves(live))
+    with torch.enable_grad():
+        loss = loss_fn(live, {"tokens": tok, "labels": torch.roll(tok, -1, 1)},
+                       cfg, dist)
+        grads = dict(zip(map(id, leaves), torch.autograd.grad(loss, leaves)))
+    assert all(bool(torch.isfinite(g).all()) for g in grads.values())
+    gemb = {k: grads[id(t)] for k, t in live["embed"].shards.items()}
+    for key, t in gemb.items():
+        if key[0] == 0:
+            assert not torch.equal(t, gemb[(1,) + key[1:]]), key
+
+
+def test_pod_replicas_stay_equal_through_training():
+    """smollm-360m.reduced() trained 2 AdamW steps on a (2, 2, 2) CPU
+    mesh: after each step the two pods' replicas of every parameter and
+    of the optimizer's moments are bit for bit equal (the gradients are
+    summed over 'pod' in fp32, every replica taking the same update),
+    and the loss is within 2e-2 relative of the unsharded step's."""
+    import dataclasses
+
+    from repro_torch.launch.steps import (INPUT_SHAPES, make_dist,
+                                          make_train_step)
+    from repro_torch.training.optim import make_optimizer
+    cfg = get_config("smollm-360m").reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    mesh = _pod_mesh(lambda p, d, m: torch.device("cpu"))
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], batch=8, seq=32)
+    init, _ = make_optimizer(cfg.optimizer)
+    sp = shard_params(cfg, params, mesh)
+    opt_w, opt_m = init(params), init(sp)
+    whole = make_train_step(cfg)
+    step = make_train_step(cfg, make_dist(mesh, shape))
+    gen = torch.Generator().manual_seed(5)
+    for _ in range(2):
+        tok = torch.randint(0, cfg.vocab_size, (8, 32), generator=gen)
+        batch = {"tokens": tok, "labels": torch.roll(tok, -1, 1)}
+        lw, params, opt_w = whole(params, opt_w, batch)
+        lm, sp, opt_m = step(sp, opt_m, batch)
+        assert abs(float(lm) - float(lw)) <= 2e-2 * abs(float(lw))
+        for tree in (sp, opt_m.m, opt_m.v):
+            for k, leaf in _flat(tree).items():
+                for key, t in leaf.shards.items():
+                    assert torch.equal(t, leaf.shards[(0,) + key[1:]]), k
