@@ -3491,8 +3491,8 @@ def dryrun_host() -> dict:
         rec = lower_one("smollm-360m", shape, multi_pod=multi, verbose=False)
         rec["wall_s"] = time.monotonic() - t0
         show = {k: rec[k] for k in ("arch", "shape", "mesh", "n_devices",
-                                    "trace_s", "wall_s", "memory", "cost",
-                                    "roofline")}
+                                    "trace_s", "run_s", "wall_s", "memory",
+                                    "cost", "roofline")}
         show["busiest"] = rec["analysis"]["position"]
         show["collective_bytes"] = rec["analysis"]["collective_bytes"]
         log("(a) " + json.dumps(show))

@@ -54,8 +54,10 @@ extrapolates, exactly (``plan``):
 
 ``count(cfg, shape, mesh)`` does the work for any config, ``ShapeSpec``
 and mesh; ``lower_one`` is the reference's entry, on the production
-meshes. The record keeps the reference's keys where they mean something:
-``trace_s`` replaces ``lower_s``/``compile_s`` (there is no compile),
+meshes, its independent runs in worker processes, one a CPU
+(``_passes``). The record keeps the reference's keys
+where they mean something: ``trace_s`` replaces ``lower_s``/``compile_s``
+(there is no compile; ``run_s`` holds each step run's seconds),
 ``memory`` is per position (the busiest reported, ``per_position``
 beside it), ``cost`` and ``analysis`` are ``op_analysis``'s,
 ``roofline`` prices them on an H100 — all of the plain path
@@ -71,12 +73,18 @@ fresh tensors (a decode writes its caches in place).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import math
+import multiprocessing.connection
 import os
+import pickle
+import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -284,11 +292,12 @@ def step_call(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, k,
 
 
 def _run(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, k, held: _Params,
-         ops: bool):
-    """``step_call``'s step under ``OpAnalysis``: (the mode, the outputs,
-    the MoE branch log)."""
+         ops: bool, only=None):
+    """``step_call``'s step under ``OpAnalysis`` counting the positions
+    ``only`` (all when None): (the mode, the outputs, the MoE branch
+    log)."""
     step, call = step_call(cfg, shape, mesh, k, held)
-    mode = OpAnalysis(ops=ops)
+    mode = OpAnalysis(ops=ops, only=only)
     mode.hold(call)
     # on a mesh a remat layer's recompute runs whole: checkpoint's early
     # stop ends it once the saved tensors it needs are back, before the
@@ -301,12 +310,13 @@ def _run(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, k, held: _Params,
     return mode, out, list(branches)
 
 
-def _run_update(cfg: ModelConfig, held: _Params, grads, keep, ops: bool):
+def _run_update(cfg: ModelConfig, held: _Params, grads, keep, ops: bool,
+                only=None):
     """The optimizer update of a train step on gradients like ``grads``
-    under ``OpAnalysis``: (the mode, the outputs). ``keep(device)``: the
-    positions to update. AdamW updates each shard on its own, so only
-    those positions' shards are updated; Adafactor sums partials across
-    shards, so it updates them all."""
+    under ``OpAnalysis`` counting the positions ``only``: (the mode, the
+    outputs). ``keep(device)``: the positions to update. AdamW updates
+    each shard on its own, so only those positions' shards are updated;
+    Adafactor sums partials across shards, so it updates them all."""
     params, opt = held.params, held.opt
     if cfg.optimizer == "adamw":
         cut = lambda t: _keep_shards(t, keep)
@@ -314,7 +324,7 @@ def _run_update(cfg: ModelConfig, held: _Params, grads, keep, ops: bool):
         opt = opt._replace(m=_map_sharded(cut, opt.m),
                            v=_map_sharded(cut, opt.v))
     _, opt_update = make_optimizer(cfg.optimizer)
-    mode = OpAnalysis(ops=ops)
+    mode = OpAnalysis(ops=ops, only=only)
     mode.hold((params, opt))
     mode.take(grads)
     with mode, torch.no_grad():
@@ -618,16 +628,206 @@ def plan(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
             if w or pw]
 
 
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector off inside, one collection on
+    the way out. A run makes and drops some hundred thousand objects;
+    the collector's passes over them were a fifth of its time, and they
+    change no count: every counted storage dies by its reference count
+    (the live bytes follow it, ``OpAnalysis._alloc``), none in a
+    collection."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+        gc.collect()
+
+
+def _pass(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, k, j: int,
+          update: bool, ops: bool, reported) -> dict:
+    """One run of ``count``'s plan — ``k`` rows a pod, ``j`` depth units,
+    the positions ``reported`` counted — and, with ``update``, the
+    optimizer update on its gradients: {"step", "update": each run's
+    {"counts": {device: flat record}, "peaks": {device: peak over the
+    arguments}, "ops": op tallies or None}, "global": the MoE layers that
+    took the global dispatch, "seconds": the step run's}, plain data a
+    worker process sends back whole."""
+    train = shape.kind == "train"
+    c = cut_depth(cfg, j)
+    held = _Params(c, mesh, train)
+    t0 = time.time()
+    mode, out, branches = _run(c, shape, mesh, k, held, ops, reported)
+    got = {"seconds": time.time() - t0, "global": branches.count("global")}
+    if not train:
+        got["step"] = _results(mode, out, ops)
+        return got
+    loss, grads = out
+    got["step"] = _results(mode, loss, ops)
+    del mode, out
+    if update:
+        keep = (lambda d: True) if reported is None \
+            else (lambda d: d in reported)
+        mode, out = _run_update(c, held, grads, keep, ops, reported)
+        got["update"] = _results(mode, out, ops)
+    return got
+
+
+def _results(mode: OpAnalysis, out, ops: bool) -> dict:
+    outb = _output_bytes(out)
+    return {"counts": {dev: _flat({**t.record(), "peak_a": 0, "peak_b": 0,
+                                   "output_bytes": outb.get(dev, 0)})
+                       for dev, t in mode.tallies.items()},
+            "peaks": {dev: t.peak - t.held for dev, t in mode.tallies.items()},
+            "ops": mode.op_tallies(lambda d: d) if ops else None}
+
+
+def _pass_sent(args) -> tuple:
+    """(True, ``_pass(*args)``), or (False, its traceback): what a worker
+    process sends back."""
+    try:
+        with _collector_paused():
+            return True, _pass(*args)
+    except Exception:                     # noqa: BLE001 — sent back, raised
+        return False, traceback.format_exc()
+
+
+def _pass_stdio() -> None:
+    """A fresh interpreter's worker (``--pass-worker``): ``_pass``'s
+    arguments pickled on stdin, ``_pass_sent`` pickled on stdout."""
+    out = sys.stdout.buffer
+    sys.stdout = sys.stderr               # a stray print stays off the pipe
+    torch.set_num_threads(1)
+    pickle.dump(_pass_sent(pickle.load(sys.stdin.buffer)), out)
+    out.flush()
+
+
+# a worker's start-up: a fresh interpreter's imports and its first
+# fake-tensor trace of the parameters (an 8-core x86 host CPU)
+WORKER_START_S = 5.0
+
+
+class _Worker:
+    """One ``_pass`` in a fresh interpreter (``_pass_stdio``): its
+    arguments pickled to its stdin; ``ready`` (its stdout) becomes
+    readable when the result comes, ``result()`` reads it and waits for
+    the process."""
+
+    def __init__(self, args) -> None:
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        path = os.environ.get("PYTHONPATH")
+        env = dict(os.environ, PYTHONPATH=root + (os.pathsep + path
+                                                  if path else ""))
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--pass-worker"], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, env=env)
+        self.ready = self.proc.stdout
+        try:
+            pickle.dump(args, self.proc.stdin)
+            self.proc.stdin.close()
+        except BaseException:
+            self.close(kill=True)
+            raise
+
+    def result(self) -> tuple:
+        try:
+            got = pickle.load(self.proc.stdout)
+        except (EOFError, pickle.UnpicklingError):
+            got = (False, "it sent nothing back")
+        self.close()
+        return got
+
+    def close(self, kill: bool = False) -> None:
+        if kill:
+            self.proc.kill()
+        self.proc.wait()
+        self.proc.stdout.close()
+
+
+def _passes(cfg, shape, mesh, jobs, ops, reported, workers: int) -> list:
+    """``_pass`` of every (k, j, update) of ``jobs``, in order: in this
+    process with one worker; else the smallest here while the others,
+    the most layer-rows first, start in fresh interpreters of their own
+    (``_Worker``), at most ``workers`` processes at once — unless, at the
+    smallest one's pace, the others would take less than twice a
+    worker's start-up (``WORKER_START_S``) here: then the workers are
+    stopped and the others run here too. On a host that sees CUDA they
+    all run here: there a fresh interpreter loads CUDA's libraries,
+    22–26 s of start-up a worker on the H100 host against runs of 1–15
+    s. Raises with the worker's traceback if one fails."""
+    args = [(cfg, shape, mesh, k, j, upd, ops, reported)
+            for k, j, upd in jobs]
+    if workers <= 1 or len(args) == 1 or torch.cuda.is_available():
+        return [_pass(*a) for a in args]
+    # the smallest run (by layer-rows) here, the largest started in
+    # workers meanwhile: its seconds say whether the others, one after
+    # another here, would outlast a worker's start-up
+    size = [(k or 1) * j for k, j, _ in jobs]
+    first = min(range(len(args)), key=size.__getitem__)
+    pending = sorted((i for i in range(len(args)) if i != first),
+                     key=lambda i: -size[i])
+    serial = sum(size[i] for i in pending)
+    results, running = [None] * len(args), {}
+
+    def start(most):
+        while pending and len(running) < most:
+            i = pending.pop(0)
+            w = _Worker(args[i])
+            running[w.ready] = (i, w)
+    try:
+        start(workers - 1)              # this process runs the first
+        results[first] = _pass(*args[first])
+        if results[first]["seconds"] * serial \
+                < 2 * WORKER_START_S * size[first]:
+            pending += [i for i, _ in running.values()]
+            for _, w in running.values():
+                w.close(kill=True)
+            running.clear()
+            for i in pending:
+                results[i] = _pass(*args[i])
+            return results
+        while pending or running:
+            start(workers)
+            for ready in multiprocessing.connection.wait(list(running)):
+                i, w = running.pop(ready)
+                ok, got = w.result()
+                if not ok:
+                    raise RuntimeError(f"the dry run's run of {jobs[i][:2]} "
+                                       f"(rows a pod, depth units) failed "
+                                       f"in its worker (exit code "
+                                       f"{w.proc.returncode}):\n{got}")
+                results[i] = got
+    finally:
+        for _, w in running.values():
+            w.close(kill=True)
+    return results
+
+
 def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
-          ops: bool = False, whole: bool = False) -> dict:
+          ops: bool = False, whole: bool = False, workers: int = 1) -> dict:
+    """``_count`` with the cyclic garbage collector paused."""
+    with _collector_paused():
+        return _count(cfg, shape, mesh, ops=ops, whole=whole,
+                      workers=workers)
+
+
+def _count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
+           ops: bool = False, whole: bool = False, workers: int = 1) -> dict:
     """Every reported position's counts for ``cfg``'s step at ``shape`` on
     ``mesh`` (stand-in positions, ``make_standin_mesh``): runs at cut
     depth and on the first rows of each pod (``plan``), combined exactly
     (module docstring); ``whole`` runs every row at full depth instead.
     The reported positions are those with a stand-in of their own — of
-    each pod's first row only when the rows are extrapolated. Returns
+    each pod's first row only when the rows are extrapolated. The runs
+    are independent: ``workers`` > 1 makes them in that many processes at
+    once (``_passes``), with the same counts. Returns
     {"per_position": {label: record}, "classes": {label: record},
-    "ops": {label: op tally} (``ops``), "trace_s", "runs"}."""
+    "ops": {label: op tally} (``ops``), "trace_s", "runs", "run_s": [[rows
+    a pod, depth units, seconds] of each step run]}."""
     train = shape.kind == "train"
     rows = n_rows(mesh) if shape.batch > 1 else 1
     if shape.batch % rows:
@@ -652,37 +852,23 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
     upd_w = dict(zip(upd_nodes, lagrange(upd_nodes, depth_units(cfg))))
     t_row = shape.batch // rows * (shape.seq if shape.kind != "decode"
                                    else 1)
-    held_j, held = None, None
+    run_s = []
 
-    def add(w, pw, mode, out, phase="peak_a"):
-        outb = _output_bytes(out)
-        terms.append((w, {dev: _flat({**t.record(), "peak_a": 0,
-                                      "peak_b": 0,
-                                      "output_bytes": outb.get(dev, 0)})
-                          for dev, t in mode.tallies.items()}))
-        peaks.append((pw, {dev: {phase: t.peak - t.held}
-                           for dev, t in mode.tallies.items()}))
+    def add(w, pw, got, phase="peak_a"):
+        terms.append((w, got["counts"]))
+        peaks.append((pw, {dev: {phase: p} for dev, p in got["peaks"].items()}))
         if ops:
-            op_terms.append((w, mode.op_tallies(lambda d: d)))
-    for k, j, w, pw in runs:
-        c = cut_depth(cfg, j)
-        if held_j != j:
-            held, held_j = _Params(c, mesh, train), j
-        mode, out, branches = _run(c, shape, mesh, k, held, ops)
+            op_terms.append((w, got["ops"]))
+    jobs = [(k, j, train and k in (runs[0][0], None) and j in upd_w)
+            for k, j, _, _ in runs]
+    for (k, j, w, pw), got in zip(runs, _passes(cfg, shape, mesh, jobs, ops,
+                                                reported, workers)):
+        run_s.append([k, j, got["seconds"]])
         if j:
-            per_unit = branches.count("global") // j
-        if not train:
-            add(w, pw, mode, out)
-            continue
-        loss, grads = out
-        add(w, pw, mode, loss)
-        del mode, out
-        if k in (runs[0][0], None) and j in upd_w:
-            keep = (lambda d: d in reported) if reduced \
-                else (lambda d: True)
-            mode, out = _run_update(c, held, grads, keep, ops)
-            add(upd_w[j], upd_w[j], mode, out, "peak_b")
-        del grads
+            per_unit = got["global"] // j
+        add(w, pw, got["step"])
+        if "update" in got:
+            add(upd_w[j], upd_w[j], got["update"], "peak_b")
     per_dev = _combine(terms)
     for dev, pk in _combine([(pw, {d: {"peak_a": 0, "peak_b": 0, **r}
                                    for d, r in recs.items()})
@@ -709,7 +895,7 @@ def count(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
                 positions=n)
     out = {"per_position": per_position, "classes": classes,
            "trace_s": time.time() - t0,
-           "runs": [[k, j] for k, j, _, _ in runs]}
+           "runs": [[k, j] for k, j, _, _ in runs], "run_s": run_s}
     if ops:
         out["ops"] = {}
         merged = _combine([(w, {d: _flat_ops(t[d]) for d in t})
@@ -743,7 +929,7 @@ def busiest(per_position: dict) -> str:
 
 
 def dry_run(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
-            ops: bool = False, whole: bool = False) -> dict:
+            ops: bool = False, whole: bool = False, workers: int = 1) -> dict:
     """The dry-run record of ``cfg``'s step at ``shape`` on ``mesh``:
     ``memory``, ``cost``, ``analysis`` and ``roofline`` of the busiest
     position, ``trace_s``. ``ops`` adds each position's op tally.
@@ -756,7 +942,7 @@ def dry_run(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
     and the peak is an estimate: ``peak_range`` spreads it by
     ``PEAK_SPREAD``, and ``fits`` is "yes" or "no" only where the whole
     range is on one side of the card's 80 GB ("unsure" otherwise)."""
-    counted = count(cfg, shape, mesh, ops=ops, whole=whole)
+    counted = count(cfg, shape, mesh, ops=ops, whole=whole, workers=workers)
     per = counted["per_position"]
     top = busiest(per)
     args = argument_bytes(cfg, shape, mesh)
@@ -786,6 +972,7 @@ def dry_run(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
         "path": "plain",
         "trace_s": round(counted["trace_s"], 1),
         "runs": counted["runs"],
+        "run_s": [[k, j, round(t, 2)] for k, j, t in counted["run_s"]],
         "memory": {
             "argument_bytes": max(args.values()),
             "output_bytes": max(p["output_bytes"] for p in per.values()),
@@ -808,8 +995,10 @@ def dry_run(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh, *,
 
 def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
               ops_out: str | None = None, verbose: bool = True) -> dict:
-    """Count one (arch, shape, production mesh) combination; returns the
-    record (``skipped`` where the shape does not apply)."""
+    """Count one (arch, shape, production mesh) combination, its runs
+    shared by as many processes as this one may use CPUs (``count``'s
+    ``workers``); returns the record (``skipped`` where the shape does
+    not apply)."""
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     runs, note = applicability(cfg, shape)
@@ -820,7 +1009,8 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
     assert not bad, f"sharding divisibility violations: {bad[:5]}"
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "2x16x16" if multi_pod else "16x16", "note": note}
-    rec.update(dry_run(cfg, shape, mesh, ops=ops_out is not None))
+    rec.update(dry_run(cfg, shape, mesh, ops=ops_out is not None,
+                       workers=len(os.sched_getaffinity(0))))
     if ops_out:
         os.makedirs(ops_out, exist_ok=True)
         tag = f"{arch}__{shape_name}__{rec['mesh']}"
@@ -835,6 +1025,9 @@ def lower_one(arch: str, shape_name: str, *, multi_pod: bool = False,
 
 
 def main(argv=None) -> int:
+    if argv is None and sys.argv[1:] == ["--pass-worker"]:
+        _pass_stdio()
+        return 0
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--arch", default="all",
                     help="architecture id or 'all'")

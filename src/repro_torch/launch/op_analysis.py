@@ -11,7 +11,11 @@ tensors there: a shape, a dtype and a device over a ``meta`` tensor, no
 storage. So every op lands on the position that would run it on a real
 mesh, and a copy between two positions (``.to(other)``) is an op the
 mode sees. The port's code is the code a real mesh runs; nothing in it
-knows it is being counted.
+knows it is being counted. The mode runs in Python for every op (about
+1.3 M a production train count), so it caches an op's results and
+counts by its kind, shapes and dtypes (``_META_CACHE``), takes a plain
+view without walking its arguments, and counts only the positions it is
+asked to (``only``).
 
 Per position it returns:
 
@@ -120,10 +124,11 @@ class _Op:
     """What the accounting needs to know of one op overload, worked out
     once."""
 
-    __slots__ = ("packet", "view", "mutates", "flop", "reads", "writes",
-                 "trans", "trans_in", "copy", "name")
+    __slots__ = ("func", "packet", "view", "mutates", "flop", "reads",
+                 "writes", "trans", "trans_in", "copy", "name", "lean_view")
 
     def __init__(self, func) -> None:
+        self.func = func        # kept alive: ``_OPS`` is keyed by its id
         if torch.Tag.inplace_view in func.tags:
             raise NotImplementedError(f"{func}: an in-place view")
         p = self.packet = func._overloadpacket
@@ -137,15 +142,19 @@ class _Op:
             p in _TRANSCENDENTAL_IN
         self.copy = p in _COPIES
         self.name = str(p).replace("aten.", "")
+        # a view that counts nothing but itself (``OpAnalysis._view``)
+        self.lean_view = self.view and self.flop is None and \
+            not (self.trans or self.copy or self.mutates)
 
 
+# id(op overload) → _Op (an overload hashes in Python; its id does not)
 _OPS: dict = {}
 
 
 def _op(func) -> _Op:
-    op = _OPS.get(func)
+    op = _OPS.get(id(func))
     if op is None:
-        op = _OPS[func] = _Op(func)
+        op = _OPS[id(func)] = _Op(func)
     return op
 
 
@@ -204,10 +213,9 @@ class StandIn(torch.Tensor):
 
     @staticmethod
     def __new__(cls, meta: torch.Tensor, device):
-        t = torch.Tensor._make_wrapper_subclass(
-            cls, meta.shape, strides=meta.stride(),
-            storage_offset=meta.storage_offset(), dtype=meta.dtype,
-            device=device, requires_grad=False)
+        t = _wrap(cls, meta.shape, strides=meta.stride(),
+                  storage_offset=meta.storage_offset(), dtype=meta.dtype,
+                  device=device, requires_grad=False)
         t._standin_meta = meta
         return t
 
@@ -218,11 +226,36 @@ class StandIn(torch.Tensor):
         kwargs = kwargs or {}
         op = _op(func)
         return _run_meta(func, op, args, kwargs, _device_of(
-            op, args, kwargs, _tensors(args, kwargs)))
+            op, args, kwargs, _tensors(args, kwargs)))[0]
 
     def __repr__(self) -> str:
         return (f"StandIn({tuple(self.shape)}, {self.dtype}, "
                 f"{self.device})")
+
+
+_wrap = torch.Tensor._make_wrapper_subclass
+_META = torch.device("meta")
+
+
+def _fresh(sig, dev) -> StandIn:
+    """A stand-in over a new meta tensor of ``sig`` (size, stride, dtype):
+    ``StandIn(torch.empty_strided(...), dev)``, without reading the
+    metadata back."""
+    size, stride, dtype = sig
+    t = _wrap(StandIn, size, strides=stride, dtype=dtype, device=dev,
+              requires_grad=False)
+    t._standin_meta = torch.empty_strided(size, stride, dtype=dtype,
+                                          device=_META)
+    t._standin_sig = sig
+    return t
+
+
+def _sig_of(t: StandIn) -> tuple:
+    """A stand-in's (size, stride, dtype), kept on it once read."""
+    sig = getattr(t, "_standin_sig", None)
+    if sig is None:
+        sig = t._standin_sig = _meta_of(t._standin_meta)
+    return sig
 
 
 def standin(shape, dtype, device) -> StandIn:
@@ -247,53 +280,135 @@ def _device_of(op: _Op, args, kwargs, tensors):
 
 
 def _run_meta(func, op: _Op, args, kwargs, dev):
-    """``func`` on the meta tensors behind its stand-in arguments (a real
-    host tensor taken for its shape), the results stand-ins on ``dev``.
-    An in-place op changes no metadata (a meta tensor has no data): it
-    returns its first argument as it is. A non-view op's results are
-    built from the shapes, strides and dtypes it gave the last time it
-    met arguments of the same kinds (the meta kernels run in Python)."""
+    """(results, cache entry) of ``func`` on the meta tensors behind its
+    stand-in arguments (a real host tensor taken for its shape), the
+    results stand-ins on ``dev``. An in-place op changes no metadata (a
+    meta tensor has no data): it returns its first argument as it is. A
+    non-view op's results are built from the shapes, strides and dtypes
+    it gave the last time it met arguments of the same kinds (the meta
+    kernels run in Python); its entry — [one tensor?, [(size, stride,
+    dtype)], container, its (FLOPs, bytes, transcendentals) once worked
+    out] — is None for a view or an in-place op."""
     if op.mutates:
-        return args[0]
-
-    def unwrap(x):
-        if type(x) is StandIn:
-            return x._standin_meta
-        if isinstance(x, torch.Tensor):
-            return x.to("meta")
-        return x
-    margs = [unwrap(a) if not isinstance(a, (list, tuple))
-             else type(a)(unwrap(x) for x in a) for a in args]
-    mkwargs = {k: unwrap(v) for k, v in kwargs.items()}
+        return args[0], None
+    margs = [_unwrap(a) if not isinstance(a, (list, tuple))
+             else type(a)(_unwrap(x) for x in a) for a in args]
+    mkwargs = {k: _unwrap(v) for k, v in kwargs.items()} if kwargs else {}
     if "device" in mkwargs:
-        mkwargs["device"] = torch.device("meta")
+        mkwargs["device"] = _META
     key = None
     if not op.view:
-        key = (func, tuple(_sig(a) for a in margs),
-               tuple((k, _sig(v)) for k, v in mkwargs.items()))
+        key = (op, tuple([_sig(a) for a in margs]),
+               tuple([(k, _sig(v)) for k, v in mkwargs.items()])
+               if mkwargs else ())
         hit = _META_CACHE.get(key)
         if hit is not None:
-            outs = [StandIn(torch.empty_strided(
-                size, stride, dtype=dtype, device="meta"), dev)
-                for size, stride, dtype in hit[1]]
-            return outs[0] if hit[0] else type(hit[2])(outs)
+            return _outputs(hit, dev), hit
     out = func(*margs, **mkwargs)
     if len(_META_CACHE) > _META_CACHE_MAX:
         _META_CACHE.clear()
     if isinstance(out, torch.Tensor):
+        entry = None
         if key is not None:
-            _META_CACHE[key] = (True, [_meta_of(out)], None)
-        return StandIn(out, dev)
+            entry = _META_CACHE[key] = [True, [_meta_of(out)], None, None]
+        return StandIn(out, dev), entry
     if isinstance(out, (list, tuple)):
+        entry = None
         if key is not None and all(isinstance(x, torch.Tensor) for x in out):
-            _META_CACHE[key] = (False, [_meta_of(x) for x in out],
-                                type(out)())
+            entry = _META_CACHE[key] = [False, [_meta_of(x) for x in out],
+                                        type(out)(), None]
         return type(out)(StandIn(x, dev) if isinstance(x, torch.Tensor)
-                         else x for x in out)
-    return out
+                         else x for x in out), entry
+    return out, None
 
 
-# (op, argument kinds) → (one tensor?, [(size, stride, dtype)], container)
+def _outputs(entry, dev):
+    """Fresh stand-ins on ``dev`` from a cache entry."""
+    if entry[0]:
+        return _fresh(entry[1][0], dev)
+    return type(entry[2])(_fresh(sig, dev) for sig in entry[1])
+
+
+def _scan(op: _Op, args, kwargs):
+    """One pass over a call's arguments for the cached path: (its tensors,
+    its position, its ``_META_CACHE`` key) — or None where the call takes
+    the general path (an in-place op, a view, a real host tensor among
+    the arguments, no stand-in argument). The key and the position are
+    ``_run_meta``'s and ``_device_of``'s."""
+    if op.mutates or op.view:
+        return None
+    tensors, sigs, dev = [], [], None
+    for a in args:
+        ta = type(a)
+        if ta is StandIn:
+            tensors.append(a)
+            sig = _sig_of(a)
+            sigs.append(sig)
+            if dev is None and sig[0]:
+                dev = a
+        elif ta is list or ta is tuple:
+            sub = []
+            for x in a:
+                if type(x) is StandIn:
+                    tensors.append(x)
+                    sig = _sig_of(x)
+                    sub.append(sig)
+                    if dev is None and sig[0]:
+                        dev = x
+                elif isinstance(x, torch.Tensor):
+                    return None
+                else:
+                    sub.append(_sig(x))
+            sigs.append(tuple(sub))
+        elif isinstance(a, torch.Tensor):
+            return None
+        else:
+            sigs.append(a)
+    kw = ()
+    if kwargs:
+        items = []
+        for k, v in kwargs.items():
+            if k == "device":
+                v = _META
+            elif isinstance(v, (torch.Tensor, list, tuple)):
+                return None
+            items.append((k, v))
+        kw = tuple(items)
+        want = kwargs.get("device")
+        if want is not None and op.packet is aten._to_copy:
+            dev = torch.device(want)
+    if not tensors:
+        return None
+    if dev is None:
+        dev = tensors[0].device
+    elif type(dev) is StandIn:
+        dev = dev.device
+    return tensors, dev, (op, tuple(sigs), kw)
+
+
+def _no_tensor(args) -> bool:
+    """No tensor among a call's arguments past the first (one level of
+    lists)."""
+    for a in args[1:]:
+        if isinstance(a, torch.Tensor):
+            return False
+        if isinstance(a, (list, tuple)):
+            for x in a:
+                if isinstance(x, torch.Tensor):
+                    return False
+    return True
+
+
+def _unwrap(x):
+    if type(x) is StandIn:
+        return x._standin_meta
+    if isinstance(x, torch.Tensor):
+        return x.to("meta")
+    return x
+
+
+# (op, argument kinds) → [one tensor?, [(size, stride, dtype)], container,
+# counts]
 _META_CACHE: dict = {}
 _META_CACHE_MAX = 200_000
 
@@ -318,13 +433,22 @@ class OpAnalysis(TorchDispatchMode):
     ``StandIn`` argument, a factory such as ``torch.arange(n,
     device=dev)``, a host table copied there) runs on meta tensors and
     returns stand-ins; a host op runs as it is, uncounted. ``ops``: keep
-    each position's tally of op names (count, FLOPs, bytes)."""
+    each position's tally of op names (count, FLOPs, bytes). ``only``:
+    the positions to count (all when None); an op elsewhere still runs on
+    meta tensors and returns stand-ins, uncounted."""
 
-    def __init__(self, *, ops: bool = False) -> None:
+    def __init__(self, *, ops: bool = False, only=None) -> None:
         super().__init__()
         self.keep_ops = ops
+        self.only = None if only is None else frozenset(only)
         self.tallies: dict = {}
         self._live: dict = {}     # counted storages: key → weak reference
+
+    @classmethod
+    def _should_skip_dynamo(cls) -> bool:
+        # nothing inside is compiled: no dynamo-disabling frame around
+        # every op
+        return False
 
     # -- positions ---------------------------------------------------------
 
@@ -347,17 +471,21 @@ class OpAnalysis(TorchDispatchMode):
         now (live until they die)."""
         for t in pytree.tree_leaves(tree, is_leaf=_is_sharded):
             for x in (t.shards.values() if isinstance(t, Sharded) else (t,)):
-                if isinstance(x, torch.Tensor) and _standin(x.device):
+                if isinstance(x, torch.Tensor) and _standin(x.device) and \
+                        (self.only is None or x.device in self.only):
                     self._alloc(x, held)
 
-    def _alloc(self, t: torch.Tensor, held: bool = False) -> None:
-        """A storage counted live on t's position (once) until it dies."""
+    def _alloc(self, t: torch.Tensor, held: bool = False,
+               tl: Tally | None = None) -> None:
+        """A storage counted live on t's position (its tally ``tl``) once,
+        until it dies."""
         st = _storage(t)
         key = st._cdata
         if key in self._live:
             return
         n = st.nbytes()
-        tl = self.tally(t.device)
+        if tl is None:
+            tl = self.tally(t.device)
         if held:
             tl.held += n
         tl.live += n
@@ -373,36 +501,63 @@ class OpAnalysis(TorchDispatchMode):
     # -- dispatch ----------------------------------------------------------
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        op = _OPS.get(id(func)) or _op(func)
+        if op.lean_view and not kwargs and type(args[0]) is StandIn \
+                and _no_tensor(args):
+            return self._view(func, op, args)
         kwargs = kwargs or {}
-        op = _op(func)
-        tensors = _tensors(args, kwargs)
-        dev = _device_of(op, args, kwargs, tensors)
-        if not _standin(dev):
-            return func(*args, **kwargs)
-        out = _run_meta(func, op, args, kwargs, dev)
-        self._account(op, args, kwargs, tensors, out, dev)
+        got = _scan(op, args, kwargs)
+        entry = None
+        if got is not None:
+            tensors, dev, key = got
+            entry = _META_CACHE.get(key)
+        if entry is not None and _standin(dev):
+            out = _outputs(entry, dev)
+        else:
+            tensors = _tensors(args, kwargs)
+            dev = _device_of(op, args, kwargs, tensors)
+            if not _standin(dev):
+                return func(*args, **kwargs)
+            out, entry = _run_meta(func, op, args, kwargs, dev)
+        if self.only is None or dev in self.only:
+            self._account(op, args, kwargs, tensors, out, dev, entry)
         return out
 
-    def _account(self, op: _Op, args, kwargs, tensors, out, dev) -> None:
+    def _view(self, func, op: _Op, args):
+        """A view of one stand-in (its first argument, every other one no
+        tensor): the general path's result and counts — the view on the
+        stand-in's position, over the view of its meta tensor, counting
+        only itself in the op tally — without its argument walks."""
+        a = args[0]
+        dev = a.device
+        if not _standin(dev):
+            return func(*args)
+        out = func(a._standin_meta, *args[1:])
+        out = StandIn(out, dev) if isinstance(out, torch.Tensor) else \
+            type(out)(StandIn(x, dev) if isinstance(x, torch.Tensor) else x
+                      for x in out)
+        if self.only is None or dev in self.only:
+            tl = self.tallies.get(dev) or self.tally(dev)
+            if tl.ops is not None:
+                tl.ops[(op.name, "n")] += 1
+                tl.ops[(op.name, "flops")] += 0
+                tl.ops[(op.name, "bytes")] += 0
+        return out
+
+    def _account(self, op: _Op, args, kwargs, tensors, out, dev,
+                 entry=None) -> None:
         outs = [out] if isinstance(out, torch.Tensor) else \
             _tensors(out, {}) if isinstance(out, (list, tuple)) else []
-        tl = self.tally(dev)
-        flops = 0
-        if op.flop is not None:
-            flops = int(op.flop(*args, **kwargs, out_val=out))
-            tl.flops += flops
-        nbytes = 0
-        if not op.view:
-            if op.writes:
-                nbytes = sum(_nbytes(t) for t in tensors[1:])
-            else:
-                nbytes = sum(_nbytes(t) for t in outs)
-                if op.reads:
-                    nbytes += sum(_nbytes(t) for t in tensors)
-            tl.bytes += nbytes
-        if op.trans:
-            tl.transcendentals += (args[0] if op.trans_in
-                                   else outs[0]).numel()
+        tl = self.tallies.get(dev) or self.tally(dev)
+        counts = entry[3] if entry is not None else None
+        if counts is None:
+            counts = _counts(op, args, kwargs, tensors, out, outs)
+            if entry is not None:       # the same for every such call
+                entry[3] = counts
+        flops, nbytes, trans = counts
+        tl.flops += flops
+        tl.bytes += nbytes
+        tl.transcendentals += trans
         if op.copy:
             src = args[1] if op.packet is aten.copy_ else args[0]
             if isinstance(src, torch.Tensor) and src.device != dev \
@@ -420,7 +575,7 @@ class OpAnalysis(TorchDispatchMode):
             tl.ops[(op.name, "bytes")] += nbytes
         if not (op.view or op.writes or op.mutates):
             for t in outs:
-                self._alloc(t)
+                self._alloc(t, tl=tl)
 
     # -- results -----------------------------------------------------------
 
@@ -437,6 +592,26 @@ class OpAnalysis(TorchDispatchMode):
                 rows.setdefault(name, {})[what] = v
             out[label(d)] = rows
         return out
+
+
+def _counts(op: _Op, args, kwargs, tensors, out, outs) -> tuple:
+    """(FLOPs, bytes, transcendentals) of one op: they depend only on its
+    arguments' shapes and dtypes."""
+    flops = 0
+    if op.flop is not None:
+        flops = int(op.flop(*args, **kwargs, out_val=out))
+    nbytes = 0
+    if not op.view:
+        if op.writes:
+            nbytes = sum(_nbytes(t) for t in tensors[1:])
+        else:
+            nbytes = sum(_nbytes(t) for t in outs)
+            if op.reads:
+                nbytes += sum(_nbytes(t) for t in tensors)
+    trans = 0
+    if op.trans:
+        trans = (args[0] if op.trans_in else outs[0]).numel()
+    return flops, nbytes, trans
 
 
 def _tensors(args, kwargs) -> list:

@@ -200,6 +200,43 @@ def test_remat_rows_are_counted_as_the_whole_mesh(dims, record_property):
             == per["(1, 0, 1)"]["collective_bytes"]
 
 
+@pytest.mark.parametrize("start_s", [0.0, 1e9], ids=["workers", "here"])
+def test_worker_processes_give_the_counts_of_one(start_s, monkeypatch):
+    """``count``'s five runs of a train step made with ``workers=3`` —
+    four in fresh interpreters when a worker starts at once, all in this
+    process when its start-up outlasts them — give every reported
+    position the counts, peaks and output bytes of one process, and the
+    runs' seconds in plan order."""
+    cfg = DR.cut_depth(get_config("smollm-360m").reduced(), 4)
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq=64, batch=16)
+    mesh = _mesh((2, 4, 2))
+    one = DR.count(cfg, shape, mesh)
+    monkeypatch.setattr(DR, "WORKER_START_S", start_s)
+    many = DR.count(cfg, shape, mesh, workers=3)
+    assert len(one["runs"]) == 5
+    assert many["per_position"] == one["per_position"]
+    assert many["classes"] == one["classes"]
+    assert [[k, j] for k, j, _ in many["run_s"]] == one["runs"]
+
+
+def test_counting_some_positions_leaves_theirs_as_they_are():
+    """``OpAnalysis(only=...)``, as ``count`` uses it for the reported
+    positions: those positions' counts, peaks and op tallies are what
+    counting every position gives them; no other position is counted."""
+    cfg = DR.cut_depth(get_config("smollm-360m").reduced(), 2)
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq=64, batch=8)
+    mesh = _mesh((2, 2, 2))
+    held = DR._Params(cfg, mesh, True)
+    keep = DR.first_rows(mesh)
+    every, _, _ = DR._run(cfg, shape, mesh, 1, held, True)
+    some, _, _ = DR._run(cfg, shape, mesh, 1, held, True, keep)
+    assert set(some.tallies) == keep < set(every.tallies)
+    for dev in keep:
+        a, b = every.tallies[dev], some.tallies[dev]
+        assert b.record() == a.record() and b.ops == a.ops
+        assert (b.peak, b.held) == (a.peak, a.held)
+
+
 # MoE steps of more than MOE_GLOBAL_DISPATCH_MAX_TOKENS tokens, whose cut
 # runs have fewer: (arch, shape, mesh dims, cut depth units, seq, branch)
 PAST_GLOBAL_CASES = [
@@ -455,6 +492,12 @@ def test_lower_one_on_a_production_mesh(args, record_property):
     rec = DR.lower_one("smollm-360m", shape, multi_pod=multi, verbose=False)
     took = time.time() - t0
     record_property("seconds", took)
+    # each step run's own seconds, by (depth units, rows a pod): the runs
+    # share the CPUs (``lower_one``'s workers), so ``seconds`` is about
+    # the longest of them
+    for k, j, s in rec["run_s"]:
+        record_property(f"run_{j}_units_{k}_rows_s", float(s))
+    record_property("runs_s", float(sum(s for _, _, s in rec["run_s"])))
     assert took < PROD_LIMIT_S
     assert rec["mesh"] == ("2x16x16" if multi else "16x16")
     assert rec["n_devices"] == (512 if multi else 256)
