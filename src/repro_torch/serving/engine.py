@@ -47,6 +47,7 @@ from repro_torch.models.transformer import (Caches, decode_step,
                                             init_caches, paged_shard_reason,
                                             prefill)
 from repro_torch.serving.layerwise import overlap_split
+from repro_torch.serving import spans
 from repro_torch.serving.paged_cache import DevicePagePool
 from repro_torch.serving.request import ServingRequest
 from repro_torch.serving.ssd_store import (AsyncPrefetcher, PrefetchHandle,
@@ -58,6 +59,10 @@ from repro_torch.serving.transport import (InProcPeer, PeerError,
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def prefix_hash_ids(tokens: np.ndarray, block: int = BLOCK_TOKENS) -> list[int]:
@@ -759,6 +764,8 @@ class ChunkedPrefill:
         self.prompt_len = len(self.tokens)
         self.chunks_done = 0
         self.result: Optional[PrefillResult] = None
+        #: the request served, for the spans (the serving loop sets it)
+        self.req_id: Optional[int] = None
         self._gen = worker._chunks(self.tokens, session)
 
     @property
@@ -769,14 +776,15 @@ class ChunkedPrefill:
         """Run one device chunk; True once the prefill finished."""
         if self.result is not None:
             return True
-        try:
-            next(self._gen)
-            self.chunks_done += 1
-            return False
-        except StopIteration as e:
-            self.chunks_done += 1
-            self.result = e.value
-            return True
+        with spans.span("prefill.advance", req_id=self.req_id):
+            try:
+                next(self._gen)
+                self.chunks_done += 1
+                return False
+            except StopIteration as e:
+                self.chunks_done += 1
+                self.result = e.value
+                return True
 
     def drain(self) -> PrefillResult:
         while not self.advance():
@@ -823,7 +831,8 @@ class PrefillWorker:
                              ssd_loaded_blocks=0, overlapped_requests=0,
                              fallback_blocks=0, peer_blocks=0,
                              skipped_blocks=0, page_oom=0, chunks=0,
-                             stage_deferred=0)
+                             stage_deferred=0, prefix_load_bytes=0,
+                             offload_bytes=0, stage_bytes=0)
         #: the most recent overlapped requests' splits (a dict each: the
         #: ``ChunkOverlapPlan`` fields, the loaded tail, the estimates and
         #: the seconds from the barrier to the tail on the card)
@@ -850,12 +859,16 @@ class PrefillWorker:
                       hi: int):
         """One timed device chunk (the resumable unit); the synchronise
         makes the EMA measure device time."""
-        t0 = time.monotonic()
-        logits, caches = decode_step(self.params, t[:, lo:hi], caches,
-                                     self.cfg)
-        _sync(self.device)
-        self._note_compute(hi - lo, time.monotonic() - t0)
+        t0 = time.monotonic_ns()
+        with spans.span("prefill.chunk_dispatch"):
+            logits, caches = decode_step(self.params, t[:, lo:hi], caches,
+                                         self.cfg)
+        with spans.span("prefill.chunk_sync"):
+            _sync(self.device)
+        t1 = time.monotonic_ns()
+        self._note_compute(hi - lo, (t1 - t0) * 1e-9)
         self.counters["chunks"] += 1
+        spans.add("prefill.chunk", t0, t1)
         return logits, caches
 
     def _set_blocks(self, caches: Caches, hash_ids: list[int], lo: int,
@@ -863,18 +876,46 @@ class PrefillWorker:
         """Copy pool blocks [lo, hi) into the cache arena on this thread
         (a blocking host-to-device copy) and resume after them."""
         B = BLOCK_TOKENS
-        k_h, v_h = self.pool.get(hash_ids[lo:hi])
-        caches.kv.k[:, 0, lo * B:hi * B] = k_h.to(self.device)
-        caches.kv.v[:, 0, lo * B:hi * B] = v_h.to(self.device)
+        with spans.span("prefill.prefix_load") as sp:
+            k_h, v_h = self.pool.get(hash_ids[lo:hi])
+            caches.kv.k[:, 0, lo * B:hi * B] = k_h.to(self.device)
+            caches.kv.v[:, 0, lo * B:hi * B] = v_h.to(self.device)
+            moved = _nbytes(k_h) + _nbytes(v_h)
+            sp.moved(moved)
+        self.counters["prefix_load_bytes"] += moved
         return caches._replace(length=hi * B)
+
+    def _offload(self, caches: Caches) -> tuple:
+        """The prompt's whole KV copied to host memory."""
+        with spans.span("prefill.offload") as sp:
+            k_full = caches.kv.k[:, 0].to("cpu", copy=True)
+            v_full = caches.kv.v[:, 0].to("cpu", copy=True)
+            moved = _nbytes(k_full) + _nbytes(v_full)
+            sp.moved(moved)
+        self.counters["offload_bytes"] += moved
+        return k_full, v_full
+
+    def _store_back(self, hash_ids: list[int], k, v, start_pos: int) -> None:
+        """Fresh full blocks [start_pos, start_pos + len(hash_ids)) into
+        the host pool."""
+        with spans.span("prefill.store_back"):
+            self.pool.put(hash_ids, k, v, start_pos=start_pos)
 
     def _stage(self, hash_ids, k_full, v_full, S) -> Optional[list[int]]:
         if self.page_pool is not None and self.stage_guard is not None \
                 and not self.stage_guard(self.page_pool.pages_for(S)):
             self.counters["stage_deferred"] += 1
             return None
-        pages = stage_run(self.page_pool, hash_ids, k_full, v_full, S)
-        if pages is None and self.page_pool is not None:
+        if self.page_pool is None:
+            return None
+        pp = self.page_pool
+        with spans.span("prefill.stage") as sp:
+            b0 = pp.counters["bytes_written"]
+            pages = stage_run(pp, hash_ids, k_full, v_full, S)
+            moved = pp.counters["bytes_written"] - b0
+            sp.moved(moved)
+        self.counters["stage_bytes"] += moved
+        if pages is None:
             self.counters["page_oom"] += 1
         return pages
 
@@ -917,31 +958,37 @@ class PrefillWorker:
         chunks; its StopIteration value is the ``PrefillResult``."""
         cfg = self.cfg
         S = len(tokens)
-        hash_ids = self.hasher.hash_ids(tokens, session=session)
-
-        if self.ssd_mode == "overlap" and self.pool.prefetcher is not None:
-            plan = self.pool.plan_fetch(hash_ids)
-            n_res = plan.n_resident
-            if n_res * BLOCK_TOKENS >= S:    # full hit: keep a tail to
-                n_res = max((S - 1) // BLOCK_TOKENS, 0)  # recompute logits
-            plan = plan.truncate(n_res)
-            if plan.has_ssd or plan.has_remote:
-                result = yield from self._chunks_overlapped(
-                    tokens, hash_ids, plan)
-                return result
-
-        # blocking path: flat pool, metadata-only tiers, or synchronous
-        # file-backed/peer loads (ssd_mode="blocking")
-        # peer blocks are counted around the synchronous fetch alone: the
-        # serving loop interleaves other prefills on this pool between
-        # this generator's chunks
-        peer0 = self.pool.peer_blocks_fetched
-        n_hit = self.pool.match_prefix(hash_ids)
-        n_peer = self.pool.peer_blocks_fetched - peer0
-        prefix_tokens = n_hit * BLOCK_TOKENS
-        if prefix_tokens >= S:           # full hit: recompute last block's
-            n_hit = max((S - 1) // BLOCK_TOKENS, 0)  # tail to get logits
-            prefix_tokens = n_hit * BLOCK_TOKENS
+        with spans.span("prefill.match"):
+            hash_ids = self.hasher.hash_ids(tokens, session=session)
+            plan = None
+            if self.ssd_mode == "overlap" \
+                    and self.pool.prefetcher is not None:
+                plan = self.pool.plan_fetch(hash_ids)
+                n_res = plan.n_resident
+                # full hit: keep a tail to recompute logits
+                if n_res * BLOCK_TOKENS >= S:
+                    n_res = max((S - 1) // BLOCK_TOKENS, 0)
+                plan = plan.truncate(n_res)
+                if not (plan.has_ssd or plan.has_remote):
+                    plan = None
+            if plan is None:
+                # blocking path: flat pool, metadata-only tiers, or
+                # synchronous file-backed/peer loads (ssd_mode="blocking");
+                # peer blocks are counted around the synchronous fetch
+                # alone: the serving loop interleaves other prefills on
+                # this pool between this generator's chunks
+                peer0 = self.pool.peer_blocks_fetched
+                n_hit = self.pool.match_prefix(hash_ids)
+                n_peer = self.pool.peer_blocks_fetched - peer0
+                prefix_tokens = n_hit * BLOCK_TOKENS
+                # full hit: recompute last block's tail to get logits
+                if prefix_tokens >= S:
+                    n_hit = max((S - 1) // BLOCK_TOKENS, 0)
+                    prefix_tokens = n_hit * BLOCK_TOKENS
+        if plan is not None:
+            result = yield from self._chunks_overlapped(tokens, hash_ids,
+                                                        plan)
+            return result
 
         t = torch.as_tensor(np.asarray(tokens, np.int64)[None, :],
                             device=self.device)
@@ -957,15 +1004,14 @@ class PrefillWorker:
             if hi < S:
                 yield               # suspension point for the serving loop
         first = int(torch.argmax(logits[0, -1]))
-        k_full = caches.kv.k[:, 0].to("cpu", copy=True)
-        v_full = caches.kv.v[:, 0].to("cpu", copy=True)
+        k_full, v_full = self._offload(caches)
 
         # store-back of every fresh full block to the host pool
         n_total = len(hash_ids)
         if n_total > n_hit:
             sl = slice(n_hit * BLOCK_TOKENS, n_total * BLOCK_TOKENS)
-            self.pool.put(hash_ids[n_hit:], k_full[:, sl], v_full[:, sl],
-                          start_pos=n_hit)
+            self._store_back(hash_ids[n_hit:], k_full[:, sl], v_full[:, sl],
+                             n_hit)
         self.counters["reused_blocks"] += n_hit
         self.counters["computed_tokens"] += S - prefix_tokens
         self.counters["requests"] += 1
@@ -1053,8 +1099,7 @@ class PrefillWorker:
             if hi < S:
                 yield
         first = int(torch.argmax(logits[0, -1]))
-        k_full = caches.kv.k[:, 0].to("cpu", copy=True)
-        v_full = caches.kv.v[:, 0].to("cpu", copy=True)
+        k_full, v_full = self._offload(caches)
 
         # store-back: the RECOMPUTED head runs (chunk-skipped DRAM blocks
         # are already pool-resident) and the fresh suffix blocks
@@ -1068,13 +1113,12 @@ class PrefillWorker:
             while j < s and plan.tiers[j] != "dram":
                 j += 1
             sl = slice(i * B, j * B)
-            self.pool.put(hash_ids[i:j], k_full[:, sl], v_full[:, sl],
-                          start_pos=i)
+            self._store_back(hash_ids[i:j], k_full[:, sl], v_full[:, sl], i)
             i = j
         if n_total > usable:
             sl = slice(usable * B, n_total * B)
-            self.pool.put(hash_ids[usable:n_total], k_full[:, sl],
-                          v_full[:, sl], start_pos=usable)
+            self._store_back(hash_ids[usable:n_total], k_full[:, sl],
+                             v_full[:, sl], usable)
 
         reused = d0 + n_skip + n_tail
         self.counters["reused_blocks"] += reused
@@ -1364,51 +1408,54 @@ class DecodeWorker:
             raise RuntimeError(
                 f"decode batch full: all {self.max_batch} slots occupied — "
                 f"check has_free_slot before join")
-        if self.substrate == "paged" and self.page_pool.n_banks > 1:
-            pref = None
-            if pres.pages and pres.page_pool is self.page_pool:
-                pref = self.page_pool.bank_of(pres.pages[0])
-            slot = self._pick_slot(pref)
-        else:
-            slot = self.slots.index(None)
-        L = pres.prompt_len
-        n_emit = 0
-        if resume_emitted is not None:
-            n_emit = len(resume_emitted)
-            if not 1 <= n_emit < request.max_new:
+        with spans.span("decode.join", req_id=request.req_id):
+            if self.substrate == "paged" and self.page_pool.n_banks > 1:
+                pref = None
+                if pres.pages and pres.page_pool is self.page_pool:
+                    pref = self.page_pool.bank_of(pres.pages[0])
+                slot = self._pick_slot(pref)
+            else:
+                slot = self.slots.index(None)
+            L = pres.prompt_len
+            n_emit = 0
+            if resume_emitted is not None:
+                n_emit = len(resume_emitted)
+                if not 1 <= n_emit < request.max_new:
+                    raise ValueError(
+                        f"resume_emitted carries {n_emit} tokens; a "
+                        f"resumable victim has emitted at least 1 and "
+                        f"fewer than max_new={request.max_new}")
+            final_len = L + request.max_new - max(n_emit - 1, 0)
+            if final_len > self.max_len:
                 raise ValueError(
-                    f"resume_emitted carries {n_emit} tokens; a resumable "
-                    f"victim has emitted at least 1 and fewer than "
-                    f"max_new={request.max_new}")
-        final_len = L + request.max_new - max(n_emit - 1, 0)
-        if final_len > self.max_len:
-            raise ValueError(
-                f"prompt ({L}) + remaining new tokens exceeds max_len "
-                f"({self.max_len}) — the slot would outgrow its KV capacity "
-                f"mid-decode")
-        if self.substrate == "paged":
-            pages = self._adopt_pages(pres, bank=self._slot_bank(slot))
-            assert len(pages) <= self.max_pages, \
-                f"prompt needs {len(pages)} pages > max_len's {self.max_pages}"
-            self.block_table[slot, :len(pages)] = pages
-            self.block_table[slot, len(pages):] = 0
-            self.n_pages_slot[slot] = len(pages)
-            self.seq_lens[slot] = L
-        else:
-            self.caches.kv.k[:, slot, :L] = pres.kv_k[:, :L].to(self.device)
-            self.caches.kv.v[:, slot, :L] = pres.kv_v[:, :L].to(self.device)
-            self.caches.length[slot] = L
-        if resume_emitted is not None:
-            first = int(resume_emitted[-1])
-            emitted = list(resume_emitted)
-            self.counters["resumed_joins"] += 1
-        else:
-            first = pres.first_token
-            emitted = [pres.first_token]
-        self.tokens[slot, 0] = first
-        self.slots[slot] = _Slot(request=request, prompt_len=L,
-                                 final_len=final_len, emitted=emitted)
-        return slot
+                    f"prompt ({L}) + remaining new tokens exceeds max_len "
+                    f"({self.max_len}) — the slot would outgrow its KV "
+                    f"capacity mid-decode")
+            if self.substrate == "paged":
+                pages = self._adopt_pages(pres, bank=self._slot_bank(slot))
+                assert len(pages) <= self.max_pages, (
+                    f"prompt needs {len(pages)} pages > max_len's "
+                    f"{self.max_pages}")
+                self.block_table[slot, :len(pages)] = pages
+                self.block_table[slot, len(pages):] = 0
+                self.n_pages_slot[slot] = len(pages)
+                self.seq_lens[slot] = L
+            else:
+                kv = self.caches.kv
+                kv.k[:, slot, :L] = pres.kv_k[:, :L].to(self.device)
+                kv.v[:, slot, :L] = pres.kv_v[:, :L].to(self.device)
+                self.caches.length[slot] = L
+            if resume_emitted is not None:
+                first = int(resume_emitted[-1])
+                emitted = list(resume_emitted)
+                self.counters["resumed_joins"] += 1
+            else:
+                first = pres.first_token
+                emitted = [pres.first_token]
+            self.tokens[slot, 0] = first
+            self.slots[slot] = _Slot(request=request, prompt_len=L,
+                                     final_len=final_len, emitted=emitted)
+            return slot
 
     def preempt(self, slot: int) -> PreemptedRun:
         """Victim-evict an active slot: export its live page run to host
@@ -1444,54 +1491,60 @@ class DecodeWorker:
         position: a fresh page at a page boundary, COW if shared."""
         pp = self.page_pool
         pt = pp.page_tokens
-        for i in active:
-            pidx = int(self.seq_lens[i]) // pt
-            if pidx >= self.max_pages:
-                raise RuntimeError(
-                    f"slot {i} outgrew its block table (len "
-                    f"{int(self.seq_lens[i])} of max_len {self.max_len})")
-            if pidx == int(self.n_pages_slot[i]):
-                (pg,) = pp.alloc(1, bank=self._slot_bank(i))
-                self.block_table[i, pidx] = pg
-                self.n_pages_slot[i] += 1
-            else:
-                pid = int(self.block_table[i, pidx])
-                new = pp.make_writable(pid)
-                if new != pid:
-                    self.block_table[i, pidx] = new
+        with spans.span("decode.prepare"):
+            for i in active:
+                pidx = int(self.seq_lens[i]) // pt
+                if pidx >= self.max_pages:
+                    raise RuntimeError(
+                        f"slot {i} outgrew its block table (len "
+                        f"{int(self.seq_lens[i])} of max_len {self.max_len})")
+                if pidx == int(self.n_pages_slot[i]):
+                    (pg,) = pp.alloc(1, bank=self._slot_bank(i))
+                    self.block_table[i, pidx] = pg
+                    self.n_pages_slot[i] += 1
+                else:
+                    pid = int(self.block_table[i, pidx])
+                    new = pp.make_writable(pid)
+                    if new != pid:
+                        self.block_table[i, pidx] = new
 
-    def _paged_call(self, tokens, tbl: np.ndarray, lens: np.ndarray):
+    def _paged_call(self, tokens, tbl: np.ndarray, lens: np.ndarray,
+                    rows: int) -> torch.Tensor:
         """One paged step on a SNAPSHOT of the host tables: the copies
         keep later host mutation (growth, COW, length bumps) away from a
         step still reading them (``torch.from_numpy`` aliases). On a mesh
         the step takes BANK-LOCAL page ids: each data shard indexes its
-        own bank's slabs."""
+        own bank's slabs. Returns the next token of each of the first
+        ``rows`` rows."""
         pp = self.page_pool
         if self.mesh is not None:
             tbl = tbl % pp.bank_pages
-        tbl_d = torch.from_numpy(np.array(tbl, np.int32)).to(self.device)
-        lens_d = torch.from_numpy(np.array(lens, np.int32)).to(self.device)
-        if self.mesh is None:
-            logits, _, _ = decode_step_paged(
-                self.params, tokens, pp.k_pages, pp.v_pages, tbl_d, lens_d,
-                self.cfg)
-        else:
-            slabs = pp.slabs
-            logits, _, _ = decode_step_paged_sharded(
-                self._replicas, tokens, [[k for k, _ in row] for row in slabs],
-                [[v for _, v in row] for row in slabs], tbl_d, lens_d,
-                self.cfg, self.mesh)
-        self.counters["paged_calls"] += 1
-        return logits.to(self.device)
+        with spans.span("decode.tables"):
+            tbl_d = torch.from_numpy(np.array(tbl, np.int32)).to(self.device)
+            lens_d = torch.from_numpy(np.array(lens, np.int32)).to(
+                self.device)
+        with spans.span("decode.dispatch"):
+            if self.mesh is None:
+                logits, _, _ = decode_step_paged(
+                    self.params, tokens, pp.k_pages, pp.v_pages, tbl_d,
+                    lens_d, self.cfg)
+            else:
+                slabs = pp.slabs
+                logits, _, _ = decode_step_paged_sharded(
+                    self._replicas, tokens,
+                    [[k for k, _ in row] for row in slabs],
+                    [[v for _, v in row] for row in slabs], tbl_d, lens_d,
+                    self.cfg, self.mesh)
+            self.counters["paged_calls"] += 1
+            return torch.argmax(logits.to(self.device)[:rows, -1], dim=-1)
 
     def _step_full(self, active: list[int]) -> torch.Tensor:
         """Single-width full-batch step; per-slot next tokens (B,)."""
         pt = self.page_pool.page_tokens
         need = max(int(self.seq_lens[i]) // pt + 1 for i in active)
         width = min(_pow2_ceil(need), self.max_pages)
-        logits = self._paged_call(self.tokens, self.block_table[:, :width],
-                                  self.seq_lens)
-        return torch.argmax(logits[:, -1], dim=-1)
+        return self._paged_call(self.tokens, self.block_table[:, :width],
+                                self.seq_lens, self.max_batch)
 
     def _step_bucketed(self, active: list[int]) -> torch.Tensor:
         """Width-bucketed step: one sub-batch per pow2 table width, rows
@@ -1517,8 +1570,7 @@ class DecodeWorker:
             tbl[:len(rows)] = self.block_table[rows][:, :w]
             lens = np.zeros(nr, np.int32)
             lens[:len(rows)] = self.seq_lens[rows]
-            logits = self._paged_call(toks, tbl, lens)
-            nxt[ridx] = torch.argmax(logits[:len(rows), -1], dim=-1)
+            nxt[ridx] = self._paged_call(toks, tbl, lens, len(rows))
             self.counters["bucket_substeps"] += 1
         return nxt
 
@@ -1538,26 +1590,29 @@ class DecodeWorker:
             for i in active:
                 self.seq_lens[i] += 1
         else:
-            logits, self.caches = decode_step(self.params, self.tokens,
-                                              self.caches, self.cfg)
-            nxt = torch.argmax(logits[:, -1], dim=-1)
+            with spans.span("decode.dispatch"):
+                logits, self.caches = decode_step(self.params, self.tokens,
+                                                  self.caches, self.cfg)
+                nxt = torch.argmax(logits[:, -1], dim=-1)
         self.tokens = nxt[:, None].to(torch.int64)
-        nxt_host = nxt.cpu().numpy()
+        with spans.span("decode.token_sync"):
+            nxt_host = nxt.cpu().numpy()
         out = []
-        for i, s in enumerate(self.slots):
-            if s is None:
-                continue
-            tok = int(nxt_host[i])
-            s.emitted.append(tok)
-            if s.done:
-                out.append((s.req_id, tok, True))
-                self.slots[i] = None
-                if self.substrate == "paged":
-                    self._free_slot_pages(i)
+        with spans.span("decode.emit"):
+            for i, s in enumerate(self.slots):
+                if s is None:
+                    continue
+                tok = int(nxt_host[i])
+                s.emitted.append(tok)
+                if s.done:
+                    out.append((s.req_id, tok, True))
+                    self.slots[i] = None
+                    if self.substrate == "paged":
+                        self._free_slot_pages(i)
+                    else:
+                        self.caches.length[i] = 0
                 else:
-                    self.caches.length[i] = 0
-            else:
-                out.append((s.req_id, tok, False))
+                    out.append((s.req_id, tok, False))
         return out
 
 

@@ -60,6 +60,7 @@ import numpy as np
 from repro_torch.core.policies.admission import BackpressureSignal
 from repro_torch.core.policies.base import get_policy
 from repro_torch.core.trace import BLOCK_TOKENS
+from repro_torch.serving import spans
 from repro_torch.serving.engine import (ChunkedPrefill, DecodeWorker,
                                         PrefillResult, PrefillWorker,
                                         plan_restore, stage_run)
@@ -155,7 +156,7 @@ class ServingLoop:
             submitted=0, rejected=0, joined=0, completed=0,
             decode_steps=0, prefill_chunks=0, join_oom=0, iterations=0,
             preemptions=0, pages_spilled=0, restores_reload=0,
-            restores_recompute=0)
+            restores_recompute=0, prefills_in_flight_sum=0)
         # keep staged-but-unjoined prefills from eating the decode
         # batch's reserved growth pages (staging retries at join time)
         for pw in self.pws:
@@ -266,18 +267,22 @@ class ServingLoop:
     def _iteration(self) -> None:
         self._iter += 1
         self._bump("iterations")
-        self._drain_arrivals()
-        self._try_joins()
-        t_step = self._decode_step()
-        self._run_chunks(t_step)
+        # over iterations: the prefills a round-robin chunk waits on
+        self._bump("prefills_in_flight_sum", len(self._active))
+        with spans.span("loop.iteration"):
+            self._drain_arrivals()
+            self._try_joins()
+            t_step = self._decode_step()
+            self._run_chunks(t_step)
 
     def _drain_arrivals(self) -> None:
-        while True:
-            try:
-                req = self._arrivals.get_nowait()
-            except queue.Empty:
-                return
-            self._start_prefill(req)
+        with spans.span("loop.arrivals"):
+            while True:
+                try:
+                    req = self._arrivals.get_nowait()
+                except queue.Empty:
+                    return
+                self._start_prefill(req)
 
     def _start_prefill(self, req: ServingRequest,
                        tokens_override: Optional[np.ndarray] = None,
@@ -298,6 +303,7 @@ class ServingLoop:
             if depth > best_depth:
                 best, best_depth = i, depth
         cp = self.pws[best].start(toks, session=req.session)
+        cp.req_id = req.req_id
         self._active.append(_Active(req, cp, best, emitted=resume_emitted))
         self._busy.add(best)
         if req.req_id not in self.outputs:
@@ -448,9 +454,10 @@ class ServingLoop:
         # highest priority first, FIFO within a class (stable on seq)
         pending.sort(key=lambda p: (-p.request.priority, p.seq))
         self._pending_join = []     # _spill() appends freshly-preempted
-        for pend in pending:        # victims here for the NEXT pass
-            if not self._try_admit_one(pend):
-                self._pending_join.append(pend)
+        with spans.span("loop.joins"):  # victims here for the NEXT pass
+            for pend in pending:
+                if not self._try_admit_one(pend):
+                    self._pending_join.append(pend)
 
     def _try_admit_one(self, pend: _Pending) -> bool:
         """Try to put one pending unit into the decode batch. True =
@@ -509,9 +516,11 @@ class ServingLoop:
         seconds (0.0 when no slot is active)."""
         if self.dw.n_active == 0:
             return 0.0
-        t0 = time.monotonic()
+        t0 = time.monotonic_ns()
         emitted = self.dw.step()
-        dt = time.monotonic() - t0
+        t1 = time.monotonic_ns()
+        spans.add("decode.step", t0, t1)
+        dt = (t1 - t0) * 1e-9
         self._bump("decode_steps")
         self._t_step_ema = dt if self._t_step_ema is None \
             else 0.7 * self._t_step_ema + 0.3 * dt
@@ -556,27 +565,30 @@ class ServingLoop:
         Deterministic mode: exactly ``chunks_per_iter`` chunks."""
         if not self._active:
             return
-        if self.dw.n_active == 0:
-            # decode is idle: chunk until a prefill finishes so the next
-            # iteration has something to join (TTFT over unused slack)
-            while self._active and not self._pending_join:
+        with spans.span("loop.chunks"):
+            if self.dw.n_active == 0:
+                # decode is idle: chunk until a prefill finishes so the
+                # next iteration has something to join (TTFT over unused
+                # slack)
+                while self._active and not self._pending_join:
+                    self._advance_one()
+                return
+            if self.tbt_budget_s is None:
+                for _ in range(self.chunks_per_iter):
+                    if not self._advance_one():
+                        return
+                return
+            step_ema = self._t_step_ema if self._t_step_ema is not None \
+                else t_step
+            slack = self.tbt_budget_s - step_ema
+            deadline = time.monotonic() + max(slack, 0.0)
+            ran = 0
+            while self._active:
+                chunk_s = max(pw.est_chunk_s() for pw in self.pws)
+                if ran > 0 and time.monotonic() + chunk_s > deadline:
+                    break
                 self._advance_one()
-            return
-        if self.tbt_budget_s is None:
-            for _ in range(self.chunks_per_iter):
-                if not self._advance_one():
-                    return
-            return
-        step_ema = self._t_step_ema if self._t_step_ema is not None else t_step
-        slack = self.tbt_budget_s - step_ema
-        deadline = time.monotonic() + max(slack, 0.0)
-        ran = 0
-        while self._active:
-            chunk_s = max(pw.est_chunk_s() for pw in self.pws)
-            if ran > 0 and time.monotonic() + chunk_s > deadline:
-                break
-            self._advance_one()
-            ran += 1
+                ran += 1
 
     # ---- reporting -----------------------------------------------------
     def stats(self) -> dict:

@@ -266,7 +266,7 @@ class DevicePagePool:
         self.counters = dict(pages_written=0, shared_adoptions=0,
                              cow_copies=0, registry_evictions=0,
                              alloc_failures=0, pages_exported=0,
-                             pages_imported=0)
+                             pages_imported=0, bytes_written=0)
 
     # ---- geometry ------------------------------------------------------
     @property
@@ -478,8 +478,10 @@ class DevicePagePool:
         n = len(pages)
         assert T <= n * pt, (T, n, pt)
         pad = n * pt - T
-        k = torch.as_tensor(k).to(self.device, DTYPE)
-        v = torch.as_tensor(v).to(self.device, DTYPE)
+        k, v = torch.as_tensor(k), torch.as_tensor(v)
+        moved = k.numel() * k.element_size() + v.numel() * v.element_size()
+        k = k.to(self.device, DTYPE)
+        v = v.to(self.device, DTYPE)
         if pad:
             k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
             v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
@@ -496,6 +498,7 @@ class DevicePagePool:
                     ks[:, idx] = kb[:, :, :, heads].to(ks.device)
                     vs[:, idx] = vb[:, :, :, heads].to(vs.device)
             self.counters["pages_written"] += n
+            self.counters["bytes_written"] += moved
 
     def make_writable(self, page: int) -> int:
         """Copy-on-write: a page id safe to append into. A single-owner
