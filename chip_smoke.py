@@ -2219,11 +2219,12 @@ def mesh_engine_run(torch, params, cfg, prompts, dm, max_new, device):
     call = dw._paged_call
 
     def recorded(*a):
-        lg = call(*a)
+        out = call(*a)
+        # a clone: a replayed step's logits are its graph's own tensor
         for i, s in enumerate(dw.slots):
             if s is not None:
-                rows.setdefault(s.req_id, []).append(lg[i, -1].float())
-        return lg
+                rows.setdefault(s.req_id, []).append(out[0][i, -1].clone())
+        return out
 
     dw._paged_call = recorded
     paged_attention.launches = 0
@@ -3982,7 +3983,7 @@ def chunked_pass(torch, params, cfg, prompts, first=None) -> tuple:
         def call(*args):
             out = fn(*args)
             logits = out[0] if isinstance(out, tuple) else out
-            seen[key].append(logits[:, -1].float())
+            seen[key].append(logits[:, -1].float().clone())
             return out
         return call
     pw._chunk_extend = keeping(pw._chunk_extend, "prefill")

@@ -40,12 +40,14 @@ from repro_torch.configs.base import CacheTierSpec, ModelConfig
 from repro_torch.core.cache import BlockMeta, CachePool, StateCache
 from repro_torch.core.trace import BLOCK_TOKENS
 from repro_torch.launch.mesh import replicate_params
+from repro_torch.models import layers
 from repro_torch.models.mamba import MambaState
 from repro_torch.models.transformer import (Caches, decode_step,
                                             decode_step_paged,
                                             decode_step_paged_sharded,
                                             init_caches, paged_shard_reason,
                                             prefill)
+from repro_torch.serving.decode_graphs import CudaCapture, DecodeGraphs
 from repro_torch.serving.layerwise import overlap_split
 from repro_torch.serving import spans
 from repro_torch.serving.paged_cache import DevicePagePool
@@ -1193,6 +1195,17 @@ def plan_width_buckets(needs: list[int], max_pages: int,
     return widths[:max(max_buckets, 1)] or [1]
 
 
+def decode_graphable(cfg: ModelConfig, device, mesh,
+                     width_buckets: int) -> bool:
+    """Whether ``DecodeWorker``'s paged step replays as CUDA graphs
+    (``serving/decode_graphs.py``): on a CUDA device, unsharded, one
+    table width a step and no experts. The sharded step, the bucketed
+    sub-batches (whose row counts vary) and MoE routing (not
+    shape-static) stay eager, as does every step on the CPU."""
+    return (torch.device(device).type == "cuda" and mesh is None
+            and width_buckets == 1 and cfg.moe is None)
+
+
 def bucket_width(need: int, plan: list[int], max_pages: int) -> int:
     """Smallest plan width covering ``need`` pages."""
     n2 = min(_pow2_ceil(need), max_pages)
@@ -1210,7 +1223,9 @@ class DecodeWorker:
       ``DevicePagePool`` through a block table; ``join()`` ADOPTS the
       staged page run (a host-side list splice), ``step()`` runs the
       paged decode kernel per layer over the live page span (the table
-      sliced to the deepest active slot, padded to a power of two).
+      sliced to the deepest active slot, padded to a power of two). On
+      a CUDA device (``decode_graphable``) the step replays one CUDA
+      graph per table width (``DecodeGraphs``).
     * ``substrate="dense"``: an (L, B, max_len) arena — the exactness
       oracle.
 
@@ -1257,8 +1272,10 @@ class DecodeWorker:
                                   device=self.device)
         self.counters = dict(zero_copy_joins=0, staged_joins=0, steps=0,
                              preemptions=0, resumed_joins=0,
-                             bucket_substeps=0, paged_calls=0)
+                             bucket_substeps=0, paged_calls=0,
+                             graph_captures=0, graph_replays=0)
         self.mesh = None
+        self._graphs: Optional[DecodeGraphs] = None
         if substrate == "paged":
             if page_pool is not None:
                 if mesh is not None and mesh is not page_pool.mesh:
@@ -1301,6 +1318,10 @@ class DecodeWorker:
             self.seq_lens = np.zeros(max_batch, np.int32)
             self.n_pages_slot = np.zeros(max_batch, np.int32)
             self.caches = None
+            if decode_graphable(cfg, self.device, mesh, self.width_buckets):
+                self._graphs = DecodeGraphs(
+                    self._unsharded_step, max_batch, self.max_pages,
+                    self.device, CudaCapture(self.device))
         else:
             self.page_pool = None
             c = init_caches(cfg, max_batch, max_len, device=self.device)
@@ -1508,14 +1529,26 @@ class DecodeWorker:
                     if new != pid:
                         self.block_table[i, pidx] = new
 
+    def _unsharded_step(self, tokens, tbl_d, lens_d) -> tuple:
+        """The paged step on device tables → (logits (B, 1, V) fp32, the
+        next token of every row (B,))."""
+        pp = self.page_pool
+        logits, _, _ = decode_step_paged(self.params, tokens, pp.k_pages,
+                                         pp.v_pages, tbl_d, lens_d, self.cfg)
+        return logits, torch.argmax(logits[:, -1], dim=-1)
+
     def _paged_call(self, tokens, tbl: np.ndarray, lens: np.ndarray,
-                    rows: int) -> torch.Tensor:
+                    rows: int) -> tuple:
         """One paged step on a SNAPSHOT of the host tables: the copies
         keep later host mutation (growth, COW, length bumps) away from a
         step still reading them (``torch.from_numpy`` aliases). On a mesh
         the step takes BANK-LOCAL page ids: each data shard indexes its
-        own bank's slabs. Returns the next token of each of the first
-        ``rows`` rows."""
+        own bank's slabs. Returns the step's logits (B, 1, V) fp32 and the
+        next token of each of the first ``rows`` rows. Replayed as a CUDA
+        graph where the worker has graphs, unless the plain-attention
+        oracle is on."""
+        if self._graphs is not None and not layers._FORCE_PLAIN:
+            return self._graph_call(tokens, tbl, lens)
         pp = self.page_pool
         if self.mesh is not None:
             tbl = tbl % pp.bank_pages
@@ -1525,9 +1558,7 @@ class DecodeWorker:
                 self.device)
         with spans.span("decode.dispatch"):
             if self.mesh is None:
-                logits, _, _ = decode_step_paged(
-                    self.params, tokens, pp.k_pages, pp.v_pages, tbl_d,
-                    lens_d, self.cfg)
+                logits, nxt = self._unsharded_step(tokens, tbl_d, lens_d)
             else:
                 slabs = pp.slabs
                 logits, _, _ = decode_step_paged_sharded(
@@ -1535,8 +1566,25 @@ class DecodeWorker:
                     [[k for k, _ in row] for row in slabs],
                     [[v for _, v in row] for row in slabs], tbl_d, lens_d,
                     self.cfg, self.mesh)
+                logits = logits.to(self.device)
+                nxt = torch.argmax(logits[:, -1], dim=-1)
             self.counters["paged_calls"] += 1
-            return torch.argmax(logits.to(self.device)[:rows, -1], dim=-1)
+            return logits, nxt[:rows]
+
+    def _graph_call(self, tokens, tbl: np.ndarray, lens: np.ndarray) -> tuple:
+        """``_paged_call`` of a whole-batch step through ``DecodeGraphs``.
+        The first step of a width runs eagerly and is then captured; a
+        step run again on the same inputs writes the same K/V row into the
+        same tail page, which ``_prepare_writes`` made the slot's own, so
+        running or replaying a step's inputs more than once is harmless."""
+        with spans.span("decode.tables"):
+            self._graphs.load(tokens, tbl, lens)
+        with spans.span("decode.dispatch"):
+            out, replayed = self._graphs.run(tbl.shape[1])
+            self.counters["graph_replays" if replayed
+                          else "graph_captures"] += 1
+            self.counters["paged_calls"] += 1
+            return out
 
     def _step_full(self, active: list[int]) -> torch.Tensor:
         """Single-width full-batch step; per-slot next tokens (B,)."""
@@ -1544,7 +1592,7 @@ class DecodeWorker:
         need = max(int(self.seq_lens[i]) // pt + 1 for i in active)
         width = min(_pow2_ceil(need), self.max_pages)
         return self._paged_call(self.tokens, self.block_table[:, :width],
-                                self.seq_lens, self.max_batch)
+                                self.seq_lens, self.max_batch)[1]
 
     def _step_bucketed(self, active: list[int]) -> torch.Tensor:
         """Width-bucketed step: one sub-batch per pow2 table width, rows
@@ -1570,7 +1618,7 @@ class DecodeWorker:
             tbl[:len(rows)] = self.block_table[rows][:, :w]
             lens = np.zeros(nr, np.int32)
             lens[:len(rows)] = self.seq_lens[rows]
-            nxt[ridx] = self._paged_call(toks, tbl, lens, len(rows))
+            nxt[ridx] = self._paged_call(toks, tbl, lens, len(rows))[1]
             self.counters["bucket_substeps"] += 1
         return nxt
 
@@ -1594,6 +1642,9 @@ class DecodeWorker:
                 logits, self.caches = decode_step(self.params, self.tokens,
                                                   self.caches, self.cfg)
                 nxt = torch.argmax(logits[:, -1], dim=-1)
+        # a replay's tokens are its graph's output, which the width's next
+        # replay rewrites: joins write into it before the next step copies
+        # it into the graph's input, and that copy precedes the replay
         self.tokens = nxt[:, None].to(torch.int64)
         with spans.span("decode.token_sync"):
             nxt_host = nxt.cpu().numpy()

@@ -1078,3 +1078,36 @@ def test_dry_run_predicts_the_arguments_on_the_card(cuda):
     assert torch.isfinite(logits).all()
     assert torch.cuda.max_memory_allocated() >= got
     assert "jax" not in sys.modules
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen3-14b"])
+def test_decode_graphs_serve_the_eager_tokens(cuda, arch, record_property):
+    """The paged decode step replayed as CUDA graphs against the eager
+    step, at the benchmark cells' published widths cut to 3 layers:
+    ``test_torch_decode_graphs.scenario`` (over 80 steps: joins mid-run,
+    slots that finish, a shared tail page copied on write, an idle slot,
+    the table width from 2 to 4 to 8 pages) serves the same tokens, with
+    one capture per width met and a replay for every other step. The
+    logits are bit for bit the eager step's; were cuBLAS to choose
+    another algorithm under capture, they would be held within 1e-2, and
+    ``logit_gap`` says which held."""
+    import dataclasses
+
+    from test_torch_decode_graphs import check_scenario, scenario
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(get_config(arch), n_layers=3)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0),
+                         cuda)
+    eager = scenario(cfg, params, cuda)
+    launches = paged_attention.launches
+    graphed = scenario(cfg, params, cuda, graphs=lambda dw: dw)
+    assert paged_attention.launches - launches \
+        == cfg.n_layers * graphed["counters"]["steps"]
+    gap = check_scenario(eager, graphed, logit_tol=1e-2)
+    record_property("logit_gap", gap)
+    print(f"{arch}: graphed logits "
+          + ("bit for bit the eager step's" if gap == 0.0
+             else f"within {gap:.3g} of the eager step's"))
