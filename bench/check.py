@@ -11,16 +11,16 @@ reference logit lies below the reference's best at that position is
 read; the widest gap over the sample is compared with the cell's limit.
 Every sampled stream must also hold as many tokens as it asked for.
 
-The control is the reference computed in fp8 put in the program's
-place: at the same positions it takes the token the fp8 reference puts
-first, and its widest gap (``control_gap``) is held to the same limit
-through the same ``passes``, where it has to come out not correct.
+The reference and the control come from the configuration's family
+(``bench/families/``). The control is the reference in the precision
+below the configuration's (for the dense family, fp8) put in the
+program's place: at the same positions it takes the token the control
+puts first, and its widest gap (``control_gap``) is held to the same
+limit through the same ``passes``, where it has to come out not correct.
 """
 from __future__ import annotations
 
 import numpy as np
-
-from bench.reference.model import PlainModel
 
 
 def finished(data) -> list:
@@ -53,23 +53,24 @@ def sample(data, seed: int, n: int, min_tokens: int = 0) -> list:
     return chosen
 
 
-def _teacher_forced(model: PlainModel, prompt, served, device):
+def _teacher_forced(model, prompt, served, device):
     import torch
     seq = np.concatenate([np.asarray(prompt, np.int64),
                           np.asarray(served[:-1], np.int64)])
     return model.logits(torch.as_tensor(seq, device=device), len(prompt) - 1)
 
 
-def gaps(ref: PlainModel, data, recs: list, device,
-         control: PlainModel = None) -> dict:
+def gaps(ref, data, recs: list, device, control=None) -> dict:
     """Per request: the widest gap of the served tokens under ``ref``,
-    and with ``control`` the widest gap of the control's first choices."""
+    and with ``control`` the widest gap of the control's first choices
+    (each an object with ``logits(tokens, first)`` over the published
+    vocabulary)."""
     import torch
     out = {}
-    V = ref.a["vocab"]
     for r in recs:
         served = np.asarray(r.tokens, np.int64)
         lg = _teacher_forced(ref, data.prompts[r.rid], served, device)
+        V = lg.shape[-1]
         best = lg.max(dim=-1).values
         ok = torch.as_tensor(served < V, device=lg.device)
         idx = torch.as_tensor(np.minimum(served, V - 1), device=lg.device)
@@ -87,16 +88,14 @@ def gaps(ref: PlainModel, data, recs: list, device,
     return out
 
 
-def decide(data, params, arch: dict, seed: int, device,
-           control: bool = False) -> dict:
-    """The numbers compared and their limits; with ``control`` also the
-    control's reading."""
+def decide(data, ref, seed: int, device, control=None) -> dict:
+    """The numbers compared and their limits under the reference
+    ``ref``; with the ``control`` reference also the control's
+    reading."""
     chk = data.cell.workload["check"]
     recs = sample(data, seed, int(chk["requests"]),
                   int(chk.get("min_tokens", 0)))
-    ref = PlainModel(params, arch)
-    ctl = PlainModel(params, arch, "fp8") if control else None
-    per = gaps(ref, data, recs, device, ctl)
+    per = gaps(ref, data, recs, device, control)
     widest = max((v["served"] for v in per.values()), default=float("inf"))
     short = sum(1 for r in recs if len(r.tokens) != r.max_new)
     numbers = {
@@ -108,7 +107,7 @@ def decide(data, params, arch: dict, seed: int, device,
     out = {"numbers": numbers, "per_request": per,
            "reused_in_sample": sum(1 for r in recs if r.reused_blocks),
            "sampled_tokens": sum(len(r.tokens) for r in recs)}
-    if control:
+    if control is not None:
         out["control_gap"] = max((v["control"] for v in per.values()),
                                  default=float("nan"))
         out["control_numbers"] = dict(numbers, max_logit_gap=dict(

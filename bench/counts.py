@@ -19,7 +19,7 @@ BF16 = 2
 
 @dataclass(frozen=True)
 class Arch:
-    """The published sizes a count needs."""
+    """The published sizes a count needs; the dense family's ``counts``."""
     layers: int
     d_model: int
     heads: int
@@ -48,6 +48,12 @@ class Arch:
     def attn_pair_flops(self) -> int:
         """Operations of one (query, key) pair in one layer."""
         return 4 * self.heads * self.head_dim
+
+    def chunk_flops(self, lo: int, hi: int, last: bool) -> float:
+        return chunk_flops(self, lo, hi, last)
+
+    def decode_flops(self, batch: int, keys: int) -> float:
+        return decode_flops(self, batch, keys)
 
 
 def causal_pairs(lo: int, hi: int) -> int:

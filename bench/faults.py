@@ -1,15 +1,19 @@
 """Faults planted in the program underneath a whole run, to show that
 the check catches a broken timed path: a token altered where it is
-produced, a decode step that leaves its KV state unchanged, half of the
-decode batch left uncomputed, and wrong data in the layers the check
-covers (prefix blocks restored from the host pool, staging into pages).
-The cells run on one card, so no exchange between cards can be left
-out. ``plant(name)`` patches one in and gives it back on exit; the
-tests and ``bench.probe --fault`` use it."""
+produced, half of the decode batch left uncomputed, and wrong data in the
+layers the check covers (prefix blocks restored from the host pool,
+staging into pages). A decode step that leaves its state unchanged is
+planted where the family writes it, so it is each family's own
+(``FAULTS`` of ``bench/families/<family>.py``). The cells run on one
+card, so no exchange between cards can be left out. ``plant(name,
+cell)`` patches one in and gives it back on exit; the tests and
+``bench.probe --faults`` use it."""
 from __future__ import annotations
 
 import contextlib
 import importlib
+
+from bench import families
 
 
 def _half_batch(orig):
@@ -37,19 +41,6 @@ def _altered(orig):
     return step_full
 
 
-def _no_kv_write(orig):
-    """The decode step attends without writing its new K/V rows."""
-    def scatter_attend(q, k, v, k_pages, v_pages, block_table, pos, qh2kv,
-                       window):
-        import torch
-        from repro_torch.kernels.paged_attention.ops import \
-            paged_decode_attention
-        return paged_decode_attention(q, k_pages, v_pages, block_table,
-                                      (pos + 1).to(torch.int32),
-                                      qh2kv=qh2kv, window=window)
-    return scatter_attend
-
-
 def _zero_get(orig):
     def get(self, hash_ids):
         import torch
@@ -70,8 +61,6 @@ FAULTS = {
                       "_step_full", _altered),
     "half_batch_left_out": ("repro_torch.serving.engine.DecodeWorker",
                             "_step_full", _half_batch),
-    "step_state_unchanged": ("repro_torch.models.layers", "_scatter_attend",
-                             _no_kv_write),
     "pool_prefix_wrong": ("repro_torch.serving.engine.HostKVPool", "get",
                           _zero_get),
     "staged_pages_wrong": ("repro_torch.serving.paged_cache.DevicePagePool",
@@ -87,9 +76,14 @@ def _target(path: str):
         return importlib.import_module(path)
 
 
+def points(cell) -> dict:
+    """The faults a cell can have: the generic ones and its family's."""
+    return dict(FAULTS, **families.of(cell.config).FAULTS)
+
+
 @contextlib.contextmanager
-def plant(name: str):
-    path, attr, make = FAULTS[name]
+def plant(name: str, cell):
+    path, attr, make = points(cell)[name]
     target = _target(path)
     orig = getattr(target, attr)
     setattr(target, attr, make(orig))

@@ -8,6 +8,10 @@ a ``DevicePagePool``), built as ``launch/serve.py``'s ``serve()`` builds
 them but with the cell's sizes; ``run`` runs on its own thread, requests
 arrive through ``submit`` from a feeder thread.
 
+The model comes from the configuration's family (``bench/families/``):
+the port's config, the weights, the kernels built in set-up and the
+counts the metrics read.
+
 Spans come from this file: the calls into each layer are wrapped on the
 program's objects (the loop's iteration, the prefill worker's start,
 chunk, prefix load, staging and store-back, the decode worker's join and
@@ -15,7 +19,6 @@ step), each recording (name, start, end, what it did) on the host clock.
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 import queue
 import threading
@@ -25,8 +28,7 @@ from typing import Optional
 
 import numpy as np
 
-from bench import generator, weights
-from bench.counts import Arch
+from bench import families, generator
 
 WARM_RID = 10 ** 9         # request id of the set-up request
 DRAIN_S = 30.0             # open loop: the longest wait for first tokens
@@ -61,7 +63,7 @@ class Record:
 class RunData:
     """Everything a metric reader or the check reads."""
     cell: object
-    arch: Arch
+    arch: object               # the family's counts
     window: tuple
     setup_s: float
     records: dict
@@ -91,41 +93,6 @@ def process_start() -> float:
                                    / os.sysconf("SC_CLK_TCK"))
     except (OSError, ValueError, IndexError):
         return time.monotonic()
-
-
-def model_config(config: dict):
-    """The port's ``ModelConfig`` of the configuration, its widths held
-    against the file and its norm epsilon set as the file states."""
-    from repro_torch.configs.base import get_config
-    cfg = get_config(config["port_arch"])
-    cfg = dataclasses.replace(cfg, norm_eps=float(config["rms_norm_eps"]),
-                              rope_theta=float(config["rope_theta"]))
-    want = dict(n_layers=config["num_hidden_layers"],
-                d_model=config["hidden_size"],
-                n_heads=config["num_attention_heads"],
-                n_kv_heads=config["num_key_value_heads"],
-                head_dim=config["head_dim"], d_ff=config["intermediate_size"],
-                vocab_size=config["vocab_size"], qk_norm=config["qk_norm"],
-                tie_embeddings=config["tie_word_embeddings"],
-                sliding_window=0)
-    got = {k: getattr(cfg, k) for k in want}
-    if got != want:
-        raise ValueError(f"the port's {cfg.name} is not the configuration "
-                         f"file's: {got} != {want}")
-    return cfg
-
-
-def reference_arch(config: dict) -> dict:
-    """The published sizes the plain reference reads."""
-    return dict(layers=config["num_hidden_layers"],
-                d_model=config["hidden_size"],
-                heads=config["num_attention_heads"],
-                kv_heads=config["num_key_value_heads"],
-                head_dim=config["head_dim"], d_ff=config["intermediate_size"],
-                vocab=config["vocab_size"],
-                rms_eps=float(config["rms_norm_eps"]),
-                rope_theta=float(config["rope_theta"]),
-                qk_norm=bool(config["qk_norm"]))
 
 
 def touch_host(gib: float) -> None:
@@ -185,7 +152,9 @@ class Harness:
         self.traced = trace
         self.device = device
         self.t_start = process_start() if t_start is None else t_start
-        self.cfg = cfg if cfg is not None else model_config(cell.config)
+        self.family = families.of(cell.config)
+        self.cfg = cfg if cfg is not None else \
+            self.family.port_config(cell.config)
         self.wl = cell.workload
         self.spans: list = []
         self.records: dict = {}
@@ -203,11 +172,11 @@ class Harness:
         from repro_torch.serving.paged_cache import DevicePagePool
         if self.device.type == "cuda":
             from repro_torch.kernels import _build
-            _build.library("paged_attention")
-            _build.library("flash_prefill")
+            for name in self.family.KERNELS:
+                _build.library(name)
         lw, cfg = self.wl["loop"], self.cfg
         self.host_speed_s = host_speed()
-        self.params = weights.draw(weights.dims(cfg), self.seed, self.device)
+        self.params = self.family.draw(cfg, self.seed, self.device)
         self.pool = HostKVPool(capacity_blocks=lw["host_pool_blocks"])
         self.page_pool = DevicePagePool(
             cfg, n_pages=lw["page_pool_pages"],
@@ -504,7 +473,8 @@ class Harness:
             reserved = int(torch.cuda.max_memory_reserved(self.device))
         trace = self.tracer.collect() if self.tracer is not None else None
         prompts = {rid: req.tokens for rid, req in self._requests.items()}
-        return RunData(cell=self.cell, arch=Arch.of(self.cell.config),
+        return RunData(cell=self.cell,
+                       arch=self.family.counts(self.cell.config),
                        window=(w0, w1), setup_s=setup_s,
                        records=self.records, spans=self.spans, deltas=deltas,
                        trace=trace,

@@ -10,7 +10,7 @@ each seed, the program's widest served-token gap and the fp8 control's
 at the same positions (``check.py``), for the limit of
 ``workloads/<cell>.json``, and whether the control comes out correct;
 ``--faults`` runs every seed once with each of the named
-``faults.FAULTS`` planted in the program. One JSON line per run.
+``faults.points(cell)`` planted in the program. One JSON line per run.
 """
 from __future__ import annotations
 
@@ -56,7 +56,8 @@ def main(argv=None) -> int:
             cell.workload = copy.deepcopy(base.workload)
             cell.workload["load"]["session_rate"] = rate
         torch.cuda.reset_peak_memory_stats()
-        with faults.plant(fault) if fault else contextlib.nullcontext():
+        with faults.plant(fault, cell) if fault else \
+                contextlib.nullcontext():
             res = run.execute(cell, seed, args.seconds, args.trace,
                               torch.device("cuda", 0),
                               control=args.control, diag=True)

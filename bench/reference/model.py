@@ -3,9 +3,10 @@ causal grouped-query attention, optional per-head q/k RMSNorm, SwiGLU
 MLP, untied unembedding) in plain PyTorch, over a whole sequence at
 once. It imports nothing of the program under test.
 
-It reads the benchmark's weights (``bench.weights`` layout) and takes the
-published model out of them itself: the first ``heads`` query heads of
-``wq``/``wo`` and the first ``vocab`` rows of the vocabulary. Weights and
+It is the dense family's reference (``bench/families/dense.py``). It
+reads that family's weights and takes the published model out of them
+itself: the first ``heads`` query heads of ``wq``/``wo`` and the first
+``vocab`` rows of the vocabulary. Weights and
 the inputs of every matrix product are bf16 (the configurations'
 precision) with fp32 accumulation; the residual stream, the norms, RoPE,
 the attention scores, softmax and PV, and the logits are fp32, with TF32

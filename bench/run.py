@@ -155,13 +155,10 @@ def execute(cell, seed: int, seconds: float, trace: bool, device,
     data = h.run()
     params = h.params
     h.free()
-    arch = (harness.reference_arch(cell.config) if cfg is None else
-            dict(layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
-                 kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-                 d_ff=cfg.d_ff, vocab=cfg.vocab_size, rms_eps=cfg.norm_eps,
-                 rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm))
+    ref = h.family.reference(params, h.cfg)
+    ctl = h.family.reference(params, h.cfg, control=True) if control else None
     t_ref = time.monotonic()
-    verdict = check.decide(data, params, arch, seed, device, control=control)
+    verdict = check.decide(data, ref, seed, device, control=ctl)
     t_ref = time.monotonic() - t_ref
     attempted, failed = _counts(data)
     entries = cell.per_layer if trace else cell.end_to_end

@@ -6,16 +6,19 @@
 from __future__ import annotations
 
 import copy
-import dataclasses
 import os
 
 import pytest
 import torch
 
-from bench import spec
+from bench import families, spec
 
 TINY_LIMIT = 0.1       # widest logit gap allowed at the tiny size
 CELLS = tuple(w["name"] for w in spec.benchmark()["workloads"])
+#: every configuration file, each of some family: a test parametrised
+#: over them runs on each family present
+CONFIGS = tuple(sorted(p.stem
+                       for p in (spec.BENCH / "configs").glob("*.json")))
 
 # the tiny runs are timed: workers that share the host's cores each take
 # their own share of them, so that none waits on another's threads
@@ -23,25 +26,36 @@ torch.set_num_threads(max(1, (os.cpu_count() or 1) // int(
     os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 
-def reuses(name: str) -> bool:
-    """Whether the cell's mix shares prefixes (system prompts, turns)."""
-    mix = spec.find_cell(name).traffic
+def shares(mix: dict) -> bool:
+    """Whether the mix shares prefixes (system prompts, turns)."""
     return mix["system_prompts"]["count"] > 0 or mix["turns"]["max"] > 1
 
 
+def reuses(name: str) -> bool:
+    return shares(spec.find_cell(name).traffic)
+
+
+def config(name: str) -> dict:
+    return spec.load_json(spec.BENCH / "configs" / f"{name}.json")
+
+
+def tiny_config(name: str):
+    """(file, port config) of a configuration at its family's tiny size."""
+    c = config(name)
+    return families.of(c).tiny(c)
+
+
 def _tiny(name: str, **workload):
-    from repro_torch.configs.base import get_config
-    cell = spec.find_cell(name)
-    cfg = get_config(cell.config["port_arch"]).reduced()
-    cfg = dataclasses.replace(cfg, norm_eps=cell.config["rms_norm_eps"])
-    c = copy.deepcopy(cell.config)
-    c.update(num_hidden_layers=cfg.n_layers, hidden_size=cfg.d_model,
-             num_attention_heads=cfg.n_heads,
-             num_key_value_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
-             intermediate_size=cfg.d_ff, vocab_size=cfg.vocab_size)
+    return _tiny_cell(spec.find_cell(name), **workload)
+
+
+def _tiny_cell(cell, **workload):
+    """The cell cut to its family's tiny model and a light mix."""
+    c, cfg = families.of(cell.config).tiny(cell.config)
     mix = copy.deepcopy(cell.traffic)
     wl = copy.deepcopy(cell.workload)
-    if reuses(name):
+    reused = shares(mix)
+    if reused:
         mix.update(context=1536, output_reserve=32, lead_s=6.0,
                    system_prompts=dict(mix["system_prompts"], blocks_max=1),
                    new_input=dict(mix["new_input"], mu=5.0, max=300),
@@ -56,7 +70,7 @@ def _tiny(name: str, **workload):
     if wl["load"]["loop"] == "open":
         wl["load"] = {"loop": "open", "session_rate": 1.0, "round": 4}
     else:
-        wl["load"] = dict(wl["load"], clients=8 if reuses(name) else 4,
+        wl["load"] = dict(wl["load"], clients=8 if reused else 4,
                           sessions_per_client=30, ramp_s=1.0)
     c["serving"] = {"page_tokens": 64, "max_len": mix["context"]}
     max_batch = 8

@@ -1,13 +1,16 @@
 """The operation and byte counts, held to hand counts and to the port's
-own op accounting (``launch/op_analysis.py``) less its padding; the
-weights' layout and padding."""
+own op accounting (``launch/op_analysis.py``) less its padding; each
+family's counts adding up over chunks and slots; each family's weights
+in the port's layout, and the dense family's padding."""
 import dataclasses
 
 import pytest
 import torch
 
-from bench import counts, weights
+from bench import counts, families
 from bench.counts import Arch
+from bench.families import dense
+from conftest import CONFIGS, tiny_config
 
 TINY = Arch(layers=2, d_model=256, heads=16, kv_heads=4, head_dim=32,
             d_ff=512, vocab=512)
@@ -25,6 +28,8 @@ def test_hand_counts():
         counts.chunk_flops(a, 4, 6, last=False) == 2 * 256 * 512
     assert counts.decode_flops(a, 3, 100) == \
         2 * 3 * (2 * per_layer + 256 * 512) + 2 * 4 * 16 * 32 * 100
+    assert a.chunk_flops(4, 6, True) == counts.chunk_flops(a, 4, 6, True)
+    assert a.decode_flops(3, 100) == counts.decode_flops(a, 3, 100)
     f, b = counts.flash_prefill_call(a, 4, 6)
     assert f == 4 * 16 * 32 * 11
     assert b == 2 * (2 * 2 * 16 * 32 + 2 * 6 * 4 * 32)
@@ -46,7 +51,7 @@ def test_prefill_count_is_op_analysis_less_padding(n_heads, n_kv):
     cfg = dataclasses.replace(get_config("qwen3-14b").reduced(),
                               n_heads=n_heads, n_kv_heads=n_kv)
     S = 96
-    real = weights.draw(weights.dims(cfg), 3, "cpu")
+    real = dense.draw(cfg, 3, "cpu")
 
     def stand(tree):
         return {k: stand(v) if isinstance(v, dict)
@@ -66,29 +71,69 @@ def test_prefill_count_is_op_analysis_less_padding(n_heads, n_kv):
         counts.chunk_flops(a, 0, S, last=True)
 
 
+def _leaves(tree, pre=()):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaves(v, pre + (k,)))
+        else:
+            out[pre + (k,)] = v
+    return out
+
+
+def _shapes(tree):
+    return {k: (tuple(v.shape), v.dtype) for k, v in _leaves(tree).items()}
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_counts_add_up(name):
+    """A prompt's chunks add up to the prompt as one chunk, and a decode
+    step over two groups of slots to the two steps, at the family's tiny
+    size; the unembedding and every cached key cost something."""
+    c, cfg = tiny_config(name)
+    a = families.of(c).counts(c)
+    assert a.layers == cfg.n_layers
+    whole = a.chunk_flops(0, 700, True)
+    assert a.chunk_flops(0, 256, False) + a.chunk_flops(256, 512, False) \
+        + a.chunk_flops(512, 700, True) == pytest.approx(whole, rel=1e-12)
+    assert a.chunk_flops(0, 700, False) < whole
+    assert a.decode_flops(3, 500) + a.decode_flops(5, 700) == \
+        pytest.approx(a.decode_flops(8, 1200), rel=1e-12)
+    assert a.decode_flops(8, 1200) < a.decode_flops(8, 1201)
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_weights_layout(name):
+    """The family's weights at its tiny size: the port's own parameters'
+    leaves, shapes and types, the same for one seed and not for
+    another."""
+    from repro_torch.models.transformer import init_params
+    c, cfg = tiny_config(name)
+    fam = families.of(c)
+    mine = fam.draw(cfg, 2 ** 40 + 1, "cpu")
+    theirs = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert _shapes(mine) == _shapes(theirs)
+    again = _leaves(fam.draw(cfg, 2 ** 40 + 1, "cpu"))
+    other = _leaves(fam.draw(cfg, 2 ** 40 + 2, "cpu"))
+    mine = _leaves(mine)
+    assert all(torch.equal(again[k], v) for k, v in mine.items())
+    assert not all(torch.equal(other[k], v) for k, v in mine.items())
+
+
 def test_weights_layout_and_padding():
     from repro_torch.configs.base import get_config
     from repro_torch.models.transformer import init_params
     cfg = get_config("qwen3-14b").reduced()
-    mine = weights.draw(weights.dims(cfg), 2 ** 40 + 1, "cpu")
+    mine = dense.draw(cfg, 2 ** 40 + 1, "cpu")
     theirs = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-
-    def shapes(tree, pre=()):
-        out = {}
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                out.update(shapes(v, pre + (k,)))
-            else:
-                out[pre + (k,)] = (tuple(v.shape), v.dtype)
-        return out
-    assert shapes(mine) == shapes(theirs)
+    assert _shapes(mine) == _shapes(theirs)
     H, Dh, V = cfg.n_heads, cfg.head_dim, cfg.vocab_size
     assert cfg.padded_heads > H and cfg.padded_vocab >= V
     assert not mine["attn"]["wq"][:, :, H * Dh:].any()
     assert not mine["attn"]["wo"][:, H * Dh:, :].any()
     assert not mine["embed"][V:].any() and not mine["lm_head"][:, V:].any()
     assert mine["attn"]["wq"][:, :, :H * Dh].float().std() > 0
-    again = weights.draw(weights.dims(cfg), 2 ** 40 + 1, "cpu")
+    again = dense.draw(cfg, 2 ** 40 + 1, "cpu")
     assert torch.equal(again["mlp"]["w2"], mine["mlp"]["w2"])
-    other = weights.draw(weights.dims(cfg), 2 ** 40 + 2, "cpu")
+    other = dense.draw(cfg, 2 ** 40 + 2, "cpu")
     assert not torch.equal(other["mlp"]["w2"], mine["mlp"]["w2"])

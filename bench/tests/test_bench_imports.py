@@ -64,7 +64,11 @@ run.execute(cell, 3, 2.0, True, torch.device('cpu'), cfg=cfg,
 
 
 def test_reference_loads_nothing_of_the_program():
-    loaded = _loaded_after("import bench.reference.model")
+    """Every reference module (each family's, and what they share among
+    themselves under ``bench.reference``) loads nothing of the port."""
+    refs = [m for m in _modules() if m.startswith("bench.reference.")]
+    assert "bench.reference.model" in refs
+    loaded = _loaded_after("\n".join(f"import {m}" for m in refs))
     assert "repro_torch" not in loaded and "repro" not in loaded
     for p in (BENCH / "reference").glob("*.py"):
         for node in ast.walk(ast.parse(p.read_text())):
@@ -75,7 +79,8 @@ def test_reference_loads_nothing_of_the_program():
                 names = [node.module]
             for n in names:
                 assert n.split(".")[0] in ("torch", "numpy", "contextlib",
-                                           "__future__"), (p, n)
+                                           "__future__") \
+                    or n.startswith("bench.reference."), (p, n)
 
 
 def test_refuses_without_a_card():

@@ -1,23 +1,16 @@
-"""The plain reference: held against the port's ``.reduced()`` stack on
-the CPU, through the same harness path the card runs; its attention
-held against a direct masked softmax; the fp8 control farther off than
-the port."""
+"""The plain reference: each family's held against the port's tiny stack
+on the CPU, through the same harness path the card runs; the dense
+reference's attention held against a direct masked softmax; the control
+farther off than the port."""
 import dataclasses
 
 import pytest
 import torch
 
-from bench import weights
-from bench.reference.model import PlainModel, fp8_round
-
-ARCHES = ("phi3-mini-3.8b", "qwen3-14b")
-
-
-def _arch(cfg):
-    return dict(layers=cfg.n_layers, d_model=cfg.d_model, heads=cfg.n_heads,
-                kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
-                vocab=cfg.vocab_size, rms_eps=cfg.norm_eps,
-                rope_theta=cfg.rope_theta, qk_norm=cfg.qk_norm)
+from bench import families
+from bench.families import dense
+from bench.reference.model import fp8_round
+from conftest import CELLS, CONFIGS, tiny_config
 
 
 def _cfg(name, **kw):
@@ -25,19 +18,22 @@ def _cfg(name, **kw):
     return dataclasses.replace(get_config(name).reduced(), **kw)
 
 
-@pytest.mark.parametrize("name", ARCHES)
+@pytest.mark.parametrize("name", CONFIGS)
 def test_reference_is_the_ports_prefill(name):
-    """Every position's logits of a 700-token prompt (two of the
-    reference's query blocks): the port's prefill and the reference
-    within bf16 rounding of logits of size about 1 (a tenth of the fp8
-    control's distance)."""
+    """Every position's logits of a 700-token prompt (two of the dense
+    reference's query blocks), at the family's tiny size with a
+    vocabulary of 500 that the port pads: the port's prefill and the
+    reference within bf16 rounding of logits of size about 1 (a tenth of
+    the control's distance)."""
     from repro_torch.models.transformer import prefill
-    cfg = _cfg(name, vocab_size=500)
-    p = weights.draw(weights.dims(cfg), 2 ** 33 + 1, "cpu")
+    c, cfg = tiny_config(name)
+    fam = families.of(c)
+    cfg = dataclasses.replace(cfg, vocab_size=500)
+    p = fam.draw(cfg, 2 ** 33 + 1, "cpu")
     toks = torch.randint(0, 500, (700,), generator=torch.Generator()
                          .manual_seed(1))
-    ref = PlainModel(p, _arch(cfg)).logits(toks, 0)
-    ctl = PlainModel(p, _arch(cfg), "fp8").logits(toks, 0)
+    ref = fam.reference(p, cfg).logits(toks, 0)
+    ctl = fam.reference(p, cfg, control=True).logits(toks, 0)
     for pos in (0, 511, 512, 699):
         lg, _ = prefill(p, toks[None, :pos + 1], cfg)
         assert not lg[0, 500:].any()            # padded vocabulary is zero
@@ -48,7 +44,7 @@ def test_reference_is_the_ports_prefill(name):
 
 def test_attention_is_masked_softmax():
     cfg = _cfg("qwen3-14b", n_heads=8, n_kv_heads=2)
-    m = PlainModel({}, _arch(cfg))
+    m = dense.reference({}, cfg)
     g = torch.Generator().manual_seed(0)
     S, H, KV, Dh = 600, 8, 2, 32
     q, k, v = (torch.randn(S, h, Dh, generator=g) for h in (H, KV, KV))
@@ -68,8 +64,7 @@ def test_fp8_rounding():
     assert y[0, 1] != x[0, 1]                    # 3 mantissa bits
 
 
-@pytest.mark.parametrize("name", ["phi3-mini.chat-sessions",
-                                  "qwen3-14b.long-docs-backlog"])
+@pytest.mark.parametrize("name", CELLS)
 def test_run_holds_the_port_to_the_reference(tiny_cell, name):
     """The harness path at the tiny size: the sampled served tokens'
     widest gap under the tiny limit (the control's side is
